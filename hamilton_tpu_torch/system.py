@@ -1,0 +1,322 @@
+"""System construction via automatic differentiation.
+
+PyTorch counterpart of :mod:`hamilton_tpu.system`.  A :class:`System` holds
+the inertia vector (or an ``inertia_fn`` deriving it from ``params``), the
+physics parameters as a dict of tensors, and the user's pure functions; the
+Jacobian, the rank-3 Hessian and the potential gradient are ``torch.func``
+transforms (``jacfwd``/``grad``) applied on demand.
+
+User-function contract: ``coords`` and ``potential`` are pure functions of
+one member's ``(n,)`` tensor (plus ``params`` when given), written with
+torch operations only and no Python branching on tensor values, so that
+``torch.func.vmap`` maps them over ensemble batch axes.
+
+Parameter sweeps (``params`` leaves with a leading member axis) are not
+ported yet (ROADMAP M9): params here are shared by every member.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+from torch.func import grad, jacfwd, vmap
+
+__all__ = ["System", "mk_system", "mk_system_cart", "underlying_pos"]
+
+Params = Dict[str, torch.Tensor]
+
+
+def _as_params(params, *, device, dtype) -> Optional[Params]:
+    if params is None:
+        return None
+    return {
+        k: torch.as_tensor(v, device=device, dtype=dtype)
+        for k, v in params.items()
+    }
+
+
+class System:
+    """A physical system with ``n`` generalized coordinates embedded in an
+    ``m``-dimensional Cartesian space (counterpart of
+    :class:`hamilton_tpu.system.System`).
+
+    ``device`` and ``dtype`` place the inertia vector and every ``params``
+    tensor; :meth:`to` makes a converted copy (e.g. the float64 system the
+    drift sampler measures with).
+    """
+
+    def __init__(
+        self,
+        inertia,
+        coords: Callable[..., torch.Tensor],
+        potential: Callable[..., torch.Tensor],
+        *,
+        device,
+        dtype: torch.dtype,
+        n: Optional[int] = None,
+        name: str = "system",
+        jacobian_fn: Optional[Callable[..., torch.Tensor]] = None,
+        mass_matrix_fn: Optional[Callable[..., torch.Tensor]] = None,
+        params=None,
+        inertia_fn: Optional[Callable[[Params], torch.Tensor]] = None,
+        fused_forms: Optional[Callable[["System"], object]] = None,
+    ):
+        if inertia_fn is not None:
+            if params is None:
+                raise ValueError("inertia_fn requires params")
+            if inertia is not None:
+                raise ValueError(
+                    "give either a concrete inertia vector or inertia_fn "
+                    "(derived from params), not both"
+                )
+            self._inertia = None
+        else:
+            if inertia is None:
+                raise ValueError(
+                    "inertia is required: give a concrete per-Cartesian-"
+                    "coordinate mass vector, or derive it from params via "
+                    "inertia_fn"
+                )
+            self._inertia = torch.as_tensor(inertia, device=device, dtype=dtype)
+            if self._inertia.ndim != 1:
+                raise ValueError(
+                    f"inertia must be a rank-1 vector of per-Cartesian-"
+                    f"coordinate masses, got shape {tuple(self._inertia.shape)}"
+                )
+        self.params = _as_params(params, device=device, dtype=dtype)
+        self.device = torch.device(device)
+        self.dtype = dtype
+        self.inertia_fn = inertia_fn
+        self.coords = coords
+        self.potential = potential
+        self._n = n
+        self.name = name
+        self.jacobian_fn = jacobian_fn
+        self.mass_matrix_fn = mass_matrix_fn
+        # ``fused_forms(system) -> ops.fused_step.FusedForms``: the closed-form
+        # family contract that ``method="leapfrog_fused"`` builds its stepper
+        # from, called with the live system so it reads the current params
+        self.fused_forms = fused_forms
+
+    # -- params plumbing ------------------------------------------------
+    @property
+    def has_params(self) -> bool:
+        return self.params is not None
+
+    @property
+    def inertia(self) -> torch.Tensor:
+        """The inertia vector: the stored tensor, or ``inertia_fn(params)``."""
+        if self.inertia_fn is None:
+            return self._inertia
+        return self.inertia_fn(self.params)
+
+    def to(self, *, device=None, dtype: Optional[torch.dtype] = None) -> "System":
+        """A copy with the inertia and params moved to ``device``/``dtype``
+        (the functions are shared)."""
+        device = self.device if device is None else device
+        dtype = self.dtype if dtype is None else dtype
+        new = object.__new__(System)
+        new.__dict__.update(self.__dict__)
+        new.device, new.dtype = torch.device(device), dtype
+        if self._inertia is not None:
+            new._inertia = self._inertia.to(device=device, dtype=dtype)
+        new.params = _as_params(self.params, device=device, dtype=dtype)
+        return new
+
+    def replace_params(self, params) -> "System":
+        """A copy with new ``params`` of the same keys and shapes (carried
+        over from another source, e.g. :func:`convert.params_from_numpy`)."""
+        if self.params is None:
+            raise ValueError(f"system {self.name!r} carries no params")
+        new_params = _as_params(params, device=self.device, dtype=self.dtype)
+        if set(new_params) != set(self.params):
+            raise ValueError(
+                f"replace_params: keys {sorted(new_params)} do not match the "
+                f"system's {sorted(self.params)}"
+            )
+        for k, v in new_params.items():
+            if v.shape != self.params[k].shape:
+                raise ValueError(
+                    f"replace_params: {k!r} has shape {tuple(v.shape)}, the "
+                    f"system's is {tuple(self.params[k].shape)} (per-member "
+                    f"parameter sweeps are ROADMAP M9)"
+                )
+        new = self.to()
+        new.params = new_params
+        return new
+
+    # -- dimensions -----------------------------------------------------
+    @property
+    def m(self) -> int:
+        """Cartesian (underlying) dimension."""
+        return self.inertia.shape[-1]
+
+    @property
+    def n(self) -> Optional[int]:
+        """Generalized-coordinate dimension, if declared at construction."""
+        return self._n
+
+    # -- member-level closures (params bound) ---------------------------
+    def coords_bound(self) -> Callable[[torch.Tensor], torch.Tensor]:
+        if self.params is None:
+            return self.coords
+        p = self.params
+        return lambda q: self.coords(q, p)
+
+    def potential_bound(self) -> Callable[[torch.Tensor], torch.Tensor]:
+        if self.params is None:
+            return self.potential
+        p = self.params
+        return lambda q: self.potential(q, p)
+
+    # -- AD-derived closures ----------------------------------------------
+    def jacobian(self, q: torch.Tensor) -> torch.Tensor:
+        """``J(q) = df/dq``, shape ``(m, n)``: the analytic ``jacobian_fn``
+        when given, else forward-mode AD of ``coords``."""
+        if self.jacobian_fn is not None:
+            if self.params is None:
+                return self.jacobian_fn(q)
+            return self.jacobian_fn(q, self.params)
+        return jacfwd(self.coords_bound())(q)
+
+    def hessian(self, q: torch.Tensor) -> torch.Tensor:
+        """Rank-3 ``d²f/dq²``, shape ``(m, n, n)``."""
+        return jacfwd(jacfwd(self.coords_bound()))(q)
+
+    def potential_value(self, q: torch.Tensor) -> torch.Tensor:
+        """``U(q)`` as a 0-d tensor."""
+        return torch.as_tensor(self.potential_bound()(q)).reshape(())
+
+    def potential_grad(self, q: torch.Tensor) -> torch.Tensor:
+        """``∇U(q)``, shape ``(n,)``."""
+        fn = self.potential_bound()
+        return grad(lambda qq: fn(qq).reshape(()))(q)
+
+    def underlying_pos(self, q: torch.Tensor) -> torch.Tensor:
+        """``f(q)``: generalized → Cartesian positions."""
+        return self.coords_bound()(q)
+
+    def __repr__(self) -> str:
+        return f"System(name={self.name!r}, m={self.m}, n={self._n})"
+
+
+def map_member(system: System, fn, *args):
+    """Map a member-level ``fn(*member_args, params)`` over the leading batch
+    axes of ``args`` (each ``(..., n)``-shaped, batch shapes equal) with
+    ``torch.func.vmap``; ``params`` is shared by every member."""
+    p = system.params
+
+    def g(*a):
+        return fn(*a, p)
+
+    for _ in range(args[0].ndim - 1):
+        g = vmap(g)
+    return g(*args)
+
+
+def mk_system(
+    inertia,
+    coords: Callable[..., torch.Tensor],
+    potential: Callable[..., torch.Tensor],
+    *,
+    device,
+    dtype: torch.dtype,
+    n: Optional[int] = None,
+    name: str = "system",
+    jacobian_fn=None,
+    mass_matrix_fn=None,
+    params=None,
+    inertia_fn=None,
+    fused_forms=None,
+) -> System:
+    """Create a system from generalized-coordinate data (counterpart of
+    :func:`hamilton_tpu.system.mk_system`); with ``n`` given, the user
+    functions are shape-checked at construction."""
+    system = System(
+        inertia, coords, potential, device=device, dtype=dtype, n=n,
+        name=name, jacobian_fn=jacobian_fn, mass_matrix_fn=mass_matrix_fn,
+        params=params, inertia_fn=inertia_fn, fused_forms=fused_forms,
+    )
+    if n is not None:
+        _validate_system(system, n)
+    return system
+
+
+def _validate_system(system: System, n: int) -> None:
+    """Shape-check the user functions on a zero ``(n,)`` probe — the
+    counterpart of the reference's ``jax.eval_shape`` checks (the probe is
+    one tiny member, so evaluating it costs nothing)."""
+    if system.inertia_fn is not None:
+        try:
+            i_out = system.inertia_fn(system.params)
+        except Exception as e:
+            raise ValueError(f"inertia_fn failed on the params: {e}") from e
+        if i_out.ndim != 1:
+            raise ValueError(
+                f"inertia_fn must return a rank-1 (m,) vector, got shape "
+                f"{tuple(i_out.shape)}"
+            )
+    probe = torch.zeros(n, device=system.device, dtype=system.dtype)
+
+    def shape_of(fn, *args):
+        if system.has_params:
+            return tuple(torch.as_tensor(fn(*args, system.params)).shape)
+        return tuple(torch.as_tensor(fn(*args)).shape)
+
+    checks = [
+        ("coords function", system.coords, (system.m,)),
+        ("potential function", system.potential, None),
+        ("jacobian_fn", system.jacobian_fn, (system.m, n)),
+        ("mass_matrix_fn", system.mass_matrix_fn, (n, n)),
+    ]
+    for label, fn, want in checks:
+        if fn is None:
+            continue
+        try:
+            got = shape_of(fn, probe)
+        except Exception as e:
+            raise ValueError(f"{label} failed on a ({n},) input: {e}") from e
+        if want is None:
+            if got not in ((), (1,)):
+                raise ValueError(f"potential must return a scalar, got shape {got}")
+        elif got != want:
+            raise ValueError(
+                f"{label} must map ({n},) -> {want}, got output shape {got}"
+            )
+
+
+def mk_system_cart(
+    inertia,
+    coords: Callable[..., torch.Tensor],
+    potential_cart: Callable[..., torch.Tensor],
+    *,
+    device,
+    dtype: torch.dtype,
+    n: Optional[int] = None,
+    name: str = "system",
+    jacobian_fn=None,
+    mass_matrix_fn=None,
+    params=None,
+    inertia_fn=None,
+    fused_forms=None,
+) -> System:
+    """Create a system with the potential stated in *Cartesian* coordinates
+    (counterpart of :func:`hamilton_tpu.system.mk_system_cart`)."""
+    if params is not None:
+        def potential(q, p):
+            return potential_cart(coords(q, p), p)
+    else:
+        def potential(q):
+            return potential_cart(coords(q))
+    return mk_system(
+        inertia, coords, potential, device=device, dtype=dtype, n=n,
+        name=name, jacobian_fn=jacobian_fn, mass_matrix_fn=mass_matrix_fn,
+        params=params, inertia_fn=inertia_fn, fused_forms=fused_forms,
+    )
+
+
+def underlying_pos(system: System, q: torch.Tensor) -> torch.Tensor:
+    """Generalized → underlying Cartesian positions, batched over any
+    leading axes of ``q``."""
+    return map_member(system, lambda qq, _p: system.underlying_pos(qq), q)
