@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py            # from the root of a checkout; needs one card
 
-Builds the hand-written fused-step kernel (``hamilton_tpu_torch/csrc/
-fused_step.cu``) with nvcc, then runs five phases and raises as soon as one
-fails:
+Builds the hand-written kernels (``hamilton_tpu_torch/csrc/fused_step.cu``
+and ``csrc/batched_spd.cu``, one nvcc each, at once), then runs these phases
+and raises as soon as one fails:
 
 1. kernel against its plain PyTorch version: one 50-step call on a ragged
    batch of 1000 members, chain-20 (semiseparable, ``(2,0)``, Kahan) and the
@@ -15,7 +15,8 @@ fails:
 3. the headline: ``evolve_ensemble_chunked`` on 16384 × chain-20, float32,
    ``(2,0)``, Kahan, dt=5e-4, 2e5 steps in chunks of 1e4, 50 steps per
    launch, float64 drift sampled every 1000 steps — exactly one launch per
-   50 steps, finite output, ``max|ΔH/H₀| < 1e-6``;
+   50 steps and one float64 K2a solve per drift sample, finite output,
+   ``max|ΔH/H₀| < 1e-6``;
 4. the double pendulum: 16384 members, float32, ``(2,1)``, dt=1e-3, 1e4
    steps through ``evolve_ensemble_final`` without drift tracking, called
    20 times back to back so the timed window spans a few hundred ms;
@@ -25,10 +26,31 @@ fails:
    issue one;
 6. control: the headline run again without Kahan compensation, whose drift
    must exceed the bound of phase 3 — so that bound can see a kernel that
-   loses the compensation.
+   loses the compensation;
+7. the five batched tiny-SPD kernels (K2a-K2e) against their plain versions
+   on B=1000 and B=16384 at n = 3, 20, 32 in float32 and float64 (random SPD
+   K, and √M·J with m = 2n, from a seed), and each kernel's device time at
+   16384 × 20 beside its plain version's;
+8. adaptive GSL-RKF45 ``evolve_ham`` at full width (``bench.py::
+   phase_adaptive``): 16384 × chain-20, one shared controller over t ∈ [0, 1],
+   float64 at GSL's eps and float32 at eps 1e-6 — exactly six K2a launches
+   per attempt, not saturated, finite, and in float64 ``max|ΔH/H₀|`` under
+   the bound taken from the JAX package's CPU run;
+9. that adaptive path on the card (the kernels) against the CPU (the plain
+   versions): 8 members, float64, shared and per-member controllers —
+   agreement to 1e-12 and the same step counts;
+10. the library leapfrog at full width: ``evolve_ensemble_final(method=
+    "leapfrog", iters=(2, 0), compensated=True)`` on 16384 × chain-20,
+    float32, 2000 steps, float64 drift every 1000 — one K2b and five K2c
+    launches per step;
+11. the J route at full width: a 20-link chain given by its coordinate map
+    and potential alone (no analytic Jacobian or mass matrix), 200 library
+    leapfrog steps on 16384 members in float32 (K2e, K2c; K2d in its float64
+    drift samples), and ``evolve_ham`` of 16384 springs in float64 over 10
+    output intervals (K2d); each against the CPU on a 1000-member slice.
 
-Prints the card's name and power limit, the CUDA version, the build time
-and nvcc's register/spill report, one JSON line describing the kernel, and
+Prints the card's name and power limit, the CUDA version, the build times
+and nvcc's register/spill report, one JSON line describing the kernels, and
 as its last line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -81,6 +103,36 @@ DP_STEPS = 10_000
 DP_REPEATS = 20
 REPLACES = "hamilton_tpu/ops/pallas_step.py:585"
 SOURCE = "hamilton_tpu_torch/csrc/fused_step.cu"
+K2_SOURCE = "hamilton_tpu_torch/csrc/batched_spd.cu"
+# The K2 kernels compute their plain versions' IEEE operations in the same
+# order (round-to-nearest intrinsics, never fused into an FMA), so the two
+# agree bit for bit: every reading on an H100 80GB HBM3 was 0, and the limit
+# is equality.  A nonzero difference means the kernel no longer does the
+# plain version's arithmetic.
+K2_TOL = 0.0
+K2_SIZES = (3, 20, 32)
+K2_BATCHES = (1000, BATCH)
+# The dtype each K2 entry runs in on its main path at n = 20 (the adaptive
+# float64 run and the drift samplers for K2a and K2d, the float32 library
+# leapfrogs for K2b, K2c and K2e): the kernels line reports that time.
+K2_MAIN_DTYPE = {"spd_solve_batched": "float64", "cholesky_batched": "float32",
+                 "cho_solve_batched": "float32", "spd_solve_jac": "float64",
+                 "cholesky_jac": "float32"}
+# Adaptive float64 at GSL's eps: the JAX package's CPU run of the same
+# configuration at 64 members read max|ΔH/H₀| = 8.22e-9 (75 attempts);
+# the bound allows 12x that for the max over 16384 members.
+ADAPTIVE_DRIFT_BOUND = 1e-7
+GSL_EPS = 1.49012e-08
+ADAPTIVE_F32_EPS = 1e-6
+# Card against CPU in float64 (phases 9 and 11): the same arithmetic except
+# PyTorch's sin/cos/exp and reductions, which differ by ulps between the two;
+# readings ≲ 7e-14 on |p| ≤ 38 over t ≤ 1.
+CPU_TOL_F64 = 1e-12
+# Card against CPU in float32 over 20 leapfrog steps of the J route: ulps of
+# sin/cos through chain-20's K; the reading is 6.0e-8 (one ulp of |q| ~ 0.5).
+CPU_TOL_F32 = 6e-7
+LEAPFROG_STEPS = 2000
+J_STEPS = 200
 
 
 def log(msg: str) -> None:
@@ -96,19 +148,34 @@ def card_line() -> str:
 
 
 _KERNEL_RE = re.compile(r"fused_step_kernelI([fd])Li(\d+)ELb([01])ELb([01])E")
+_K2_RE = re.compile(r"(factor_solve_kernel|factor_kernel|substitute_kernel)I([fd])(?:Lb([01])E)?")
+_K2_NAMES = {("factor_solve_kernel", "0"): "spd_solve (K2a)",
+             ("factor_kernel", "0"): "cholesky (K2b)",
+             ("substitute_kernel", None): "cho_solve (K2c)",
+             ("factor_solve_kernel", "1"): "spd_solve_jac (K2d)",
+             ("factor_kernel", "1"): "cholesky_jac (K2e)"}
 
 
-def ptxas_report(log_text: str):
+def _k1_label(m):
+    t, n, semi, comp = m.groups()
+    return (f"{'float' if t == 'f' else 'double'} n={n} "
+            f"{'semiseparable' if semi == '1' else 'dense'}"
+            f"{' kahan' if comp == '1' else ''}")
+
+
+def _k2_label(m):
+    kind, t, from_j = m.groups()
+    return f"{'float' if t == 'f' else 'double'} {_K2_NAMES[(kind, from_j)]}"
+
+
+def ptxas_report(log_text: str, pattern=_KERNEL_RE, label=_k1_label):
     """nvcc's ``-Xptxas -v`` lines per kernel instantiation:
     ``[(name, registers, spill_stores, spill_loads)]``."""
     rows, current, spills = [], None, None
     for line in log_text.splitlines():
-        m = _KERNEL_RE.search(line)
+        m = pattern.search(line)
         if m and "Compiling entry" in line:
-            t, n, semi, comp = m.groups()
-            current = (f"{'float' if t == 'f' else 'double'} n={n} "
-                       f"{'semiseparable' if semi == '1' else 'dense'}"
-                       f"{' kahan' if comp == '1' else ''}")
+            current = label(m)
             spills = None
         s = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if s and current:
@@ -160,7 +227,130 @@ def compare_states(kernel_out, plain_out, dtype_name):
     return max(errs["q"], errs["p"]), errs, failures
 
 
+def time_call(fn, reps):
+    """``(device ms per call, last result)`` between CUDA events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, out
+
+
+def time_queued(fn, reps):
+    """``(device ms, host ms)`` per call: the stream is held by a spin
+    kernel while the host issues ``reps`` calls (host ms is that wall
+    time per call), so the events then time the calls back to back on
+    the card, free of the host's cost."""
+    import torch
+
+    cycles = 10**8
+    while True:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host = (time.perf_counter() - t0) / reps * 1e3
+        held = not start.query()  # the card still spins: nothing ran yet
+        end.record()
+        end.synchronize()
+        if held:
+            return start.elapsed_time(end) / reps, host
+        if cycles >= 10**10:
+            raise AssertionError("the host could not queue the calls ahead of the card")
+        cycles *= 4
+
+
+def counted(fn):
+    """``(fn(), counts)``: every launch count set to 0 just before the run
+    and read just after it, the card synchronized on both sides."""
+    import torch
+    from hamilton_tpu_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, kernels.launch_counts()
+
+
+def expect_counts(label, counts, **want):
+    """Raise unless exactly the ``want`` kernels launched, that often."""
+    full = {name: 0 for name in counts}
+    full.update(want)
+    if counts != full:
+        raise AssertionError(f"{label}: launch counts {counts}, expected {full}")
+
+
+def all_finite(*tensors) -> bool:
+    import torch
+
+    return all(bool(torch.isfinite(t).all()) for t in tensors)
+
+
+def rel_drift(system, first, last):
+    """``max|H(last) − H(first)| / max(|H(first)|, 1)`` in float64."""
+    import torch
+    from hamilton_tpu_torch.mechanics import hamiltonian
+
+    sys64 = system.to(dtype=torch.float64)
+    h0 = hamiltonian(sys64, first.astype(torch.float64))
+    h1 = hamiltonian(sys64, last.astype(torch.float64))
+    return float(((h1 - h0).abs() / h0.abs().clamp(min=1.0)).max())
+
+
+def generic_chain(n, device, dtype):
+    """The n-link chain as a user states it (the reference README's flow):
+    a coordinate map and a Cartesian potential, no analytic Jacobian or mass
+    matrix, unit masses and lengths, gravity 5 — ``chain(n_links=n)``'s
+    physics on the J route."""
+    import torch
+    from hamilton_tpu_torch.system import mk_system_cart
+
+    def coords(q):
+        return torch.cat([torch.cumsum(torch.sin(q), 0), torch.cumsum(1.0 - torch.cos(q), 0)])
+
+    def potential_cart(xs):
+        return 5.0 * torch.sum(xs[n:])
+
+    return mk_system_cart(torch.ones(2 * n), coords, potential_cart, device=device,
+                          dtype=dtype, n=n, name=f"chain{n} from its coordinate map")
+
+
+def k2_inputs(batch, n, dtype, device, seed):
+    """Random SPD K (B, n, n), √M·J (B, 2n, n) and b (B, n) from a seed."""
+    import torch
+    from hamilton_tpu_torch.ops.batched_spd import jac_scaled
+
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randn(batch, n, n, generator=g, dtype=torch.float64)
+    k = a @ a.mT + n * torch.eye(n, dtype=torch.float64)
+    j = 0.3 * torch.randn(batch, 2 * n, n, generator=g, dtype=torch.float64)
+    j[:, :n] += torch.eye(n, dtype=torch.float64)
+    inertia = 1.0 + torch.rand(2 * n, generator=g, dtype=torch.float64)
+    b = torch.randn(batch, n, generator=g, dtype=torch.float64)
+    k, j, inertia, b = (t.to(device=device, dtype=dtype) for t in (k, j, inertia, b))
+    return k, jac_scaled(j, inertia), b
+
+
+def k2_args(entry, k, js, b):
+    """An entry's operands: K, a factor of K (K2c), or √M·J, and b."""
+    from hamilton_tpu_torch.ops.batched_spd import cholesky_plain
+
+    src = js if entry.from_jac else (cholesky_plain(k) if entry.name == "cho_solve_batched" else k)
+    return (src, b) if entry.solves else (src,)
+
+
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -190,17 +380,18 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     # ---- build ----------------------------------------------------------
-    build = kernels.build_fused_step()
-    log(f"build: {build.seconds:.1f} s ({build.path.name})")
-    regs = ptxas_report(build.log)
-    if not regs:
-        raise AssertionError("nvcc printed no -Xptxas -v report")
-    for name, nreg, st, ld in regs:
-        log(f"ptxas: {name:<34} {nreg:3d} registers, spill stores {st} B, "
-            f"spill loads {ld} B")
-    for line in build.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log(f"nvcc: {line.strip()}")
+    t0 = time.perf_counter()
+    builds = kernels.build_all()
+    log(f"build: {time.perf_counter() - t0:.1f} s for {len(builds)} sources at once ("
+        + ", ".join(f"{b.path.name} {b.seconds:.1f} s" for b in builds.values()) + ")")
+    for name, pattern, label in (("fused_step", _KERNEL_RE, _k1_label),
+                                 ("batched_spd", _K2_RE, _k2_label)):
+        regs = ptxas_report(builds[name].log, pattern, label)
+        if not regs:
+            raise AssertionError(f"nvcc printed no -Xptxas -v report for {name}")
+        for kname, nreg, st, ld in regs:
+            log(f"ptxas: {kname:<34} {nreg:3d} registers, spill stores {st} B, "
+                f"spill loads {ld} B")
 
     def chain20(dtype):
         return chain(n_links=20, fused_solver="semiseparable", device=dev, dtype=dtype)
@@ -271,14 +462,20 @@ def main() -> int:
         )
 
     torch.cuda.synchronize()
-    kernels.fused_step_launch.launches = 0
+    kernels.reset_launches()
     t0 = time.perf_counter()
     final, drift = headline(True, on_chunk)
     torch.cuda.synchronize()
-    head_launches = kernels.fused_step_launch.launches
+    counts = kernels.launch_counts()
+    head_launches = counts["fused_step"]
     if head_launches != n_steps // spc:
         raise AssertionError(f"headline made {head_launches} kernel launches, "
                              f"expected {n_steps // spc}")
+    # the sampler: H₀ and one float64 K2a solve per sample
+    expect_samples = {**{k: 0 for k in counts}, "fused_step": n_steps // spc,
+                      "spd_solve": 1 + n_steps // 1000}
+    if counts != expect_samples:
+        raise AssertionError(f"headline launch counts {counts}, expected {expect_samples}")
     if not (bool(torch.isfinite(final.q).all()) and bool(torch.isfinite(final.p).all())
             and bool(torch.isfinite(drift).all())):
         raise AssertionError("headline output is not finite")
@@ -290,7 +487,7 @@ def main() -> int:
     log(f"phase 3: headline 16384 x chain-20 float32 (2,0) kahan dt=5e-4, "
         f"{n_steps} steps: {head_rate:.6e} member-steps/s over {len(steady)} "
         f"steady chunks (first chunk {marks[0] - t0:.3f} s), "
-        f"max|dH/H0| {max_drift:.6e}, {head_launches} launches")
+        f"max|dH/H0| {max_drift:.6e}, launches {counts}")
     if not max_drift < DRIFT_BOUND:
         raise AssertionError(f"headline drift {max_drift:.3e} >= {DRIFT_BOUND}")
 
@@ -306,7 +503,7 @@ def main() -> int:
 
     dp_run(spc)  # first launch outside the timing
     torch.cuda.synchronize()
-    kernels.fused_step_launch.launches = 0
+    kernels.reset_launches()
     t0 = time.perf_counter()
     for _ in range(DP_REPEATS):
         dp_final = dp_run(DP_STEPS)
@@ -324,41 +521,6 @@ def main() -> int:
         f"({dp_launches} launches, {dp_el / dp_launches * 1e6:.2f} us of wall each)")
 
     # ---- phase 5: plain version's time beside the kernel's -----------------
-    def time_call(fn, reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            out = fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps, out
-
-    def time_queued(fn, reps):
-        """``(device ms, host ms)`` per call: the stream is held by a spin
-        kernel while the host issues ``reps`` calls (host ms is that wall
-        time per call), so the events then time the calls back to back on
-        the card, free of the host's cost."""
-        cycles = 10**8
-        while True:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            torch.cuda._sleep(cycles)
-            start.record()
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            host = (time.perf_counter() - t0) / reps * 1e3
-            held = not start.query()  # the card still spins: nothing ran yet
-            end.record()
-            end.synchronize()
-            if held:
-                return start.elapsed_time(end) / reps, host
-            if cycles >= 10**10:
-                raise AssertionError("the host could not queue the calls ahead of the card")
-            cycles *= 4
-
     entries = []
     shapes = [
         ("fused_step semiseparable n=20 float32 kahan (2,0)", ex20, ph, (2, 0), True,
@@ -406,8 +568,8 @@ def main() -> int:
     ph64 = final.astype(torch.float64)
     hamiltonian(sys64, ph64)
     h_ms, _ = time_call(lambda: hamiltonian(sys64, ph64), 5)
-    log(f"phase 5: drift sample (float64 hamiltonian, 16384 x chain-20): {h_ms:.3f} ms; "
-        f"{n_steps // 1000} samples in the headline")
+    log(f"phase 5: drift sample (float64 hamiltonian, 16384 x chain-20, K2a solve): "
+        f"{h_ms:.3f} ms; {n_steps // 1000} samples in the headline")
 
     # ---- phase 6: control without compensation ------------------------------
     ctl_final, ctl_drift = headline(False)
@@ -422,12 +584,195 @@ def main() -> int:
             f"{DRIFT_BOUND}: the headline's drift check cannot see a lost compensation"
         )
 
+    # ---- phase 7: the K2 kernels against their plain versions ---------------
+    from hamilton_tpu_torch.ops.batched_spd import ENTRIES
+
+    k2_rows = {e.name: {"max_abs_err": 0.0} for e in ENTRIES}
+    for batch in K2_BATCHES:
+        for n in K2_SIZES:
+            for dtype in (torch.float32, torch.float64):
+                dname = str(dtype).split(".")[-1]
+                k, js, b = k2_inputs(batch, n, dtype, dev, 1000 * n + batch)
+                row = []
+                for e in ENTRIES:
+                    args = k2_args(e, k, js, b)
+                    got, want = e.kernel(*args), e.plain(*args)
+                    torch.cuda.synchronize()
+                    if not all_finite(got, want):
+                        raise AssertionError(f"{e.name} B={batch} n={n} {dname}: not finite")
+                    err = float((got - want).abs().max())
+                    k2_rows[e.name]["max_abs_err"] = max(k2_rows[e.name]["max_abs_err"], err)
+                    row.append(f"{e.name} {err:.1e}")
+                    if not err <= K2_TOL:
+                        raise AssertionError(f"{e.name} B={batch} n={n} {dname}: kernel "
+                                             f"differs from its plain version by {err:.3e}")
+                log(f"phase 7 ok: B={batch} n={n} {dname}: " + ", ".join(row))
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        k, js, b = k2_inputs(BATCH, 20, dtype, dev, 7)
+        for e in ENTRIES:
+            args = k2_args(e, k, js, b)
+            e.kernel(*args)
+            e.plain(*args)  # warm-up
+            # in turns on one card: plain, kernel, kernel, plain
+            p1, _ = time_call(lambda: e.plain(*args), 2)
+            k1, _ = time_queued(lambda: e.kernel(*args), 100)
+            k2, _ = time_queued(lambda: e.kernel(*args), 100)
+            p2, _ = time_call(lambda: e.plain(*args), 2)
+            log(f"phase 7: {e.name} 16384 x n=20 {dname}: kernel {(k1 + k2) / 2:.4f} ms "
+                f"({k1:.4f}, {k2:.4f}), plain {(p1 + p2) / 2:.3f} ms ({p1:.3f}, {p2:.3f})")
+            if K2_MAIN_DTYPE[e.name] == dname:
+                k2_rows[e.name].update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, dtype=dname)
+
+    # ---- phase 8: adaptive GSL-RKF45 at full width --------------------------
+    from hamilton_tpu_torch import Config, Phase, evolve_ham, spring, to_phase
+    from hamilton_tpu_torch.integrators import adaptive
+
+    summary = {}
+    for dtype, eps in ((torch.float64, GSL_EPS), (torch.float32, ADAPTIVE_F32_EPS)):
+        dname = str(dtype).split(".")[-1]
+        exa = chain(n_links=20, device=dev, dtype=dtype)
+        pha = jittered_phase(exa, BATCH, dtype, dev, 0)
+        adaptive.gsl_evolve_to.host_reads = 0
+        t0 = time.perf_counter()
+        (out, st), counts = counted(lambda: evolve_ham(
+            exa.system, pha, [0.0, 1.0], eps_abs=eps, eps_rel=eps, return_stats=True))
+        el = time.perf_counter() - t0
+        stats = {k: int(v) for k, v in st.items()}
+        attempts = adaptive.gsl_evolve_to.host_reads - 1
+        if stats["saturated"] or attempts != stats["max_interval_steps"]:
+            raise AssertionError(f"adaptive {dname}: stats {stats}, {attempts} attempts")
+        expect_counts(f"adaptive {dname}", counts, spd_solve=6 * attempts)
+        if not all_finite(out.q, out.p) or tuple(out.q.shape) != (2, BATCH, 20):
+            raise AssertionError(f"adaptive {dname}: output not finite or shaped "
+                                 f"{tuple(out.q.shape)}")
+        drift_a = rel_drift(exa.system, Phase(out.q[0], out.p[0]), Phase(out.q[1], out.p[1]))
+        log(f"phase 8: adaptive rkf45 16384 x chain-20 {dname} eps={eps:g} t in [0, 1]: "
+            f"{el:.3f} s, {BATCH / el:.6e} trajectories/s, {attempts} attempts "
+            f"({stats['total_failed']} rejected), saturated {bool(stats['saturated'])}, "
+            f"{counts['spd_solve']} K2a launches, {attempts + 1} host reads, "
+            f"max|dH/H0| at t=1 {drift_a:.6e}")
+        summary[f"adaptive_{dname}_traj_per_sec"] = BATCH / el
+        summary[f"adaptive_{dname}_max_drift"] = drift_a
+        if dtype == torch.float64:
+            k2_rows["spd_solve_batched"]["launches"] = counts["spd_solve"]
+            if not drift_a < ADAPTIVE_DRIFT_BOUND:
+                raise AssertionError(f"adaptive float64 drift {drift_a:.3e} >= "
+                                     f"{ADAPTIVE_DRIFT_BOUND}")
+            ex64, ph64a = exa, pha
+
+    # ---- phase 9: the adaptive path on the card against the CPU -------------
+    ex_cpu = chain(n_links=20, device="cpu", dtype=torch.float64)
+    ph8 = Phase(ph64a.q[:8], ph64a.p[:8])
+    for mode in ("shared", "per_member"):
+        card_out, card_st = evolve_ham(ex64.system, ph8, [0.0, 1.0], batch_mode=mode,
+                                       return_stats=True)
+        cpu_out, cpu_st = evolve_ham(ex_cpu.system, Phase(ph8.q.cpu(), ph8.p.cpu()),
+                                     [0.0, 1.0], batch_mode=mode, return_stats=True)
+        err = max(float((card_out.q.cpu() - cpu_out.q).abs().max()),
+                  float((card_out.p.cpu() - cpu_out.p).abs().max()))
+        card_st = {k: int(v) for k, v in card_st.items()}
+        cpu_st = {k: int(v) for k, v in cpu_st.items()}
+        log(f"phase 9: adaptive chain-20 float64 8 members {mode}: card vs CPU {err:.3e} "
+            f"(|p| up to {float(cpu_out.p.abs().max()):.2f}), stats card {card_st} "
+            f"CPU {cpu_st}")
+        if not err <= CPU_TOL_F64 or card_st != cpu_st:
+            raise AssertionError(f"adaptive {mode}: card and CPU differ by {err:.3e} "
+                                 f"(limit {CPU_TOL_F64}) or in their steps")
+
+    # ---- phase 10: the library leapfrog at full width -----------------------
+    t0 = time.perf_counter()
+    (lf_final, lf_drift), counts = counted(lambda: evolve_ensemble_final(
+        ex20.system, ph, 5e-4, LEAPFROG_STEPS, method="leapfrog", iters=(2, 0),
+        compensated=True, drift_every=1000, drift_dtype=torch.float64))
+    el = time.perf_counter() - t0
+    expect_counts("library leapfrog", counts, cholesky=LEAPFROG_STEPS + 1,
+                  cho_solve=5 * LEAPFROG_STEPS, spd_solve=1 + LEAPFROG_STEPS // 1000)
+    if not all_finite(lf_final.q, lf_final.p, lf_drift):
+        raise AssertionError("library leapfrog output is not finite")
+    lf_rate = BATCH * LEAPFROG_STEPS / el
+    log(f"phase 10: library leapfrog 16384 x chain-20 float32 (2,0) kahan dt=5e-4, "
+        f"{LEAPFROG_STEPS} steps in {el:.3f} s: {lf_rate:.6e} member-steps/s, "
+        f"max|dH/H0| {float(lf_drift.max()):.6e}, launches {counts}")
+    summary["library_leapfrog_member_steps_per_sec"] = lf_rate
+    summary["library_leapfrog_max_drift"] = float(lf_drift.max())
+    k2_rows["cholesky_batched"]["launches"] = counts["cholesky"]
+    k2_rows["cho_solve_batched"]["launches"] = counts["cho_solve"]
+
+    # ---- phase 11: the J route at full width --------------------------------
+    sys_j = generic_chain(20, dev, torch.float32)
+    t0 = time.perf_counter()
+    (j_final, j_drift), counts = counted(lambda: evolve_ensemble_final(
+        sys_j, ph, 5e-4, J_STEPS, method="leapfrog", iters=(2, 0), compensated=True,
+        drift_every=100, drift_dtype=torch.float64))
+    el = time.perf_counter() - t0
+    expect_counts("J-route leapfrog", counts, cholesky_jac=J_STEPS + 1,
+                  cho_solve=5 * J_STEPS, spd_solve_jac=1 + J_STEPS // 100)
+    if not all_finite(j_final.q, j_final.p, j_drift):
+        raise AssertionError("J-route leapfrog output is not finite")
+    j_rate = BATCH * J_STEPS / el
+    log(f"phase 11: J-route leapfrog 16384 x chain-20 from its coordinate map, float32 "
+        f"(2,0) kahan dt=5e-4, {J_STEPS} steps in {el:.3f} s: {j_rate:.6e} "
+        f"member-steps/s, max|dH/H0| {float(j_drift.max()):.6e}, launches {counts}")
+    summary["j_route_leapfrog_member_steps_per_sec"] = j_rate
+    k2_rows["cholesky_jac"]["launches"] = counts["cholesky_jac"]
+    sl = Phase(ph.q[:1000], ph.p[:1000])
+    run = dict(method="leapfrog", iters=(2, 0), compensated=True, track_drift=False,
+               drift_every=20)
+    j_card, _ = evolve_ensemble_final(sys_j, sl, 5e-4, 20, **run)
+    j_cpu, _ = evolve_ensemble_final(generic_chain(20, "cpu", torch.float32),
+                                     Phase(sl.q.cpu(), sl.p.cpu()), 5e-4, 20, **run)
+    err = max(float((j_card.q.cpu() - j_cpu.q).abs().max()),
+              float((j_card.p.cpu() - j_cpu.p).abs().max()))
+    log(f"phase 11: J-route leapfrog, 1000 members x 20 steps, card vs CPU: {err:.3e}")
+    if not err <= CPU_TOL_F32:
+        raise AssertionError(f"J-route leapfrog: card and CPU differ by {err:.3e}")
+
+    sp = spring(device=dev, dtype=torch.float64)
+    rng = np.random.default_rng(3)
+    q_sp = sp.init_config.q.cpu().numpy() + 0.01 * rng.standard_normal((BATCH, 3))
+    ph_sp = to_phase(sp.system, Config(torch.tensor(q_sp, device=dev),
+                                       sp.init_config.v.expand(BATCH, 3)))
+    ts = torch.linspace(0.0, 1.0, 11, dtype=torch.float64)
+    adaptive.gsl_evolve_to.host_reads = 0
+    t0 = time.perf_counter()
+    (sp_out, st), counts = counted(lambda: evolve_ham(sp.system, ph_sp, ts, return_stats=True))
+    el = time.perf_counter() - t0
+    attempts = adaptive.gsl_evolve_to.host_reads - (len(ts) - 1)
+    stats = {k: int(v) for k, v in st.items()}
+    expect_counts("spring evolve_ham", counts, spd_solve_jac=6 * attempts)
+    if stats["saturated"] or not all_finite(sp_out.q, sp_out.p):
+        raise AssertionError(f"spring evolve_ham: stats {stats}, or output not finite")
+    log(f"phase 11: spring evolve_ham 16384 float64 over 10 intervals: {el:.3f} s, "
+        f"{BATCH / el:.6e} trajectories/s, {attempts} attempts ({stats['total_failed']} "
+        f"rejected), {counts['spd_solve_jac']} K2d launches, max|dH/H0| at t=1 "
+        f"{rel_drift(sp.system, Phase(sp_out.q[0], sp_out.p[0]), Phase(sp_out.q[-1], sp_out.p[-1])):.6e}")
+    k2_rows["spd_solve_jac"]["launches"] = counts["spd_solve_jac"]
+    sp_card = evolve_ham(sp.system, Phase(ph_sp.q[:1000], ph_sp.p[:1000]), ts)
+    sp_cpu = evolve_ham(spring(device="cpu", dtype=torch.float64).system,
+                        Phase(ph_sp.q[:1000].cpu(), ph_sp.p[:1000].cpu()), ts)
+    err = max(float((sp_card.q.cpu() - sp_cpu.q).abs().max()),
+              float((sp_card.p.cpu() - sp_cpu.p).abs().max()))
+    log(f"phase 11: spring evolve_ham, 1000 members, card vs CPU: {err:.3e}")
+    if not err <= CPU_TOL_F64:
+        raise AssertionError(f"spring evolve_ham: card and CPU differ by {err:.3e}")
+
+    for e in ENTRIES:
+        r = k2_rows[e.name]
+        if not r.get("launches"):
+            raise AssertionError(f"{e.name}: its main path launched it no time")
+        entries.append({
+            "name": f"{e.name} n=20 {r['dtype']}", "route": "cuda", "source": K2_SOURCE,
+            "replaces": e.replaces, "launches": r["launches"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+        })
+
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     log(json.dumps({
         "headline_member_steps_per_sec": head_rate, "headline_max_drift": max_drift,
         "headline_steps": n_steps, "dp_member_steps_per_sec": dp_rate,
-        "control_uncompensated_max_drift": ctl_max,
+        "control_uncompensated_max_drift": ctl_max, **summary,
     }))
     log(json.dumps({"kernels": entries}))
     log(card)

@@ -3,17 +3,29 @@ CUDA kernels for an NVIDIA H100.
 
 The PyTorch port of :mod:`hamilton_tpu`, module for module.  Plain tensor
 code is PyTorch (``torch.func`` in place of the JAX transforms, Python loops
-in place of ``lax`` loops); the fused whole-step leapfrog runs as a CUDA
-kernel for ``sm_90a`` (``csrc/fused_step.cu``) on CUDA tensors and as its
-plain PyTorch version on CPU tensors.  Ported so far: the ensemble main
-path — state, system, mechanics, the serial-chain models, the library and
-fused leapfrog, and the final-state ensemble drivers with f64 drift
-sampling (see ``ROADMAP.md`` for what is still to come).  This package
-never imports JAX.
+in place of ``lax`` loops); the fused whole-step leapfrog
+(``csrc/fused_step.cu``) and the batched tiny-SPD factor and solves of the
+library path (``csrc/batched_spd.cu``) run as CUDA kernels for ``sm_90a`` on
+CUDA tensors and as their plain PyTorch versions on CPU tensors.  Ported so
+far: the ensemble main path — state, system, mechanics, the serial-chain
+models, the library and fused leapfrog, and the final-state ensemble drivers
+with f64 drift sampling — and the library path: the spring, GSL-RKF45
+``evolve_ham`` and its ``stepHam``/``evolveHam`` wrappers (see
+``ROADMAP.md`` for what is still to come).  This package never imports JAX.
 """
 
 from hamilton_tpu_torch.convert import params_from_numpy, phase_from_numpy
 from hamilton_tpu_torch.ensemble import evolve_ensemble_chunked, evolve_ensemble_final
+from hamilton_tpu_torch.integrators.adaptive import GSL_EPS_DEFAULT, gsl_evolve_to
+from hamilton_tpu_torch.integrators.evolve import (
+    evolve_ham,
+    evolve_ham_c,
+    evolve_ham_c_list,
+    evolve_ham_list,
+    iterate_ham,
+    step_ham,
+    step_ham_c,
+)
 from hamilton_tpu_torch.integrators.fixed import FIXED_METHODS, Stepper, make_stepper
 from hamilton_tpu_torch.mechanics import (
     QFactor,
@@ -21,6 +33,7 @@ from hamilton_tpu_torch.mechanics import (
     dhdq_factored,
     from_phase,
     ham_eqs,
+    ham_rhs,
     hamiltonian,
     ke_c,
     ke_p,
@@ -32,7 +45,7 @@ from hamilton_tpu_torch.mechanics import (
     to_phase,
     velocities,
 )
-from hamilton_tpu_torch.models import Example, chain, double_pendulum, pendulum
+from hamilton_tpu_torch.models import Example, chain, double_pendulum, pendulum, spring
 from hamilton_tpu_torch.ops.fused_step import (
     FusedForms,
     FamilyFns,
@@ -62,6 +75,7 @@ __all__ = [
     "lagrangian",
     "hamiltonian",
     "ham_eqs",
+    "ham_rhs",
     "QFactor",
     "q_factor",
     "dhdp_factored",
@@ -70,6 +84,16 @@ __all__ = [
     "chain",
     "double_pendulum",
     "pendulum",
+    "spring",
+    "GSL_EPS_DEFAULT",
+    "gsl_evolve_to",
+    "evolve_ham",
+    "evolve_ham_list",
+    "step_ham",
+    "iterate_ham",
+    "step_ham_c",
+    "evolve_ham_c",
+    "evolve_ham_c_list",
     "Stepper",
     "make_stepper",
     "FIXED_METHODS",

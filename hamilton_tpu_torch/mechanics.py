@@ -6,6 +6,13 @@ ensemble is ``(B, n)``), and member-level physics is mapped over them with
 ``torch.func.vmap``.  ``K = JᵀMJ`` is solved by Cholesky, and the rank-3
 Hessian contraction of Hamilton's equations is a VJP-of-JVP sweep that never
 materializes the ``m·n²`` tensor.
+
+On a batched state the solves go to the batched tiny-SPD entries
+(:mod:`~hamilton_tpu_torch.ops.batched_spd`), routed as the reference routes
+them: a system with an analytic ``mass_matrix_fn`` (the K route) solves with
+K through :mod:`~hamilton_tpu_torch.ops.linalg`; any other system (the J
+route) hands ``√M·J`` to the entries that form K inside the kernel, so K is
+never stored.
 """
 
 from __future__ import annotations
@@ -15,7 +22,13 @@ from typing import NamedTuple, Tuple
 import torch
 from torch.func import jvp, vjp
 
-from hamilton_tpu_torch.ops.linalg import small_cho_solve, small_cholesky, spd_solve
+from hamilton_tpu_torch.ops.batched_spd import cholesky_jac, jac_scaled, spd_solve_jac
+from hamilton_tpu_torch.ops.linalg import (
+    kernel_route,
+    small_cho_solve,
+    small_cholesky,
+    spd_solve,
+)
 from hamilton_tpu_torch.state import Config, Phase
 from hamilton_tpu_torch.system import System, map_member
 
@@ -31,6 +44,7 @@ __all__ = [
     "lagrangian",
     "hamiltonian",
     "ham_eqs",
+    "ham_rhs",
     "QFactor",
     "q_factor",
     "dhdp_factored",
@@ -82,9 +96,20 @@ def momenta(system: System, config: Config) -> torch.Tensor:
     return _tmv(j, system.inertia.to(j.dtype) * _mv(j, config.v))
 
 
+def _k_solve(system: System, q: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``K(q)⁻¹ b``: the K route through :func:`spd_solve`, the J route through
+    the form-K+factor+solve entry (K2d) on a batched state."""
+    if system.mass_matrix_fn is not None:
+        return spd_solve(mass_matrix(system, q), b)
+    j = _jacobian(system, q)
+    if kernel_route(j, b):
+        return spd_solve_jac(jac_scaled(j, system.inertia), b)
+    return spd_solve(_form_k(j, system.inertia), b)
+
+
 def velocities(system: System, phase: Phase) -> torch.Tensor:
     """Generalized velocities ``q̇ = (JᵀMJ)⁻¹ p`` via Cholesky."""
-    return spd_solve(mass_matrix(system, phase.q), phase.p)
+    return _k_solve(system, phase.q, phase.p)
 
 
 def to_phase(system: System, config: Config) -> Phase:
@@ -145,9 +170,20 @@ def _dtdq(system: System, q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def ham_eqs(system: System, phase: Phase) -> Tuple[torch.Tensor, torch.Tensor]:
     """Hamilton's equations: ``(q̇, ṗ) = (∂H/∂p, −∂H/∂q)``."""
     q, p = phase.q, phase.p
-    w = spd_solve(mass_matrix(system, q), p)
+    w = _k_solve(system, q, p)
     dhdq = _dtdq(system, q, w) + _grad_u(system, q)
     return w, -dhdq
+
+
+def ham_rhs(system: System):
+    """The right-hand side on flat states ``y = [q, p]`` ``(..., 2n)``:
+    flatten ∘ :func:`ham_eqs` ∘ unflatten, for the integrator drivers."""
+
+    def rhs(y: torch.Tensor) -> torch.Tensor:
+        dq, dp = ham_eqs(system, Phase.unflatten(y))
+        return torch.cat([dq, dp], dim=-1)
+
+    return rhs
 
 
 class QFactor(NamedTuple):
@@ -159,8 +195,17 @@ class QFactor(NamedTuple):
 
 
 def q_factor(system: System, q: torch.Tensor) -> QFactor:
-    """Factorize the q-dependent parts of :func:`ham_eqs` once."""
-    return QFactor(small_cholesky(mass_matrix(system, q)), _grad_u(system, q))
+    """Factorize the q-dependent parts of :func:`ham_eqs` once (on the J
+    route, a batched state's factor comes straight from √M·J: K2e)."""
+    if system.mass_matrix_fn is not None:
+        chol = small_cholesky(mass_matrix(system, q))
+    else:
+        j = _jacobian(system, q)
+        if kernel_route(j):
+            chol = cholesky_jac(jac_scaled(j, system.inertia))
+        else:
+            chol = small_cholesky(_form_k(j, system.inertia))
+    return QFactor(chol, _grad_u(system, q))
 
 
 def dhdp_factored(factor: QFactor, p: torch.Tensor) -> torch.Tensor:

@@ -3,6 +3,7 @@
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Callable, List, Tuple
 
@@ -12,7 +13,7 @@ from hamilton_tpu_torch.mechanics import to_phase
 from hamilton_tpu_torch.state import Config, Phase
 from hamilton_tpu_torch.system import System
 
-__all__ = ["Example"]
+__all__ = ["Example", "logistic"]
 
 
 @dataclass(frozen=True)
@@ -40,3 +41,15 @@ class Example:
     @property
     def m(self) -> int:
         return self.system.m
+
+
+def logistic(pos, ht, width):
+    """Soft-wall helper: ``ht / (1 + exp(−β(x − pos)))`` with
+    ``β = log(0.9/0.1)/width`` — the reference's smooth barrier used to model
+    hard walls as potentials (``app/Examples.hs:601-605``)."""
+    beta = math.log(0.9 / (1.0 - 0.9)) / width
+
+    def f(x):
+        return ht / (1.0 + torch.exp(-(beta * (x - pos))))
+
+    return f

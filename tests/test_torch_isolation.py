@@ -1,7 +1,8 @@
 """The PyTorch port never imports JAX.
 
-A fresh interpreter imports ``hamilton_tpu_torch``, builds a chain system and
-takes a fused step; ``jax`` must stay out of ``sys.modules``.
+A fresh interpreter imports ``hamilton_tpu_torch``, builds a chain system,
+takes a fused step and runs ``evolve_ham``; ``jax`` must stay out of
+``sys.modules``.
 """
 
 import os
@@ -20,6 +21,7 @@ ex = tp.chain(n_links=4, fused_solver="semiseparable", device="cpu", dtype=torch
 st = tp.make_stepper(ex.system, "leapfrog_fused", iters=(2, 0), steps_per_call=2)
 ph = tp.Phase(ex.init_config.q.expand(3, 4).contiguous(), torch.zeros(3, 4, dtype=torch.float64))
 st.extract(st.step(st.init(ph), 1e-3))
+tp.evolve_ham(ex.system, tp.Phase(ph.q, ph.p + 0.1), [0.0, 0.01])
 print("jax" in sys.modules, any(m.startswith("hamilton_tpu.") or m == "hamilton_tpu"
                                 for m in sys.modules))
 """

@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernel itself (``hamilton_tpu_torch/csrc/fused_step.cu``).
+"""The hand-written CUDA kernels themselves (``hamilton_tpu_torch/csrc/
+fused_step.cu`` and ``csrc/batched_spd.cu``).
 
 These tests need an NVIDIA card and nvcc; elsewhere they skip.  This file
 imports no JAX, so on a machine without it run it without the suite's
@@ -13,6 +14,7 @@ import torch
 
 import hamilton_tpu_torch as tp
 from hamilton_tpu_torch import kernels
+from hamilton_tpu_torch.ops import batched_spd as bs
 from hamilton_tpu_torch.ops import fused_step as t_step
 
 pytestmark = pytest.mark.cuda
@@ -83,3 +85,62 @@ def test_uninstantiated_size_raises_on_the_card(card):
                              torch.zeros(4, 7, device=card)))
     with pytest.raises(ValueError, match="instantiated"):
         st.step(carry, 1e-3)
+
+
+# ----------------------------------------------------------------------
+# The batched tiny-SPD kernels (K2a-K2e)
+# ----------------------------------------------------------------------
+
+
+def _k2_inputs(card, batch, n, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randn(batch, n, n, generator=g, dtype=torch.float64)
+    k = a @ a.mT + n * torch.eye(n, dtype=torch.float64)
+    j = 0.3 * torch.randn(batch, 2 * n, n, generator=g, dtype=torch.float64)
+    j[:, :n] += torch.eye(n, dtype=torch.float64)
+    inertia = 1.0 + torch.rand(2 * n, generator=g, dtype=torch.float64)
+    b = torch.randn(batch, n, generator=g, dtype=torch.float64)
+    k, j, inertia, b = (t.to(device=card, dtype=dtype) for t in (k, j, inertia, b))
+    return k, bs.jac_scaled(j, inertia), b
+
+
+def _k2_args(entry, k, js, b):
+    src = js if entry.from_jac else (bs.cholesky_plain(k) if entry.name == "cho_solve_batched"
+                                     else k)
+    return (src, b) if entry.solves else (src,)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n", [3, 20, 32])
+@pytest.mark.parametrize("entry", bs.ENTRIES, ids=[e.name for e in bs.ENTRIES])
+def test_k2_kernel_matches_plain_version(card, entry, n, dtype):
+    """Each entry on a ragged batch of 300 through its public function: one
+    launch, and the plain version's result bit for bit (the kernel does the
+    same IEEE operations in the same order, none fused)."""
+    k, js, b = _k2_inputs(card, 300, n, dtype, seed=n)
+    args = _k2_args(entry, k, js, b)
+    before = entry.launch.launches
+    got = entry.entry(*args)
+    assert entry.launch.launches == before + 1
+    want = entry.plain(*args)
+    assert got.device == card and bool(torch.isfinite(got).all())
+    assert torch.equal(got, want)
+
+
+def test_k2_member_that_is_not_spd_gives_nan_there_only(card):
+    k, js, b = _k2_inputs(card, 64, 5, torch.float64, seed=1)
+    good = bs.spd_solve_batched(k, b)
+    bad = k.clone()
+    bad[7] = -bad[7]
+    for x in (bs.spd_solve_batched(bad, b), bs.cho_solve_batched(bs.cholesky_batched(bad), b)):
+        nan = torch.isnan(x).any(-1)
+        assert nan.nonzero().flatten().tolist() == [7]
+        assert torch.equal(x[~nan], good[~nan])
+
+
+def test_k2_backward_raises(card):
+    k, js, b = _k2_inputs(card, 8, 4, torch.float32, seed=2)
+    for out in (bs.spd_solve_batched(k.requires_grad_(True), b),
+                bs.cholesky_jac(js.detach().requires_grad_(True))):
+        with pytest.raises(NotImplementedError, match="M9"):
+            out.sum().backward()

@@ -2,9 +2,12 @@
 
 The same inputs, made with numpy from a seed, go through ``hamilton_tpu``
 and ``hamilton_tpu_torch``; the physical parameters are carried across with
-``params_from_numpy``.  Both sides evaluate the same formulas with different
-linear-algebra routines (the reference's unrolled/masked Cholesky against
-LAPACK's), so they agree to float64 rounding: ``atol=1e-12``.
+``params_from_numpy``.  Both sides evaluate the same formulas with
+linear-algebra routines that round differently (the reference's unrolled or
+masked Cholesky on ``K = JᵀMJ`` against the port's batched entries, which on
+the spring form K from ``√M·J``), so they agree to float64 rounding:
+``atol=1e-12``.  The spring is the J-route model: no analytic Jacobian or
+mass matrix, so its batched solves and factors go through K2d and K2e.
 """
 
 import numpy as np
@@ -43,6 +46,10 @@ MODELS = {
         lambda: jmodels.pendulum(),
         lambda: tp.pendulum(device="cpu", dtype=F64),
     ),
+    "spring": (
+        lambda: jmodels.spring(m_block=1.7, m_weight=0.8, k=12.0),
+        lambda: tp.spring(device="cpu", dtype=F64),
+    ),
 }
 
 
@@ -72,7 +79,7 @@ def _close(a, b, atol=ATOL):
 @pytest.fixture(params=sorted(MODELS))
 def case(request):
     jsys, tsys = _pair(request.param)
-    n = {"chain5": 5, "double_pendulum": 2, "pendulum": 1}[request.param]
+    n = {"chain5": 5, "double_pendulum": 2, "pendulum": 1, "spring": 3}[request.param]
     q, p, w = _inputs(n)
     return jsys, tsys, q, p, w
 
