@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py            # from the root of a checkout; needs one card
 
-Builds the hand-written kernels (``hamilton_tpu_torch/csrc/fused_step.cu``
-and ``csrc/batched_spd.cu``, one nvcc each, at once), then runs these phases
-and raises as soon as one fails:
+Builds the hand-written kernels (``hamilton_tpu_torch/csrc/fused_step.cu``,
+``csrc/batched_spd.cu`` and ``csrc/roofline_probes.cu``, one nvcc each, at
+once), then runs these phases and raises as soon as one fails:
 
 1. kernel against its plain PyTorch version: one 50-step call on a ragged
    batch of 1000 members, chain-20 (semiseparable, ``(2,0)``, Kahan) and the
@@ -47,11 +47,35 @@ and raises as soon as one fails:
     and potential alone (no analytic Jacobian or mass matrix), 200 library
     leapfrog steps on 16384 members in float32 (K2e, K2c; K2d in its float64
     drift samples), and ``evolve_ham`` of 16384 springs in float64 over 10
-    output intervals (K2d); each against the CPU on a 1000-member slice.
+    output intervals (K2d); each against the CPU on a 1000-member slice;
+12. the roofline path (``bench.py::phase_roofline``): the probe kernels
+    K3a-K3c against their plain versions on small random inputs at every
+    layout the sweep can pick, then the card's float32 FMA, ``sinf`` and
+    device-memory ceilings at the reference's probe sizes (the per-thread
+    chain count and the block count swept, the best kept), a check that the
+    probe times grow linearly with their repetitions (nothing folded), each
+    probe at that size and its best layout against its plain version on
+    random inputs, the port's ``fused_step_cost`` of the headline and its
+    achieved flop and sin shares;
+13. the sweep (``bench.py::phase_sweep``): per-member masses and gravity
+    from ``numpy.random.default_rng(7)`` on 16384 × chain-20, the per-member
+    kernel against its plain version over one 50-step launch and (float64
+    chain-5 (3,2)) against the library leapfrog, then 2e5 steps at dt=5e-4
+    through ``evolve_ensemble_chunked`` — exactly 4000 K1 and 201 K2a
+    launches, ``max|ΔH/H₀| < 1e-6``;
+14. order 4 (``bench.py::phase_margin``): ``suzuki4_fused`` (2,0), the
+    kernel against its plain version over one launch, then 1e5 steps at
+    dt=1e-3 — exactly 2000 K1 and 101 K2a launches, ``max|ΔH/H₀| < 1e-6``.
 
-Prints the card's name and power limit, the CUDA version, the build times
-and nvcc's register/spill report, one JSON line describing the kernels, and
-as its last line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+Every kernel's row gives its launches on its main path, its device time
+and its plain version's, the bound (the larger of its operations over the
+published float32/float64 peak and its bytes over the published memory
+rate, from this run's shapes; ``hamilton_tpu_torch.utils.roofline.bound``)
+and the time of one PyTorch call that computes the same function, where
+there is one.  Prints the card's name and power limit, the CUDA version,
+the build times and nvcc's register/spill report, one JSON line describing
+the kernels, and as its last line ``{"ok": true, "device": {...}}``.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -133,6 +157,25 @@ CPU_TOL_F64 = 1e-12
 CPU_TOL_F32 = 6e-7
 LEAPFROG_STEPS = 2000
 J_STEPS = 200
+# the sweep and order-4 paths (bench.py:568-610 with ROADMAP's 2e5-step
+# horizon at dt=5e-4; bench.py:539, the suzuki4_fused datapoint)
+SWEEP_STEPS, SWEEP_DT = 200_000, 5e-4
+ORDER4_STEPS, ORDER4_DT = 100_000, 1e-3
+# the probes against their plain versions: K3a does one single-rounding FMA
+# a rep on both sides, and K3c one add, so both are equal bit for bit; K3b
+# is libdevice sinf against PyTorch's float32 sin on the card (every reading
+# on an H100 80GB HBM3 has been 0: the same libdevice function), and the
+# limit allows a few ulps of (0, 1) from a differing sin
+K3_TOL = {"fma_probe": 0.0, "sin_probe": 1e-6, "add_one": 0.0}
+# the probe sweeps: per-thread chains x block size for K3a/K3b, blocks of
+# 256 threads for K3c (132 SMs; 131072 blocks give each thread one float4)
+PROBE_ILP = (4, 8, 16, 32)
+PROBE_BLOCKS = (128, 256)
+HBM_BLOCKS = (528, 1056, 2112, 8448, 33792, 131072)
+PROBE_SOURCE = "hamilton_tpu_torch/csrc/roofline_probes.cu"
+PROBE_REPLACES = {"fma_probe": "hamilton_tpu/utils/roofline.py:261",
+                  "sin_probe": "hamilton_tpu/utils/roofline.py:304",
+                  "add_one": "hamilton_tpu/utils/roofline.py:375"}
 
 
 def log(msg: str) -> None:
@@ -147,7 +190,8 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-_KERNEL_RE = re.compile(r"fused_step_kernelI([fd])Li(\d+)ELb([01])ELb([01])E")
+_KERNEL_RE = re.compile(
+    r"fused_step_kernelI([fd])Li(\d+)ELb([01])ELb([01])ELb([01])ELb([01])E")
 _K2_RE = re.compile(r"(factor_solve_kernel|factor_kernel|substitute_kernel)I([fd])(?:Lb([01])E)?")
 _K2_NAMES = {("factor_solve_kernel", "0"): "spd_solve (K2a)",
              ("factor_kernel", "0"): "cholesky (K2b)",
@@ -156,11 +200,20 @@ _K2_NAMES = {("factor_solve_kernel", "0"): "spd_solve (K2a)",
              ("factor_kernel", "1"): "cholesky_jac (K2e)"}
 
 
+_K3_RE = re.compile(r"(fma_probe_kernel|sin_probe_kernel|add_one_kernel)(?:ILi(\d+)E)?")
+
+
 def _k1_label(m):
-    t, n, semi, comp = m.groups()
+    t, n, semi, comp, per_member, composed = m.groups()
     return (f"{'float' if t == 'f' else 'double'} n={n} "
             f"{'semiseparable' if semi == '1' else 'dense'}"
-            f"{' kahan' if comp == '1' else ''}")
+            f"{' kahan' if comp == '1' else ''}{' per-member' if per_member == '1' else ''}"
+            f"{' composed' if composed == '1' else ''}")
+
+
+def _k3_label(m):
+    kind, chains = m.groups()
+    return f"{kind}{f' chains={chains}' if chains else ''}"
 
 
 def _k2_label(m):
@@ -239,34 +292,6 @@ def time_call(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps, out
-
-
-def time_queued(fn, reps):
-    """``(device ms, host ms)`` per call: the stream is held by a spin
-    kernel while the host issues ``reps`` calls (host ms is that wall
-    time per call), so the events then time the calls back to back on
-    the card, free of the host's cost."""
-    import torch
-
-    cycles = 10**8
-    while True:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        torch.cuda._sleep(cycles)
-        start.record()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        host = (time.perf_counter() - t0) / reps * 1e3
-        held = not start.query()  # the card still spins: nothing ran yet
-        end.record()
-        end.synchronize()
-        if held:
-            return start.elapsed_time(end) / reps, host
-        if cycles >= 10**10:
-            raise AssertionError("the host could not queue the calls ahead of the card")
-        cycles *= 4
 
 
 def counted(fn):
@@ -349,6 +374,60 @@ def k2_args(entry, k, js, b):
     return (src, b) if entry.solves else (src,)
 
 
+def k2_work(entry, batch, n, m, dtype):
+    """``(operations, bytes)`` of one K2 call on ``batch`` members: the plain
+    version's arithmetic counted on counting values (``_chol_entries``,
+    ``_solve_entries``; forming K from √M·J takes m products and m − 1 sums
+    an entry, j ≤ i), a square root or a division as one operation; each
+    input read once and each output written once."""
+    import torch
+    from hamilton_tpu_torch.ops.fused_step import _chol_entries, _solve_entries
+    from hamilton_tpu_torch.utils.roofline import OpCounter
+
+    c = OpCounter(dtype)
+
+    def val(*_):
+        return c.value()
+
+    if entry.from_jac:
+        for _ in range(n * (n + 1) // 2):
+            acc = val() * val()
+            for _ in range(m - 1):
+                acc = acc + val() * val()
+    if entry.name == "cho_solve_batched":
+        low = {(i, j): val() for i in range(n) for j in range(i + 1)}
+        inv = [1.0 / val() for _ in range(n)]
+    else:
+        low, inv = _chol_entries(val, n, c.fm.sqrt)
+    if entry.solves:
+        _solve_entries(low, inv, val, n)
+    item = torch.empty((), dtype=dtype).element_size()
+    ins = (m * n if entry.from_jac else n * n) + (n if entry.solves else 0)
+    outs = n if entry.solves else n * n
+    return batch * (c.flops + c.transcendentals), batch * (ins + outs) * item
+
+
+def k1_bound(system, method, iters, compensated, batch, spc):
+    """``(bound ms, term, cost)`` of one K1 launch of ``spc`` steps on
+    ``batch`` members: ``fused_step_cost``'s flops and transcendentals (one
+    operation each) and its bytes, against the published peaks."""
+    from hamilton_tpu_torch.utils.roofline import bound, fused_step_cost
+
+    cost = fused_step_cost(system, method=method, iters=iters, steps_per_call=spc,
+                           compensated=compensated, batch=batch, dtype=system.dtype)
+    work = batch * spc
+    ops = (cost["flops_per_member_step"] + cost["transcendentals_per_member_step"]) * work
+    ms, term = bound(ops, cost["bytes_per_member_step"] * work, system.dtype)
+    return ms, term, cost
+
+
+def steady_rate(marks, t0, batch, chunk):
+    """Member-steps/s over the chunks after the first, and the first
+    chunk's seconds, from the chunk callback's host times."""
+    steady = [marks[i] - marks[i - 1] for i in range(1, len(marks))]
+    return batch * chunk * len(steady) / sum(steady), marks[0] - t0, len(steady)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -368,8 +447,11 @@ def main() -> int:
     from hamilton_tpu_torch.mechanics import hamiltonian
     from hamilton_tpu_torch.models import chain, double_pendulum
     from hamilton_tpu_torch.ops.fused_step import (
-        coef_table, fused_step_kernel, fused_step_reference, fused_stepper,
+        SUZUKI4_COMPOSITION, coef_table, fused_step_kernel, fused_step_reference,
+        fused_stepper,
     )
+    from hamilton_tpu_torch.utils import roofline as rl
+    from hamilton_tpu_torch.utils.profiling import time_queued
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -385,12 +467,13 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s for {len(builds)} sources at once ("
         + ", ".join(f"{b.path.name} {b.seconds:.1f} s" for b in builds.values()) + ")")
     for name, pattern, label in (("fused_step", _KERNEL_RE, _k1_label),
-                                 ("batched_spd", _K2_RE, _k2_label)):
+                                 ("batched_spd", _K2_RE, _k2_label),
+                                 ("roofline_probes", _K3_RE, _k3_label)):
         regs = ptxas_report(builds[name].log, pattern, label)
         if not regs:
             raise AssertionError(f"nvcc printed no -Xptxas -v report for {name}")
         for kname, nreg, st, ld in regs:
-            log(f"ptxas: {kname:<34} {nreg:3d} registers, spill stores {st} B, "
+            log(f"ptxas: {kname:<45} {nreg:3d} registers, spill stores {st} B, "
                 f"spill loads {ld} B")
 
     def chain20(dtype):
@@ -482,11 +565,10 @@ def main() -> int:
     if tuple(final.q.shape) != (BATCH, 20):
         raise AssertionError(f"headline output shape {tuple(final.q.shape)}")
     max_drift = float(drift.max())
-    steady = [marks[i] - marks[i - 1] for i in range(1, len(marks))]
-    head_rate = BATCH * chunk * len(steady) / sum(steady)
+    head_rate, head_first, head_chunks = steady_rate(marks, t0, BATCH, chunk)
     log(f"phase 3: headline 16384 x chain-20 float32 (2,0) kahan dt=5e-4, "
-        f"{n_steps} steps: {head_rate:.6e} member-steps/s over {len(steady)} "
-        f"steady chunks (first chunk {marks[0] - t0:.3f} s), "
+        f"{n_steps} steps: {head_rate:.6e} member-steps/s over {head_chunks} "
+        f"steady chunks (first chunk {head_first:.3f} s), "
         f"max|dH/H0| {max_drift:.6e}, launches {counts}")
     if not max_drift < DRIFT_BOUND:
         raise AssertionError(f"headline drift {max_drift:.3e} >= {DRIFT_BOUND}")
@@ -557,9 +639,12 @@ def main() -> int:
         if failures:
             raise AssertionError(f"{name}: kernel disagrees with its plain version: "
                                  + "; ".join(failures))
+        bound_ms, bound_by, _ = k1_bound(ex.system, "leapfrog_fused", iters, comp,
+                                         ph0.q.shape[0], spc)
         entries.append({
             "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES,
             "launches": launches, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
 
     # the drift sampler's share of the headline: one float64 library
@@ -607,6 +692,14 @@ def main() -> int:
                         raise AssertionError(f"{e.name} B={batch} n={n} {dname}: kernel "
                                              f"differs from its plain version by {err:.3e}")
                 log(f"phase 7 ok: B={batch} n={n} {dname}: " + ", ".join(row))
+    # one PyTorch call computing each entry's function on its operands, the
+    # yardstick beside the kernel (the port never calls these); K2d and K2e
+    # have none (forming K is a second call)
+    k2_library = {
+        "spd_solve_batched": lambda k, b: torch.linalg.solve(k, b),
+        "cholesky_batched": torch.linalg.cholesky,
+        "cho_solve_batched": lambda low, b: torch.cholesky_solve(b[..., None], low),
+    }
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split(".")[-1]
         k, js, b = k2_inputs(BATCH, 20, dtype, dev, 7)
@@ -619,10 +712,20 @@ def main() -> int:
             k1, _ = time_queued(lambda: e.kernel(*args), 100)
             k2, _ = time_queued(lambda: e.kernel(*args), 100)
             p2, _ = time_call(lambda: e.plain(*args), 2)
+            lib_ms = None
+            if e.name in k2_library:
+                lib = k2_library[e.name]
+                lib(*args)  # warm-up
+                l1, _ = time_call(lambda: lib(*args), 20)
+                l2, _ = time_call(lambda: lib(*args), 20)
+                lib_ms = (l1 + l2) / 2
             log(f"phase 7: {e.name} 16384 x n=20 {dname}: kernel {(k1 + k2) / 2:.4f} ms "
-                f"({k1:.4f}, {k2:.4f}), plain {(p1 + p2) / 2:.3f} ms ({p1:.3f}, {p2:.3f})")
+                f"({k1:.4f}, {k2:.4f}), plain {(p1 + p2) / 2:.3f} ms ({p1:.3f}, {p2:.3f})"
+                + ("" if lib_ms is None else f", one PyTorch call {lib_ms:.4f} ms "
+                   f"({l1:.4f}, {l2:.4f})"))
             if K2_MAIN_DTYPE[e.name] == dname:
-                k2_rows[e.name].update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, dtype=dname)
+                k2_rows[e.name].update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, dtype=dname,
+                                       library_ms=lib_ms)
 
     # ---- phase 8: adaptive GSL-RKF45 at full width --------------------------
     from hamilton_tpu_torch import Config, Phase, evolve_ham, spring, to_phase
@@ -761,11 +864,318 @@ def main() -> int:
         r = k2_rows[e.name]
         if not r.get("launches"):
             raise AssertionError(f"{e.name}: its main path launched it no time")
+        dtype = getattr(torch, r["dtype"])
+        ops, nbytes = k2_work(e, BATCH, 20, 40, dtype)
+        bound_ms, bound_by = rl.bound(ops, nbytes, dtype)
         entries.append({
-            "name": f"{e.name} n=20 {r['dtype']}", "route": "cuda", "source": K2_SOURCE,
+            "name": f"{e.name} n=20{' m=40' if e.from_jac else ''} {r['dtype']}",
+            "route": "cuda", "source": K2_SOURCE,
             "replaces": e.replaces, "launches": r["launches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": r["library_ms"],
         })
+
+    # ---- phase 12: the roofline path -----------------------------------------
+    # every layout the sweep below can pick, against the plain version on
+    # small random inputs (so a misplaced element shows)
+    g = torch.Generator().manual_seed(12)
+    x_fma = (1.0 + torch.rand(16 * 16 * 1024, generator=g)).to(dev)
+    x_sin = torch.rand(16 * 16 * 1024, generator=g).to(dev)
+    a_small = torch.randn(1 << 22, generator=g).to(dev)
+    k3_want = {"fma_probe": rl.fma_chain_plain(x_fma, 256),
+               "sin_probe": rl.sin_chain_plain(x_sin, 64), "add_one": rl.add_one_plain(a_small)}
+    k3_err = {name: 0.0 for name in k3_want}
+
+    def check_probe(name, got, want, what):
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not (all_finite(got, want) and err <= K3_TOL[name]):
+            raise AssertionError(f"{name} kernel disagrees with its plain version ({what}): "
+                                 f"{err:.3e} > {K3_TOL[name]:.0e}")
+        k3_err[name] = max(k3_err[name], err)
+
+    for ilp in PROBE_ILP:
+        for blk in PROBE_BLOCKS:
+            what = f"chains {ilp}, block {blk}"
+            check_probe("fma_probe", rl.fma_chain(x_fma, 256, chains=ilp, block=blk),
+                        k3_want["fma_probe"], what)
+            check_probe("sin_probe", rl.sin_chain(x_sin, 64, chains=ilp, block=blk),
+                        k3_want["sin_probe"], what)
+    for blk in HBM_BLOCKS:
+        check_probe("add_one", rl.add_one(a_small, blocks=blk), k3_want["add_one"],
+                    f"{blk} blocks")
+    log(f"phase 12 ok: probe kernels vs plain at every layout of the sweep ("
+        f"{len(PROBE_ILP) * len(PROBE_BLOCKS)} for K3a/K3b on {x_fma.numel()} elements, "
+        f"{len(HBM_BLOCKS)} for K3c on {a_small.numel()}): "
+        + ", ".join(f"{k} {v:.3e} (limit {K3_TOL[k]:.0e})" for k, v in k3_err.items()))
+    del k3_want, a_small
+
+    def probe_sweep():
+        fma = {(ilp, blk): rl.vpu_peak_probe(ilp=ilp, block=blk, device=dev)
+               for ilp in PROBE_ILP for blk in PROBE_BLOCKS}
+        sin = {(ilp, blk): rl.vpu_trig_probe(ilp=ilp, block=blk, device=dev)
+               for ilp in PROBE_ILP for blk in PROBE_BLOCKS}
+        hbm = {blk: rl.hbm_peak_probe(blocks=blk, device=dev) for blk in HBM_BLOCKS}
+        return fma, sin, hbm
+
+    (fma, sin, hbm), counts = counted(probe_sweep)
+    # each probe: 3 (4 for K3c) launches in the first run, then 5 timed runs
+    n_chain = len(PROBE_ILP) * len(PROBE_BLOCKS) * 6 * 3
+    expect_counts("roofline probes", counts, fma_probe=n_chain, sin_probe=n_chain,
+                  add_one=len(HBM_BLOCKS) * 6 * 4)
+    for label, rates, unit, keys in (
+        ("fma", fma, "FLOP/s", "chains per thread, block"),
+        ("sin", sin, "sin/s", "chains per thread, block"),
+        ("hbm", hbm, "B/s", "blocks of 256 threads"),
+    ):
+        log(f"phase 12: {label} probe sweep ({keys}): "
+            + ", ".join(f"{k}: {v:.6e}" for k, v in rates.items()) + f" {unit}")
+    best_fma = max(fma, key=fma.get)
+    best_sin = max(sin, key=sin.get)
+    best_hbm = max(hbm, key=hbm.get)
+    fma_peak, sin_peak, hbm_peak = fma[best_fma], sin[best_sin], hbm[best_hbm]
+    # nothing folded: half the repetitions take half the time (same rate)
+    fma_half = rl.vpu_peak_probe(reps=8192, ilp=best_fma[0], block=best_fma[1], device=dev)
+    sin_half = rl.vpu_trig_probe(reps=512, ilp=best_sin[0], block=best_sin[1], device=dev)
+    log(f"phase 12: ceilings on {card}: float32 FMA {fma_peak:.6e} FLOP/s "
+        f"({fma_peak / rl.PEAK_FLOPS[torch.float32]:.4f} of the published 67 TFLOP/s; "
+        f"chains {best_fma[0]}, block {best_fma[1]}), sinf {sin_peak:.6e} sin/s (chains "
+        f"{best_sin[0]}, block {best_sin[1]}; {fma_peak / sin_peak:.2f} flops per sin), "
+        f"device memory {hbm_peak:.6e} B/s ({hbm_peak / rl.PEAK_BYTES_PER_S:.4f} of the "
+        f"published 3.35 TB/s; {best_hbm} blocks); at half the reps the rates are "
+        f"{fma_half / fma_peak:.4f} (FMA) and {sin_half / sin_peak:.4f} (sin) of these")
+    for what, ratio in (("FMA", fma_half / fma_peak), ("sin", sin_half / sin_peak)):
+        if not 0.85 <= ratio <= 1.15:
+            raise AssertionError(f"the {what} probe's time does not grow with its "
+                                 f"repetitions (rate ratio {ratio:.3f}): folded?")
+    if not (fma_peak <= 1.05 * rl.PEAK_FLOPS[torch.float32]
+            and hbm_peak <= 1.05 * rl.PEAK_BYTES_PER_S):
+        raise AssertionError("a ceiling exceeds the published peak by more than 5 %")
+    head_cost = rl.fused_step_cost(ex20.system, iters=(2, 0), steps_per_call=spc,
+                                   compensated=True, batch=BATCH)
+    head_flops = head_rate * head_cost["flops_per_member_step"]
+    head_sins = head_rate * head_cost["transcendentals_per_member_step"]
+    log(f"phase 12: headline fused_step_cost: {head_cost}; at {head_rate:.6e} "
+        f"member-steps/s: {head_flops:.6e} FLOP/s = {head_flops / fma_peak:.4f} of the FMA "
+        f"ceiling ({head_flops / rl.PEAK_FLOPS[torch.float32]:.4f} of the published peak), "
+        f"{head_sins:.6e} transcendentals/s = {head_sins / sin_peak:.4f} of the sin ceiling, "
+        f"{head_rate * head_cost['bytes_per_member_step'] / hbm_peak:.6f} of the memory "
+        f"ceiling")
+    summary.update({
+        "fma_ceiling_flops": fma_peak, "sin_ceiling_per_sec": sin_peak,
+        "hbm_ceiling_bytes_per_sec": hbm_peak,
+        "fused_flops_per_member_step": head_cost["flops_per_member_step"],
+        "fused_transcendentals_per_member_step": head_cost["transcendentals_per_member_step"],
+        "fused_bytes_per_member_step": head_cost["bytes_per_member_step"],
+        "headline_flops_share_of_fma_ceiling": head_flops / fma_peak,
+        "headline_sin_share_of_sin_ceiling": head_sins / sin_peak,
+    })
+
+    # the probes' rows at the reference's default sizes and the best layouts,
+    # on random inputs: the kernel's output against the plain version's
+    # first, then each timed as the probes are (queued calls, the median of
+    # windows), with no output allocated inside a timed window
+    elems = 64 * 16 * 1024
+    gd = torch.Generator(device=dev).manual_seed(12)
+    x1 = 1.0 + torch.rand(elems, device=dev, generator=gd)
+    x5 = torch.rand(elems, device=dev, generator=gd)
+    a_big = torch.randn(512 * 1024 * 1024 // 4, device=dev, generator=gd)
+
+    def queued_ms(fn, reps=10, windows=5):
+        """The median device ms per call over ``windows`` queued windows."""
+        fn()  # warm: the allocator then holds the output's block
+        ms = sorted(time_queued(fn, reps)[0] for _ in range(windows))
+        return ms[windows // 2], ms
+
+    probe_calls = {
+        "fma_probe": (lambda: rl.fma_chain(x1, 16384, chains=best_fma[0], block=best_fma[1]),
+                      lambda: rl.fma_chain_plain(x1, 16384), None,
+                      elems * 2 * 16384 / fma_peak,
+                      rl.bound(elems * 2 * 16384, 2 * elems * 4),
+                      f"fma_probe (K3a) {elems} float32 x 16384 reps, chains {best_fma[0]}, "
+                      f"block {best_fma[1]}"),
+        "sin_probe": (lambda: rl.sin_chain(x5, 1024, chains=best_sin[0], block=best_sin[1]),
+                      lambda: rl.sin_chain_plain(x5, 1024), None,
+                      elems * 1024 / sin_peak,
+                      rl.bound(elems * 2 * 1024, 2 * elems * 4),
+                      f"sin_probe (K3b) {elems} float32 x 1024 reps, chains {best_sin[0]}, "
+                      f"block {best_sin[1]}"),
+        "add_one": (lambda: rl.add_one(a_big, blocks=best_hbm),
+                    lambda: rl.add_one_plain(a_big), lambda: torch.add(a_big, 1.0),
+                    2 * a_big.numel() * 4 / hbm_peak,
+                    rl.bound(a_big.numel(), 2 * a_big.numel() * 4),
+                    f"add_one (K3c) 512 MiB float32, {best_hbm} blocks"),
+    }
+    for name, (kern, plain, lib, probe_s, (bound_ms, bound_by), label) in probe_calls.items():
+        p1, want = time_call(plain, 1)
+        got = kern()
+        check_probe(name, got, want, label)
+        del got, want
+        ms, windows = queued_ms(kern)
+        lib_ms = None if lib is None else queued_ms(lib)[0]
+        p2 = time_call(plain, 1)[0]
+        extra = ""
+        if name == "add_one":
+            # the earlier timing's window: its two alternating outputs
+            # allocated afresh inside it (time_call keeps the last one)
+            torch.cuda.empty_cache()
+            fresh = time_call(kern, 10)[0]
+            extra = f", {fresh:.4f} ms with its two outputs allocated inside the window"
+        log(f"phase 12: {label}: kernel vs plain {k3_err[name]:.3e}; kernel {ms:.4f} ms (median "
+            f"of {', '.join(f'{w:.4f}' for w in windows)}; the probe's {probe_s * 1e3:.4f} ms"
+            f"{extra}), plain {(p1 + p2) / 2:.3f} ms ({p1:.3f}, {p2:.3f}), bound "
+            f"{bound_ms:.4f} ms ({bound_by})"
+            + ("" if lib_ms is None else f", one PyTorch call {lib_ms:.4f} ms"))
+        entries.append({
+            "name": label, "route": "cuda", "source": PROBE_SOURCE,
+            "replaces": PROBE_REPLACES[name], "launches": counts[name],
+            "max_abs_err": k3_err[name], "ms": ms,
+            "plain_ms": (p1 + p2) / 2, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms,
+        })
+    del x1, x5, a_big
+    torch.cuda.empty_cache()
+
+    # ---- phase 13: the sweep ------------------------------------------------------
+    from hamilton_tpu_torch.convert import params_from_numpy
+
+    rng = np.random.default_rng(7)
+    sweep_np = {"masses": 1.0 + 0.05 * rng.standard_normal((BATCH, 20))}
+    sweep_np["lengths"] = np.tile(ex20.system.params["lengths"].cpu().numpy(), (BATCH, 1))
+    sweep_np["gravity"] = 5.0 + 0.1 * rng.standard_normal(BATCH)
+    sys_sw = ex20.system.replace_params(
+        params_from_numpy(sweep_np, device=dev, dtype=torch.float32))
+    forms_sw = sys_sw.fused_forms(sys_sw)
+    st_sw = fused_stepper(forms_sw, iters=(2, 0), compensated=True, steps_per_call=spc)
+    state_sw, table_sw = st_sw.init(ph)
+    sw_kw = dict(iters=(2, 0), compensated=True, steps_per_call=spc, coef=table_sw)
+
+    def sw_kern():
+        return fused_step_kernel(forms_sw, state_sw, SWEEP_DT, **sw_kw)
+
+    def sw_plain():
+        return fused_step_reference(forms_sw, state_sw, SWEEP_DT, **sw_kw)
+
+    k_out = sw_kern()
+    p1, p_out = time_call(sw_plain, 1)
+    worst_sw, errs, failures = compare_states(k_out, p_out, "float32")
+    log(f"phase 13 {'FAILED' if failures else 'ok'}: per-member kernel vs plain, 16384 x "
+        f"chain-20 float32 (2,0) kahan, one {spc}-step launch: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    if failures:
+        raise AssertionError("per-member kernel disagrees with its plain version: "
+                             + "; ".join(failures))
+    ex5s = chain(n_links=5, fused_solver="semiseparable", device=dev, dtype=torch.float64)
+    rng5 = np.random.default_rng(13)
+    sys5s = ex5s.system.replace_params(params_from_numpy({
+        "masses": 1.0 + 0.05 * rng5.standard_normal((1000, 5)), "lengths": np.ones((1000, 5)),
+        "gravity": 5.0 + 0.1 * rng5.standard_normal(1000)}, device=dev, dtype=torch.float64))
+    lib = make_stepper(sys5s, "leapfrog", iters=(3, 2))
+    fus = make_stepper(sys5s, "leapfrog_fused", iters=(3, 2))
+    c_lib, c_fus = lib.init(ph5), fus.init(ph5)
+    for _ in range(2):
+        c_lib, c_fus = lib.step(c_lib, dt5), fus.step(c_fus, dt5)
+    a, b = lib.extract(c_lib), fus.extract(c_fus)
+    err_sw = max(float((a.q - b.q).abs().max()), float((a.p - b.p).abs().max()))
+    log(f"phase 13: per-member kernel vs library leapfrog, chain-5 float64 (3,2), 1000 "
+        f"swept members, 2 steps: {err_sw:.2e}")
+    if not err_sw <= PHYSICS_TOL:
+        raise AssertionError(f"per-member kernel vs library leapfrog: {err_sw:.3e}")
+
+    marks = []
+    t0 = time.perf_counter()
+    (sw_final, sw_drift), counts = counted(lambda: evolve_ensemble_chunked(
+        sys_sw, ph, SWEEP_DT, SWEEP_STEPS, chunk_steps=chunk, method="leapfrog_fused",
+        iters=(2, 0), compensated=True, drift_every=1000, drift_dtype=torch.float64,
+        callback=on_chunk, steps_per_call=spc))
+    expect_counts("sweep", counts, fused_step=SWEEP_STEPS // spc,
+                  spd_solve=1 + SWEEP_STEPS // 1000)
+    if not all_finite(sw_final.q, sw_final.p, sw_drift) or tuple(sw_final.q.shape) != (BATCH, 20):
+        raise AssertionError("sweep output is not finite or not (16384, 20)")
+    sw_rate, sw_first, sw_chunks = steady_rate(marks, t0, BATCH, chunk)
+    sw_max = float(sw_drift.max())
+    log(f"phase 13: sweep 16384 x chain-20 float32 (2,0) kahan dt={SWEEP_DT}, "
+        f"{SWEEP_STEPS} steps: {sw_rate:.6e} member-steps/s over {sw_chunks} steady chunks "
+        f"(first chunk {sw_first:.3f} s; {sw_rate / head_rate:.4f} of the headline), "
+        f"max|dH/H0| {sw_max:.6e}, launches {counts}")
+    if not sw_max < DRIFT_BOUND:
+        raise AssertionError(f"sweep drift {sw_max:.3e} >= {DRIFT_BOUND}")
+    k1, _ = time_queued(sw_kern, 100)
+    k2, _ = time_queued(sw_kern, 100)
+    p2, _ = time_call(sw_plain, 1)
+    bound_ms, bound_by, _ = k1_bound(sys_sw, "leapfrog_fused", (2, 0), True, BATCH, spc)
+    log(f"phase 13: per-member kernel {(k1 + k2) / 2:.4f} ms per launch ({k1:.4f}, {k2:.4f}), "
+        f"plain {(p1 + p2) / 2:.2f} ms ({p1:.2f}, {p2:.2f}), bound {bound_ms:.4f} ms "
+        f"({bound_by})")
+    entries.append({
+        "name": "fused_step semiseparable n=20 float32 kahan (2,0) per-member tables",
+        "route": "cuda", "source": SOURCE, "replaces": REPLACES,
+        "launches": counts["fused_step"], "max_abs_err": worst_sw, "ms": (k1 + k2) / 2,
+        "plain_ms": (p1 + p2) / 2, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None,
+    })
+    summary.update({"sweep_member_steps_per_sec": sw_rate, "sweep_max_drift": sw_max,
+                    "sweep_steps": SWEEP_STEPS})
+    del state_sw, table_sw, k_out, p_out
+
+    # ---- phase 14: order 4 ---------------------------------------------------
+    forms20 = ex20.system.fused_forms(ex20.system)
+    st_o4 = fused_stepper(forms20, iters=(2, 0), compensated=True, steps_per_call=spc,
+                          composition=SUZUKI4_COMPOSITION)
+    state_o4 = st_o4.init(ph)
+    coef20 = coef_table(forms20, dev, torch.float32)
+    o4_kw = dict(iters=(2, 0), compensated=True, steps_per_call=spc,
+                 composition=SUZUKI4_COMPOSITION)
+
+    def o4_kern():
+        return fused_step_kernel(forms20, state_o4, ORDER4_DT, coef=coef20, **o4_kw)
+
+    def o4_plain():
+        return fused_step_reference(forms20, state_o4, ORDER4_DT, **o4_kw)
+
+    k_out = o4_kern()
+    p1, p_out = time_call(o4_plain, 1)
+    worst_o4, errs, failures = compare_states(k_out, p_out, "float32")
+    log(f"phase 14 {'FAILED' if failures else 'ok'}: suzuki4 kernel vs plain, 16384 x "
+        f"chain-20 float32 (2,0) kahan, one {spc}-step launch: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    if failures:
+        raise AssertionError("suzuki4 kernel disagrees with its plain version: "
+                             + "; ".join(failures))
+    marks = []
+    t0 = time.perf_counter()
+    (o4_final, o4_drift), counts = counted(lambda: evolve_ensemble_chunked(
+        ex20.system, ph, ORDER4_DT, ORDER4_STEPS, chunk_steps=chunk, method="suzuki4_fused",
+        iters=(2, 0), compensated=True, drift_every=1000, drift_dtype=torch.float64,
+        callback=on_chunk, steps_per_call=spc))
+    expect_counts("order 4", counts, fused_step=ORDER4_STEPS // spc,
+                  spd_solve=1 + ORDER4_STEPS // 1000)
+    if not all_finite(o4_final.q, o4_final.p, o4_drift) or tuple(o4_final.q.shape) != (BATCH, 20):
+        raise AssertionError("order-4 output is not finite or not (16384, 20)")
+    o4_rate, o4_first, o4_chunks = steady_rate(marks, t0, BATCH, chunk)
+    o4_max = float(o4_drift.max())
+    log(f"phase 14: suzuki4_fused 16384 x chain-20 float32 (2,0) kahan dt={ORDER4_DT}, "
+        f"{ORDER4_STEPS} steps: {o4_rate:.6e} member-steps/s over {o4_chunks} steady chunks "
+        f"(first chunk {o4_first:.3f} s; {o4_rate / head_rate:.4f} of the headline), "
+        f"max|dH/H0| {o4_max:.6e}, launches {counts}")
+    if not o4_max < DRIFT_BOUND:
+        raise AssertionError(f"order-4 drift {o4_max:.3e} >= {DRIFT_BOUND}")
+    k1, _ = time_queued(o4_kern, 50)
+    k2, _ = time_queued(o4_kern, 50)
+    p2, _ = time_call(o4_plain, 1)
+    bound_ms, bound_by, _ = k1_bound(ex20.system, "suzuki4_fused", (2, 0), True, BATCH, spc)
+    log(f"phase 14: suzuki4 kernel {(k1 + k2) / 2:.4f} ms per launch ({k1:.4f}, {k2:.4f}), "
+        f"plain {(p1 + p2) / 2:.2f} ms ({p1:.2f}, {p2:.2f}), bound {bound_ms:.4f} ms "
+        f"({bound_by})")
+    entries.append({
+        "name": "fused_step semiseparable n=20 float32 kahan (2,0) suzuki4 composition",
+        "route": "cuda", "source": SOURCE, "replaces": REPLACES,
+        "launches": counts["fused_step"], "max_abs_err": worst_o4, "ms": (k1 + k2) / 2,
+        "plain_ms": (p1 + p2) / 2, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None,
+    })
+    summary.update({"order4_member_steps_per_sec": o4_rate, "order4_max_drift": o4_max,
+                    "order4_steps": ORDER4_STEPS})
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

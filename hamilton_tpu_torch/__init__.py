@@ -4,14 +4,17 @@ CUDA kernels for an NVIDIA H100.
 The PyTorch port of :mod:`hamilton_tpu`, module for module.  Plain tensor
 code is PyTorch (``torch.func`` in place of the JAX transforms, Python loops
 in place of ``lax`` loops); the fused whole-step leapfrog
-(``csrc/fused_step.cu``) and the batched tiny-SPD factor and solves of the
-library path (``csrc/batched_spd.cu``) run as CUDA kernels for ``sm_90a`` on
-CUDA tensors and as their plain PyTorch versions on CPU tensors.  Ported so
-far: the ensemble main path — state, system, mechanics, the serial-chain
-models, the library and fused leapfrog, and the final-state ensemble drivers
-with f64 drift sampling — and the library path: the spring, GSL-RKF45
-``evolve_ham`` and its ``stepHam``/``evolveHam`` wrappers (see
-``ROADMAP.md`` for what is still to come).  This package never imports JAX.
+(``csrc/fused_step.cu``), the batched tiny-SPD factor and solves of the
+library path (``csrc/batched_spd.cu``) and the roofline probes
+(``csrc/roofline_probes.cu``) run as CUDA kernels for ``sm_90a`` on CUDA
+tensors and as their plain PyTorch versions on CPU tensors.  Ported so far:
+the ensemble main path — state, system, mechanics, the serial-chain models,
+the library and fused leapfrog with its order-4 compositions and per-member
+parameter sweeps, and the final-state ensemble drivers with f64 drift
+sampling — the library path: the spring, GSL-RKF45 ``evolve_ham`` and its
+``stepHam``/``evolveHam`` wrappers — and the roofline accounting
+(``utils.roofline``, ``utils.profiling``); see ``ROADMAP.md`` for what is
+still to come.  This package never imports JAX.
 """
 
 from hamilton_tpu_torch.convert import params_from_numpy, phase_from_numpy

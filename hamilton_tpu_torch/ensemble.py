@@ -9,6 +9,11 @@ dt-steps, fold ``|H(t) − H(0)| / max(|H(0)|, 1)`` into a running per-member
 maximum.  Nothing in the loop reads a value back to the host, so on a CUDA
 device the launches queue asynchronously.
 
+Parameter sweeps run as they are: a system with ``(B, ...)``-batched
+params evolves member by member, the fused stepper's carry holds the
+per-member coefficient table beside the state, and the sampler's
+Hamiltonian maps each member's params with its state.
+
 The drift sampler measures ``H`` with the port's library
 :func:`~hamilton_tpu_torch.mechanics.hamiltonian` on a copy of the system
 in ``drift_dtype`` (``torch.float64`` for the f32 headline: the H100 has
@@ -200,7 +205,8 @@ def evolve_ensemble_chunked(
     must divide ``n_steps`` and be a multiple of ``drift_every``.
 
     **Exact resume:** ``carry_callback(chunk_index, carry, drift)`` receives
-    the raw carry after each chunk; ``initial_carry``/``initial_drift``
+    the raw carry after each chunk (for the fused stepper under per-member
+    params, ``(state, table)``); ``initial_carry``/``initial_drift``
     restart from one, and the continuation is bitwise identical to the
     uninterrupted run.  ``phase0`` stays the original run's initial phase
     (it defines H₀).  The reference's fourth callback argument, the

@@ -1,11 +1,12 @@
 """Fixed-step integrators (counterpart of :mod:`hamilton_tpu.integrators.fixed`).
 
 Ported so far: the generalized Störmer-Verlet leapfrog (``leapfrog``, the
-library path and the fused path's correctness reference) and its fused
-whole-step form (``leapfrog_fused``, :mod:`hamilton_tpu_torch.ops.fused_step`).
-The other methods of the reference (``rk4``, ``midpoint``/``gauss4``/
-``gauss6``, ``yoshida4``, ``tao2``/``tao4`` and the fused order-4
-compositions) are ROADMAP M11 (the fused compositions M9).
+library path and the fused path's correctness reference), its fused
+whole-step form (``leapfrog_fused``, :mod:`hamilton_tpu_torch.ops.fused_step`)
+and the fused order-4 compositions of it (``yoshida4_fused``, the triple
+jump, and ``suzuki4_fused``, Suzuki's five stages).  The other methods of the
+reference (``rk4``, ``midpoint``/``gauss4``/``gauss6``, ``yoshida4``,
+``tao2``/``tao4``) are ROADMAP M11.
 
 The Hamiltonian is non-separable, ``H = ½ pᵀK(q)⁻¹p + U(q)``, so the leapfrog
 is the semi-implicit two-half-step scheme (Hairer et al., *Geometric
@@ -166,7 +167,7 @@ FIXED_METHODS = (
     "tao4",
 )
 
-_PORTED = ("leapfrog", "leapfrog_fused")
+_PORTED = ("leapfrog", "leapfrog_fused", "yoshida4_fused", "suzuki4_fused")
 
 
 def make_stepper(
@@ -180,8 +181,10 @@ def make_stepper(
     """Build a fixed-step :class:`Stepper` for ``system``.
 
     ``method`` is ``"leapfrog"`` (the library path over
-    :func:`~hamilton_tpu_torch.mechanics.q_factor`) or ``"leapfrog_fused"``
-    (the fused whole-step kernel built from ``system.fused_forms``).
+    :func:`~hamilton_tpu_torch.mechanics.q_factor`), ``"leapfrog_fused"``
+    (the fused whole-step kernel built from ``system.fused_forms``), or
+    ``"yoshida4_fused"``/``"suzuki4_fused"`` (that kernel running an
+    order-4 composition of substeps inside each dt-step).
     ``iters`` is an int or an ``(iters_p, iters_q)`` pair; ``compensated``
     Kahan-accumulates the increments; ``steps_per_call`` (fused only) is the
     number of dt-steps per ``step`` call, reported as ``.substeps``.
@@ -191,12 +194,11 @@ def make_stepper(
             f"unknown fixed-step method {method!r}; choose from {FIXED_METHODS}"
         )
     if method not in _PORTED:
-        milestone = "M9" if method.endswith("_fused") else "M11"
         raise NotImplementedError(
-            f"method {method!r} is not ported yet (ROADMAP {milestone}); "
+            f"method {method!r} is not ported yet (ROADMAP M11); "
             f"ported: {_PORTED}"
         )
-    if steps_per_call != 1 and method != "leapfrog_fused":
+    if steps_per_call != 1 and not method.endswith("_fused"):
         raise ValueError(
             f"steps_per_call applies to the fused kernel methods, not {method!r}"
         )
@@ -207,9 +209,9 @@ def make_stepper(
             f"system {system.name!r} carries no fused-kernel closed forms "
             f"(System.fused_forms); use the library leapfrog"
         )
-    from hamilton_tpu_torch.ops.fused_step import fused_stepper
+    from hamilton_tpu_torch.ops.fused_step import FUSED_COMPOSITIONS, fused_stepper
 
     return fused_stepper(
         system.fused_forms(system), iters=iters, compensated=compensated,
-        steps_per_call=steps_per_call,
+        steps_per_call=steps_per_call, composition=FUSED_COMPOSITIONS[method],
     )

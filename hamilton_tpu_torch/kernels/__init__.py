@@ -33,6 +33,9 @@ __all__ = [
     "build",
     "build_all",
     "fused_step_launch",
+    "fma_probe_launch",
+    "sin_probe_launch",
+    "add_one_launch",
     "spd_solve_launch",
     "cholesky_launch",
     "cho_solve_launch",
@@ -154,8 +157,13 @@ _VP, _INT, _LL, _DBL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.
 #: (pointers and the stream as void*, so ctypes never cuts them to 32 bits).
 _SIGNATURES = {
     "fused_step": {
-        "hamilton_fused_step": [_INT, _INT, _INT, _INT, _VP, _VP, _VP, _LL, _DBL,
-                                _INT, _INT, _INT, _VP],
+        "hamilton_fused_step": [_INT, _INT, _INT, _VP, _VP, _VP, _LL, _DBL, _INT,
+                                _INT, _INT, _INT, ctypes.POINTER(_DBL), _VP],
+    },
+    "roofline_probes": {
+        "hamilton_fma_probe": [_INT, _VP, _VP, _LL, _INT, _INT, _VP],
+        "hamilton_sin_probe": [_INT, _VP, _VP, _LL, _INT, _INT, _VP],
+        "hamilton_add_one": [_VP, _VP, _LL, _INT, _VP],
     },
     "batched_spd": {
         "hamilton_spd_factor": [_INT, _INT, _VP, _VP, _LL, _INT, _INT, _VP],
@@ -192,12 +200,20 @@ def _call(name: str, fn: str, what: str, *args) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {code}: {msg}")
 
 
+@functools.lru_cache(maxsize=None)
+def _weights(weights: tuple):
+    """The composition weights as a C array, made once per composition (the
+    cache keeps it alive): one pointer argument on every launch."""
+    return (_DBL * len(weights))(*weights)
+
+
 def fused_step_launch(
     *,
     dtype_code: int,
     n: int,
     semiseparable: bool,
     compensated: bool,
+    per_member: bool,
     coef: int,
     state_in: int,
     state_out: int,
@@ -206,15 +222,19 @@ def fused_step_launch(
     iters_p: int,
     iters_q: int,
     steps_per_call: int,
+    weights: tuple,
     stream: int,
 ) -> None:
     """Launch the fused-step kernel (K1) on raw device pointers
     (``data_ptr()`` ints) and a stream handle; the caller has validated every
-    argument (``ops.fused_step.fused_step_kernel``).  Raises if the launch
+    argument (``ops.fused_step.fused_step_kernel``).  ``coef`` is the shared
+    table, or the ``(L, B)`` per-member one when ``per_member``; ``weights``
+    is the tuple of 1 to 5 composition weights.  Raises if the launch
     fails."""
-    _call("fused_step", "hamilton_fused_step", "fused-step", dtype_code, n,
-          int(semiseparable), int(compensated), coef, state_in, state_out,
-          batch, dt, iters_p, iters_q, steps_per_call, stream)
+    flags = int(semiseparable) | int(compensated) << 1 | int(per_member) << 2
+    _call("fused_step", "hamilton_fused_step", "fused-step", dtype_code, n, flags, coef,
+          state_in, state_out, batch, dt, iters_p, iters_q, steps_per_call, len(weights),
+          _weights(weights), stream)
     fused_step_launch.launches += 1
 
 
@@ -258,6 +278,32 @@ def cholesky_jac_launch(*, dtype_code, js, low, batch, n, m, stream) -> None:
     cholesky_jac_launch.launches += 1
 
 
+# The roofline probes (K3a-K3c, csrc/roofline_probes.cu) on float32 buffers
+# that the caller has validated (utils.roofline).
+
+
+def fma_probe_launch(*, x, out, elements, chains, reps, block, stream) -> None:
+    """K3a: ``reps`` dependent ``x·1.0000001 + 1.1920929e-07`` FMAs on each
+    element, ``chains`` independent elements per thread."""
+    _call("roofline_probes", "hamilton_fma_probe", "fma_probe", chains, x, out,
+          elements, reps, block, stream)
+    fma_probe_launch.launches += 1
+
+
+def sin_probe_launch(*, x, out, elements, chains, reps, block, stream) -> None:
+    """K3b: ``reps`` dependent ``sinf(x) + 1.1920929e-07`` on each element."""
+    _call("roofline_probes", "hamilton_sin_probe", "sin_probe", chains, x, out,
+          elements, reps, block, stream)
+    sin_probe_launch.launches += 1
+
+
+def add_one_launch(*, a, out, elements, blocks, stream) -> None:
+    """K3c: ``out = a + 1``, grid-strided with 16-byte loads and stores."""
+    _call("roofline_probes", "hamilton_add_one", "add_one", a, out, elements,
+          blocks, stream)
+    add_one_launch.launches += 1
+
+
 #: Every launch function, by the name the counts are reported under.
 LAUNCHERS = {
     "fused_step": fused_step_launch,
@@ -266,6 +312,9 @@ LAUNCHERS = {
     "cho_solve": cho_solve_launch,
     "spd_solve_jac": spd_solve_jac_launch,
     "cholesky_jac": cholesky_jac_launch,
+    "fma_probe": fma_probe_launch,
+    "sin_probe": sin_probe_launch,
+    "add_one": add_one_launch,
 }
 
 

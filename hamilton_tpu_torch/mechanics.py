@@ -54,7 +54,7 @@ __all__ = [
 
 def _jacobian(system: System, q: torch.Tensor) -> torch.Tensor:
     """J(q) with leading batch axes: (..., m, n)."""
-    return map_member(system, lambda qq, _p: system.jacobian(qq), q)
+    return map_member(system, lambda qq, pp: system.jacobian(qq, pp), q)
 
 
 def _mv(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -68,13 +68,16 @@ def _tmv(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 
 
 def _form_k(j: torch.Tensor, inertia: torch.Tensor) -> torch.Tensor:
-    """``K = JᵀMJ`` (..., n, n) from J (..., m, n)."""
+    """``K = JᵀMJ`` (..., n, n) from J (..., m, n); an inertia derived from
+    batched params carries leading batch axes that align with J's."""
     inertia = inertia.to(j.dtype)
-    return torch.einsum("...mi,m,...mj->...ij", j, inertia, j)
+    if inertia.ndim == 1:
+        return torch.einsum("...mi,m,...mj->...ij", j, inertia, j)
+    return torch.einsum("...mi,...mj->...ij", j * inertia[..., :, None], j)
 
 
 def _grad_u(system: System, q: torch.Tensor) -> torch.Tensor:
-    return map_member(system, lambda qq, _p: system.potential_grad(qq), q)
+    return map_member(system, lambda qq, pp: system.potential_grad(qq, pp), q)
 
 
 def mass_matrix(system: System, q: torch.Tensor) -> torch.Tensor:
@@ -124,7 +127,7 @@ def from_phase(system: System, phase: Phase) -> Config:
 
 def pe(system: System, q: torch.Tensor) -> torch.Tensor:
     """Potential energy ``U(q)``; shape ``(...)`` for ``q (..., n)``."""
-    return map_member(system, lambda qq, _p: system.potential_value(qq), q)
+    return map_member(system, lambda qq, pp: system.potential_value(qq, pp), q)
 
 
 def ke_c(system: System, config: Config) -> torch.Tensor:
@@ -154,9 +157,9 @@ def _dtdq(system: System, q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ``J·w`` is the primal output of the linearization, so the cotangent
     ``u`` costs no extra pass and no Jacobian is materialized."""
 
-    def one(qi, wi, _p):
-        coords1 = system.coords_bound()
-        inert = system.inertia.to(qi.dtype)
+    def one(qi, wi, pp):
+        coords1 = system.coords_bound(pp)
+        inert = system.inertia_of(pp).to(qi.dtype)
 
         def jw(qq):
             return jvp(coords1, (qq,), (wi,))[1]

@@ -39,7 +39,10 @@ def chain(
 
     ``fused_solver`` picks the fused kernel's linear algebra: ``"dense"``
     (in-register Cholesky) or ``"semiseparable"`` (the exact O(n)
-    factorization).
+    factorization).  A parameter sweep replaces the params with batched
+    ones (``System.replace_params``: ``(B, n)`` masses and lengths, ``(B,)``
+    gravity); ``fused_forms`` then gives per-member coefficient tables
+    (``(l, S, g·l·S)``, 3n entries a member, for the semiseparable family).
     """
     if fused_solver in _UNPORTED_SOLVERS:
         raise NotImplementedError(

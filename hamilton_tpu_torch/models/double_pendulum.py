@@ -52,7 +52,7 @@ def double_pendulum(
     def fused_forms(system):
         p = system.params
         return serial_chain_forms(
-            torch.stack([p["m1"], p["m2"]]), [1.0, 0.5], 5.0
+            torch.stack([p["m1"], p["m2"]], dim=-1), [1.0, 0.5], 5.0
         )
 
     system = mk_system_cart(

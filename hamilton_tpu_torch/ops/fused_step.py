@@ -16,16 +16,24 @@ vdot_est`` — plus the Kahan residuals ``cq, cp`` after ``p`` when
 ``compensated`` (``n_sv`` is 4 or 6).  ``steps_per_call`` dt-steps run per
 call; inside a call the end-of-step factor and aux ride to the next step
 (step 0 is peeled and factorizes afresh — the factor never crosses calls).
+Each dt-step runs the ``composition`` substeps (``(1.0,)`` is plain Verlet;
+:data:`YOSHIDA4_COMPOSITION` and :data:`SUZUKI4_COMPOSITION` are order 4),
+the factor carried across them.
+
+The coefficient tables are shared by every member when the physical
+parameters are concrete and unbatched (``FusedForms.consts``), or per member
+for a parameter sweep: ``FusedForms.arrays_fn`` builds them, and the stepper
+carries them as one batch-minor ``(L, B)`` table beside the state.
 
 A tensor on the CPU runs the plain version; a CUDA tensor launches the
 kernel, or raises when no kernel is compiled for its family, size or
-dtype.  Not ported yet (ROADMAP M9): per-member (swept) coefficient tables,
-the Yoshida/Suzuki compositions, the ``linv``/``mobius`` chain solvers, the
+dtype.  Not ported yet (ROADMAP): the ``linv``/``mobius`` chain solvers, the
 other model families, and gradients through the fused step.
 """
 
 from __future__ import annotations
 
+import functools
 import types
 from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple, Optional, Tuple
@@ -37,6 +45,9 @@ from hamilton_tpu_torch.integrators.fixed import Stepper, _iters_pair, _kahan_ad
 from hamilton_tpu_torch.state import Phase
 
 __all__ = [
+    "YOSHIDA4_COMPOSITION",
+    "SUZUKI4_COMPOSITION",
+    "FUSED_COMPOSITIONS",
     "FusedForms",
     "FamilyFns",
     "FM_TORCH",
@@ -44,6 +55,7 @@ __all__ = [
     "concrete_vec",
     "concrete_scalar",
     "coef_table",
+    "member_table",
     "serial_chain_forms",
     "serial_chain_forms_on",
     "fused_step",
@@ -51,6 +63,33 @@ __all__ = [
     "fused_step_reference",
     "fused_stepper",
 ]
+
+
+# Yoshida/Suzuki triple jump over a symmetric order-2 base: raises to order 4
+# (copied from hamilton_tpu/ops/pallas_step.py; a test holds them equal)
+_GAMMA = 2.0 ** (1.0 / 3.0)
+YOSHIDA4_COMPOSITION = (
+    1.0 / (2.0 - _GAMMA), -_GAMMA / (2.0 - _GAMMA), 1.0 / (2.0 - _GAMMA),
+)
+
+# Suzuki's 5-stage fractal composition (Suzuki 1990), order 4 over a
+# symmetric order-2 base: two more substeps than the triple jump, but every
+# |w| ≤ 0.42 (the triple jump's middle weight is ≈ −1.70), so the cheap
+# predictor-factor (2, 0) schedule still converges in each substep.  The
+# middle weight 1 − 4·S5 is negative.
+_S5 = 1.0 / (4.0 - 4.0 ** (1.0 / 3.0))
+SUZUKI4_COMPOSITION = (_S5, _S5, 1.0 - 4.0 * _S5, _S5, _S5)
+
+#: The composition of each fused method of ``integrators.fixed.make_stepper``.
+FUSED_COMPOSITIONS = {
+    "leapfrog_fused": (1.0,),
+    "yoshida4_fused": YOSHIDA4_COMPOSITION,
+    "suzuki4_fused": SUZUKI4_COMPOSITION,
+}
+
+#: The most composition weights the kernel takes (its launch copies them into
+#: the kernel's parameters).
+MAX_COMPOSITION = 5
 
 
 def _suffix_sums(xs):
@@ -64,7 +103,7 @@ def _suffix_sums(xs):
 def concrete_vec(x, n: int):
     """``x`` as a list of n Python floats when it is a plain sequence or an
     unbatched 1-D tensor that needs no gradient, else None (the per-member
-    coefficient mode, ROADMAP M9)."""
+    coefficient mode)."""
     if isinstance(x, (list, tuple)):
         if len(x) != n:
             raise ValueError(f"expected {n} per-link values, got {len(x)}")
@@ -137,10 +176,13 @@ class FusedForms:
     ``n``: generalized degrees of freedom; ``n_aux``: length of the aux
     tuple; ``coef_lens``: flat length of each coefficient table;
     ``consts``: the tables as tuples of Python floats when every physical
-    parameter is concrete and shared (None otherwise — per-member tables
-    are ROADMAP M9); ``make(at, fm) → FamilyFns`` builds the closed forms
-    against entry accessors ``at[t](i)`` and math namespace ``fm``;
-    ``name`` names the family (and selects its compiled kernel).
+    parameter is concrete and shared, else None; ``make(at, fm) →
+    FamilyFns`` builds the closed forms against entry accessors ``at[t](i)``
+    and math namespace ``fm``; ``name`` names the family (and selects its
+    compiled kernel).  ``arrays_fn(dtype, device)`` materializes each table
+    as a tensor of shape ``lead + (coef_lens[t],)``, ``lead`` being ``()``
+    or ``(B,)`` (a parameter sweep); it is read when ``consts`` is None.
+    ``requires_grad``: some parameter needs a gradient (not ported).
     """
 
     n: int
@@ -149,6 +191,8 @@ class FusedForms:
     consts: Optional[Tuple[Tuple[float, ...], ...]]
     make: Callable[..., FamilyFns]
     name: str = "family"
+    arrays_fn: Optional[Callable[..., Tuple[torch.Tensor, ...]]] = None
+    requires_grad: bool = False
 
     def const_accessors(self):
         """Entry accessors over the concrete tables."""
@@ -165,6 +209,23 @@ def _chain_size(masses, lengths) -> int:
     if n_len != n:
         raise ValueError(f"need {n} lengths, got {n_len}")
     return n
+
+
+def _table_input(x, dtype, device) -> torch.Tensor:
+    """A physical parameter (sequence, scalar or tensor) as a tensor for
+    ``arrays_fn``."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(device=device, dtype=dtype)
+    return torch.as_tensor(x, device=device, dtype=dtype)
+
+
+def _suffix(m: torch.Tensor) -> torch.Tensor:
+    """The suffix mass sums ``S_r = Σ_{k≥r} m_k`` over the last axis."""
+    return torch.flip(torch.cumsum(torch.flip(m, (-1,)), -1), (-1,))
+
+
+def _needs_grad(*xs) -> bool:
+    return any(isinstance(x, torch.Tensor) and x.requires_grad for x in xs)
 
 
 def _trig_aux(fm):
@@ -214,6 +275,17 @@ def serial_chain_forms(masses, lengths, gravity) -> FusedForms:
             tuple(g_c * l_c[i] * suff[i] for i in range(n)),
         )
 
+    def arrays_fn(dtype, device):
+        """The flat tables ``(C, g·l·S)`` from the (possibly batched)
+        parameters, computed in ``dtype`` as the reference's do."""
+        m_, l_, g_ = (_table_input(x, dtype, device) for x in (masses, lengths, gravity))
+        suffix = _suffix(m_)
+        # S_max(i,j) = min(S_i, S_j): the suffix sums are non-increasing
+        smax = torch.minimum(suffix[..., :, None], suffix[..., None, :])
+        cmat = l_[..., :, None] * l_[..., None, :] * smax
+        gu = g_[..., None] * l_ * suffix
+        return cmat.reshape(cmat.shape[:-2] + (n * n,)), gu
+
     def make(at, fm):
         cm = lambda i, j: at[0](i * n + j)  # noqa: E731
         gu_at = at[1]
@@ -260,7 +332,8 @@ def serial_chain_forms(masses, lengths, gravity) -> FusedForms:
 
     return FusedForms(
         n=n, n_aux=2 * n, coef_lens=(n * n, n), consts=consts, make=make,
-        name="serial_chain",
+        name="serial_chain", arrays_fn=arrays_fn,
+        requires_grad=_needs_grad(masses, lengths, gravity),
     )
 
 
@@ -286,6 +359,15 @@ def serial_chain_forms_on(masses, lengths, gravity) -> FusedForms:
             tuple(l_c) + tuple(suff)
             + tuple(g_c * l_c[i] * suff[i] for i in range(n)),
         )
+
+    def arrays_fn(dtype, device):
+        """The flat table ``(l, S, g·l·S)``, 3n entries a member."""
+        m_, l_, g_ = (_table_input(x, dtype, device) for x in (masses, lengths, gravity))
+        suffix = _suffix(m_)
+        gu = g_[..., None] * l_ * suffix
+        lead = torch.broadcast_shapes(l_.shape[:-1], suffix.shape[:-1], gu.shape[:-1])
+        parts = [t.expand(*lead, n) for t in (l_, suffix, gu)]
+        return (torch.cat(parts, dim=-1),)
 
     def make(at, fm):
         l_at = lambda i: at[0](i)            # noqa: E731  l_i
@@ -416,7 +498,8 @@ def serial_chain_forms_on(masses, lengths, gravity) -> FusedForms:
 
     return FusedForms(
         n=n, n_aux=2 * n, coef_lens=(3 * n,), consts=consts, make=make,
-        name="serial_chain_on",
+        name="serial_chain_on", arrays_fn=arrays_fn,
+        requires_grad=_needs_grad(masses, lengths, gravity),
     )
 
 
@@ -426,7 +509,7 @@ def serial_chain_forms_on(masses, lengths, gravity) -> FusedForms:
 # ----------------------------------------------------------------------
 
 
-def _chol_entries(k_at, n: int):
+def _chol_entries(k_at, n: int, sqrt=torch.sqrt):
     """Unrolled Cholesky on per-member entries: the lower factor as a dict
     ``{(i, j): value}`` plus the reciprocal diagonal."""
     low = {}
@@ -436,7 +519,7 @@ def _chol_entries(k_at, n: int):
         for k in range(j):
             ljk = low[(j, k)]
             s = s - ljk * ljk
-        d = torch.sqrt(s)
+        d = sqrt(s)
         low[(j, j)] = d
         inv_d = 1.0 / d
         inv_diag[j] = inv_d
@@ -470,12 +553,12 @@ def _solve_entries(low, inv_diag, b_at, n: int):
 # ----------------------------------------------------------------------
 
 
-def _factor_solve_fns(fam: FamilyFns, n: int):
+def _factor_solve_fns(fam: FamilyFns, n: int, fm=FM_TORCH):
     if fam.factor_solve is not None:
         return fam.factor_solve
 
     def factor_fn(aux_v, q):
-        low, inv_d = _chol_entries(fam.k_at(aux_v, q), n)
+        low, inv_d = _chol_entries(fam.k_at(aux_v, q), n, fm.sqrt)
         return tuple(
             low[(i, j)] for i in range(n) for j in range(i + 1)
         ) + tuple(inv_d)
@@ -491,9 +574,10 @@ def _factor_solve_fns(fam: FamilyFns, n: int):
     return factor_fn, solve_fn
 
 
-def _make_increments(fam: FamilyFns, n: int, iters_p: int, iters_q: int):
+def _make_increments(fam: FamilyFns, n: int, iters_p: int, iters_q: int,
+                     fm=FM_TORCH):
     aux_fn, dhdq = fam.aux, fam.dhdq
-    factor_fn, solve_fn = _factor_solve_fns(fam, n)
+    factor_fn, solve_fn = _factor_solve_fns(fam, n, fm)
 
     def increments(q0, p0, a_est, vdot_est, dt, half, fac0=None):
         """Lists of per-member values → ``(dq_inc, dp_inc, b, vdot1, fac1)``.
@@ -561,40 +645,72 @@ def _make_increments(fam: FamilyFns, n: int, iters_p: int, iters_q: int):
     return increments
 
 
-def _build_step_once(increments, n: int, compensated: bool, dt, half):
-    """One dt-step on per-member values, with or without Kahan-compensated
-    accumulation."""
+def _weighted(w: float, x):
+    """``T(w)·x``: the weight rounded to ``x``'s type first, as the
+    reference's product of a Python float with a tile of the state's dtype
+    rounds it."""
+    if isinstance(x, torch.Tensor):
+        return x.new_tensor(w) * x
+    return w * x
+
+
+def _build_step_once(increments, n: int, compensated: bool, dt, half,
+                     composition=(1.0,)):
+    """One dt-step on per-member values — the ``composition`` substeps, each
+    at ``T(w)·dt`` and ``T(w)·half`` with the factor carried across them —
+    with or without Kahan-compensated accumulation."""
     if not compensated:
 
         def step_once(state, fac):
             qs, ps, avs, vds = state
-            dq, dp, b, vd1, fac = increments(
-                list(qs), list(ps), list(avs), list(vds), dt, half, fac0=fac
-            )
-            qs = tuple(qs[i] + dq[i] for i in range(n))
-            ps = tuple(ps[i] + dp[i] for i in range(n))
-            return (qs, ps, tuple(b), tuple(vd1)), fac
+            for w in composition:
+                dq, dp, b, vd1, fac = increments(
+                    list(qs), list(ps), list(avs), list(vds),
+                    _weighted(w, dt), _weighted(w, half), fac0=fac,
+                )
+                qs = tuple(qs[i] + dq[i] for i in range(n))
+                ps = tuple(ps[i] + dp[i] for i in range(n))
+                avs, vds = tuple(b), tuple(vd1)
+            return (qs, ps, avs, vds), fac
 
         return step_once
 
     def step_once(state, fac):
         qs, ps, cqs, cps, avs, vds = state
-        dq, dp, b, vd1, fac = increments(
-            list(qs), list(ps), list(avs), list(vds), dt, half, fac0=fac
-        )
-        q_c = [_kahan_add(qs[i], cqs[i], dq[i]) for i in range(n)]
-        p_c = [_kahan_add(ps[i], cps[i], dp[i]) for i in range(n)]
-        return (
-            tuple(x for x, _ in q_c), tuple(x for x, _ in p_c),
-            tuple(c for _, c in q_c), tuple(c for _, c in p_c),
-            tuple(b), tuple(vd1),
-        ), fac
+        for w in composition:
+            dq, dp, b, vd1, fac = increments(
+                list(qs), list(ps), list(avs), list(vds),
+                _weighted(w, dt), _weighted(w, half), fac0=fac,
+            )
+            q_c = [_kahan_add(qs[i], cqs[i], dq[i]) for i in range(n)]
+            p_c = [_kahan_add(ps[i], cps[i], dp[i]) for i in range(n)]
+            qs, cqs = tuple(x for x, _ in q_c), tuple(c for _, c in q_c)
+            ps, cps = tuple(x for x, _ in p_c), tuple(c for _, c in p_c)
+            avs, vds = tuple(b), tuple(vd1)
+        return (qs, ps, cqs, cps, avs, vds), fac
 
     return step_once
 
 
+@functools.lru_cache(maxsize=None)
+def _checked_composition(composition: tuple) -> Tuple[float, ...]:
+    composition = tuple(float(w) for w in composition)
+    if not 1 <= len(composition) <= MAX_COMPOSITION:
+        raise ValueError(
+            f"a composition has 1 to {MAX_COMPOSITION} weights, got "
+            f"{len(composition)}"
+        )
+    return composition
+
+
+def _check_composition(composition) -> Tuple[float, ...]:
+    """The weights as a tuple of floats, checked once per composition (a
+    launch repeats its stepper's)."""
+    return _checked_composition(tuple(composition))
+
+
 def _check_state(forms: FusedForms, state: torch.Tensor, compensated: bool,
-                 steps_per_call: int):
+                 steps_per_call: int, coef: Optional[torch.Tensor]):
     n_sv = 6 if compensated else 4
     if state.ndim != 3 or tuple(state.shape[:2]) != (n_sv, forms.n):
         raise ValueError(
@@ -605,16 +721,74 @@ def _check_state(forms: FusedForms, state: torch.Tensor, compensated: bool,
         raise ValueError("fused step needs a batch of at least one member")
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
-    if state.requires_grad:
+    if state.requires_grad or forms.requires_grad:
         raise NotImplementedError(
             "the fused step is forward-only: gradients through it are "
             "ROADMAP M9 (use the library leapfrog to differentiate)"
         )
-    if forms.consts is None:
-        raise NotImplementedError(
-            f"{forms.name}: per-member or gradient-carrying physical "
-            f"parameters (coefficient tables per member) are ROADMAP M9"
+    per_member = forms.consts is None
+    if coef is None:
+        if per_member:
+            raise ValueError(
+                f"{forms.name}: per-member parameters need their (L, B) "
+                f"coefficient table as coef= (fused_stepper's init builds it)"
+            )
+        return
+    want = ((sum(forms.coef_lens), state.shape[2]) if per_member
+            else (sum(forms.coef_lens),))
+    if (tuple(coef.shape) != want or coef.dtype != state.dtype
+            or coef.device != state.device or not coef.is_contiguous()):
+        raise ValueError(
+            f"{forms.name}: the {'per-member' if per_member else 'shared'} "
+            f"coefficient table must be a contiguous {want} {state.dtype} "
+            f"tensor on {state.device}, got {tuple(coef.shape)} {coef.dtype} "
+            f"on {coef.device}"
         )
+
+
+def member_table(forms: FusedForms, batch: int, dtype, device) -> torch.Tensor:
+    """The per-member coefficient tables of a parameter sweep as one
+    batch-minor ``(L, B)`` tensor, ``L = sum(coef_lens)``: each table of
+    ``forms.arrays_fn`` either unbatched (broadcast to every member) or with
+    a leading batch axis equal to the state batch.  A size-1 batch axis is
+    refused, as the library path refuses it (its member-wise vmap does not
+    broadcast), so the two paths never disagree silently."""
+    if forms.arrays_fn is None:
+        raise ValueError(f"{forms.name} has no per-member tables (arrays_fn)")
+    tables = forms.arrays_fn(dtype, device)
+    if len(tables) != len(forms.coef_lens):
+        raise ValueError(
+            f"{forms.name}: arrays_fn returned {len(tables)} tables, declared "
+            f"{len(forms.coef_lens)}"
+        )
+    rows = []
+    for t, (arr, flat) in enumerate(zip(tables, forms.coef_lens)):
+        lead = tuple(arr.shape[:-1])
+        if arr.ndim < 1 or arr.shape[-1] != flat:
+            raise ValueError(
+                f"{forms.name}: coefficient table {t} has shape "
+                f"{tuple(arr.shape)}, declared flat length {flat}"
+            )
+        if lead == ():
+            arr = arr.reshape(1, flat).expand(batch, flat)
+        elif lead != (batch,):
+            raise ValueError(
+                f"batched {forms.name} parameters must carry a leading batch "
+                f"axis equal to the state batch ({batch}); got table {t} shape "
+                f"{tuple(arr.shape)} (broadcast size-1 axes explicitly, as the "
+                f"library path requires)"
+            )
+        rows.append(arr.T)
+    return torch.cat(rows, dim=0).contiguous()
+
+
+def _accessors(forms: FusedForms, coef: Optional[torch.Tensor]):
+    """Entry accessors ``at[t](i)``: Python floats over the shared tables,
+    or ``(B,)`` rows of the per-member table."""
+    if forms.consts is not None:
+        return forms.const_accessors()
+    offsets = [sum(forms.coef_lens[:t]) for t in range(len(forms.coef_lens))]
+    return tuple((lambda i, o=o: coef[o + i]) for o in offsets)
 
 
 def fused_step_reference(
@@ -625,20 +799,28 @@ def fused_step_reference(
     iters,
     compensated: bool,
     steps_per_call: int = 1,
+    composition=(1.0,),
+    coef: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The plain PyTorch version of the fused kernel: ``steps_per_call``
-    generalized Störmer-Verlet steps of a ``(n_sv, n, B)`` state, as an
-    eager mirror of the kernel's arithmetic on ``(B,)`` member columns, in
-    the same operation order (step 0 factorizes afresh; steps 1..S−1 reuse
-    the previous step's end-of-step factor and aux).  Runs on any device;
-    returns a new state tensor."""
-    _check_state(forms, state, compensated, steps_per_call)
+    generalized Störmer-Verlet steps (each of the ``composition`` substeps)
+    of a ``(n_sv, n, B)`` state, as an eager mirror of the kernel's
+    arithmetic on ``(B,)`` member columns, in the same operation order (the
+    first substep of a call factorizes afresh; every later one reuses the
+    previous substep's end-of-step factor and aux).  ``coef`` is the
+    kernel's coefficient table (:func:`fused_step_kernel`), checked the same
+    way; with shared parameters the entries are read as the Python floats
+    of ``forms.consts`` it was built from.  Runs on any device; returns a new
+    state tensor."""
+    _check_state(forms, state, compensated, steps_per_call, coef)
+    composition = _check_composition(composition)
     iters_p, iters_q = _iters_pair(iters)
     n = forms.n
-    fam = forms.make(forms.const_accessors(), FM_TORCH)
+    fam = forms.make(_accessors(forms, coef), FM_TORCH)
     increments = _make_increments(fam, n, iters_p, iters_q)
     dt_t = torch.tensor(float(dt), dtype=state.dtype, device=state.device)
-    step_once = _build_step_once(increments, n, compensated, dt_t, dt_t * 0.5)
+    step_once = _build_step_once(increments, n, compensated, dt_t, dt_t * 0.5,
+                                 composition)
     st = tuple(tuple(state[v, i] for i in range(n)) for v in range(state.shape[0]))
     st, fac = step_once(st, None)
     for _ in range(steps_per_call - 1):
@@ -654,16 +836,20 @@ def fused_step_reference(
 _KERNEL_FAMILIES = {"serial_chain_on": "semiseparable", "serial_chain": "dense"}
 
 #: The (variant, n) pairs compiled into csrc/fused_step.cu, each for float32
-#: and float64, compensated or not.  Keep in step with its dispatch table.
+#: and float64, compensated or not, with shared or per-member tables.  Keep
+#: in step with its dispatch table.
 KERNEL_INSTANTIATIONS = (("semiseparable", 20), ("semiseparable", 5), ("dense", 2))
 
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
 
-def check_kernel_args(device, dtype, forms: FusedForms, shape) -> None:
+def check_kernel_args(device, dtype, forms: FusedForms, shape,
+                      composition=(1.0,)) -> Tuple[float, ...]:
     """Raise unless the kernel is compiled for this call: a CUDA device, a
-    float32/float64 state, and an instantiated (family, n) pair.  Takes a
-    device (or its string) so the check is testable without a card."""
+    float32/float64 state, an instantiated (family, n) pair and at most
+    :data:`MAX_COMPOSITION` composition weights.  Returns the weights as a
+    tuple of floats.  Takes a device (or its string) so the check is
+    testable without a card."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"the fused-step kernel runs on CUDA, not {device}")
@@ -684,11 +870,13 @@ def check_kernel_args(device, dtype, forms: FusedForms, shape) -> None:
             f"the fused-step kernel takes a (4 or 6, {forms.n}, B) state, "
             f"got {tuple(shape)}"
         )
+    return _check_composition(composition)
 
 
 def coef_table(forms: FusedForms, device, dtype) -> torch.Tensor:
-    """The kernel's flat coefficient table for ``forms`` (``coef=`` of
-    :func:`fused_step_kernel`; the stepper builds it once per device)."""
+    """The kernel's flat ``(L,)`` shared coefficient table for ``forms``
+    (``coef=`` of :func:`fused_step_kernel`; the stepper builds it once per
+    device)."""
     flat = [v for table in forms.consts for v in table]
     return torch.tensor(flat, device=device, dtype=dtype)
 
@@ -701,33 +889,33 @@ def fused_step_kernel(
     iters,
     compensated: bool,
     steps_per_call: int = 1,
+    composition=(1.0,),
     coef: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Launch the Hopper kernel (``csrc/fused_step.cu``) on a CUDA state:
     ``steps_per_call`` steps of the ``(n_sv, n, B)`` state into a new tensor
-    (allocated here; the kernel allocates nothing).  ``coef`` is the flat
-    coefficient table on the state's device (built from ``forms.consts``
-    when None).  Launches on the current stream without synchronizing."""
-    _check_state(forms, state, compensated, steps_per_call)
-    check_kernel_args(state.device, state.dtype, forms, tuple(state.shape))
+    (allocated here; the kernel allocates nothing).  ``coef`` is the
+    kernel's one coefficient table on the state's device: with shared
+    parameters (``forms.consts``) the flat ``(L,)`` table of
+    :func:`coef_table`, built here when None; with per-member parameters
+    the ``(L, B)`` table of :func:`member_table`, required.  Launches on the
+    current stream without synchronizing."""
+    _check_state(forms, state, compensated, steps_per_call, coef)
+    composition = check_kernel_args(state.device, state.dtype, forms,
+                                    tuple(state.shape), composition)
     iters_p, iters_q = _iters_pair(iters)
     if not state.is_contiguous():
         raise ValueError("the fused-step kernel needs a contiguous state")
+    per_member = forms.consts is None
     if coef is None:
         coef = coef_table(forms, state.device, state.dtype)
-    if (coef.device != state.device or coef.dtype != state.dtype
-            or not coef.is_contiguous()
-            or coef.numel() != sum(forms.coef_lens)):
-        raise ValueError(
-            f"coefficient table must be a contiguous ({sum(forms.coef_lens)},) "
-            f"{state.dtype} tensor on {state.device}"
-        )
     out = torch.empty_like(state)
     kernels.fused_step_launch(
         dtype_code=_DTYPE_CODES[state.dtype],
         n=forms.n,
         semiseparable=_KERNEL_FAMILIES[forms.name] == "semiseparable",
         compensated=compensated,
+        per_member=per_member,
         coef=coef.data_ptr(),
         state_in=state.data_ptr(),
         state_out=out.data_ptr(),
@@ -736,6 +924,7 @@ def fused_step_kernel(
         iters_p=iters_p,
         iters_q=iters_q,
         steps_per_call=steps_per_call,
+        weights=composition,
         stream=torch.cuda.current_stream(state.device).cuda_stream,
     )
     return out
@@ -749,6 +938,7 @@ def fused_step(
     iters,
     compensated: bool,
     steps_per_call: int = 1,
+    composition=(1.0,),
     coef: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``steps_per_call`` fused steps: the kernel for a CUDA state, the plain
@@ -756,12 +946,12 @@ def fused_step(
     if state.device.type == "cuda":
         return fused_step_kernel(
             forms, state, dt, iters=iters, compensated=compensated,
-            steps_per_call=steps_per_call, coef=coef,
+            steps_per_call=steps_per_call, composition=composition, coef=coef,
         )
     if state.device.type == "cpu":
         return fused_step_reference(
             forms, state, dt, iters=iters, compensated=compensated,
-            steps_per_call=steps_per_call,
+            steps_per_call=steps_per_call, composition=composition, coef=coef,
         )
     raise ValueError(f"no fused step for device {state.device}")
 
@@ -772,6 +962,7 @@ def fused_stepper(
     iters=(3, 1),
     compensated: bool = False,
     steps_per_call: int = 1,
+    composition=(1.0,),
 ):
     """A fused whole-step leapfrog :class:`Stepper` from a family's
     :class:`FusedForms`.
@@ -779,21 +970,29 @@ def fused_stepper(
     ``iters=(iters_p, iters_q)`` are the momentum/position fixed-point
     counts; ``iters_q=0`` selects the predictor-factor (Gauss-Seidel) mode.
     ``steps_per_call`` dt-steps run per ``step`` call (reported as
-    ``.substeps``).  Any batch size.  The carry is the ``(n_sv, n, B)``
-    state tensor; ``extract`` returns ``(B, n)`` phases.
+    ``.substeps``); each runs the ``composition`` substeps (order 4 for the
+    Yoshida/Suzuki weights).  Any batch size.  With shared parameters the
+    carry is the ``(n_sv, n, B)`` state tensor; with per-member parameters
+    it is ``(state, table)``: ``init`` builds the ``(L, B)`` coefficient
+    table once and it rides with the state, so a resumed run keeps it.
+    ``extract`` returns ``(B, n)`` phases.
     """
     iters = _iters_pair(iters)
+    composition = _check_composition(composition)
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
-    if forms.consts is None:
+    if forms.requires_grad:
         raise NotImplementedError(
-            f"{forms.name}: per-member or gradient-carrying physical "
-            f"parameters (coefficient tables per member) are ROADMAP M9"
+            f"{forms.name}: gradient-carrying physical parameters (gradients "
+            f"through the fused step) are ROADMAP M9"
         )
+    if forms.consts is None and forms.arrays_fn is None:
+        raise ValueError(f"{forms.name}: no shared constants and no arrays_fn")
     n = forms.n
+    per_member = forms.consts is None
     coef_cache = {}
 
-    def init(ph: Phase) -> torch.Tensor:
+    def init(ph: Phase):
         if ph.q.ndim != 2 or ph.q.shape[-1] != n:
             raise ValueError(
                 f"fused {forms.name} stepper needs (B, {n}) states, got "
@@ -805,22 +1004,30 @@ def fused_stepper(
         # trailing (a_est, vdot_est) warm-start carries start at zero (the
         # cold start)
         parts = (q, p, z, z, z, z) if compensated else (q, p, z, z)
-        return torch.stack(parts).contiguous()
+        state = torch.stack(parts).contiguous()
+        if not per_member:
+            return state
+        return state, member_table(forms, q.shape[1], q.dtype, q.device)
 
-    def step(carry: torch.Tensor, dt) -> torch.Tensor:
+    kw = dict(iters=iters, compensated=compensated,
+              steps_per_call=steps_per_call, composition=composition)
+
+    def step(carry, dt):
+        if per_member:
+            state, table = carry
+            return fused_step(forms, state, dt, coef=table, **kw), table
         coef = None
         if carry.device.type == "cuda":
             key = (carry.device, carry.dtype)
             if key not in coef_cache:
                 coef_cache[key] = coef_table(forms, carry.device, carry.dtype)
             coef = coef_cache[key]
-        return fused_step(
-            forms, carry, dt, iters=iters, compensated=compensated,
-            steps_per_call=steps_per_call, coef=coef,
-        )
+        return fused_step(forms, carry, dt, coef=coef, **kw)
 
-    def extract(carry: torch.Tensor) -> Phase:
-        return Phase(carry[0].T, carry[1].T)
+    def extract(carry) -> Phase:
+        state = carry[0] if per_member else carry
+        return Phase(state[0].T, state[1].T)
 
-    return Stepper(init, step, extract, order=2, symplectic=True,
+    order = 2 if composition == (1.0,) else 4  # symmetric compositions
+    return Stepper(init, step, extract, order=order, symplectic=True,
                    substeps=steps_per_call)

@@ -11,8 +11,10 @@ one member's ``(n,)`` tensor (plus ``params`` when given), written with
 torch operations only and no Python branching on tensor values, so that
 ``torch.func.vmap`` maps them over ensemble batch axes.
 
-Parameter sweeps (``params`` leaves with a leading member axis) are not
-ported yet (ROADMAP M9): params here are shared by every member.
+Parameter sweeps: ``params`` leaves may carry extra leading batch axes
+(:meth:`System.replace_params`); :func:`map_member` pairs them with the
+trailing batch axes of the state, so an ensemble ``(B, n)`` evolves under
+``(B, ...)``-batched params member by member.
 """
 
 from __future__ import annotations
@@ -85,6 +87,12 @@ class System:
                     f"coordinate masses, got shape {tuple(self._inertia.shape)}"
                 )
         self.params = _as_params(params, device=device, dtype=dtype)
+        # each leaf's construction-time rank: extra leading axes added later
+        # (replace_params) are params batch axes
+        self._params_ndim = (
+            None if self.params is None
+            else {k: v.ndim for k, v in self.params.items()}
+        )
         self.device = torch.device(device)
         self.dtype = dtype
         self.inertia_fn = inertia_fn
@@ -104,12 +112,58 @@ class System:
     def has_params(self) -> bool:
         return self.params is not None
 
-    @property
-    def inertia(self) -> torch.Tensor:
-        """The inertia vector: the stored tensor, or ``inertia_fn(params)``."""
+    def param_batch_ndim(self) -> int:
+        """Number of extra leading batch axes the ``params`` leaves carry
+        relative to their construction-time ranks (0 for unbatched).  All
+        leaves must agree."""
+        if self.params is None:
+            return 0
+        pbs = {v.ndim - self._params_ndim[k] for k, v in self.params.items()}
+        if len(pbs) != 1:
+            raise ValueError(
+                f"inconsistent params batching: leaf batch ndims {sorted(pbs)} "
+                f"(every params leaf must carry the same number of extra "
+                f"leading axes)"
+            )
+        (pb,) = pbs
+        if pb < 0:
+            raise ValueError(
+                "params leaves have fewer axes than at construction: params "
+                "edits must keep each leaf's base shape"
+            )
+        return pb
+
+    def _member_params(self, params):
+        """The params of a single-member call: an explicit member ``params``
+        wins; otherwise ``self.params``, which must then be unbatched."""
+        if params is not None:
+            return params
+        if self.params is not None and self.param_batch_ndim() > 0:
+            raise ValueError(
+                "this System carries batched params; member-level calls "
+                "(System.jacobian / potential_grad / ...) need explicit member "
+                "params: use the batch-aware functions in "
+                "hamilton_tpu_torch.mechanics instead"
+            )
+        return self.params
+
+    def inertia_of(self, params=None) -> torch.Tensor:
+        """The single-member inertia vector ``(m,)`` for the given member
+        params (or this system's own, when unbatched)."""
         if self.inertia_fn is None:
             return self._inertia
-        return self.inertia_fn(self.params)
+        return self.inertia_fn(self._member_params(params))
+
+    @property
+    def inertia(self) -> torch.Tensor:
+        """The inertia vector: the stored tensor, or ``inertia_fn(params)``
+        with any params batch axes leading."""
+        if self.inertia_fn is None:
+            return self._inertia
+        fn = self.inertia_fn
+        for _ in range(self.param_batch_ndim()):
+            fn = vmap(fn)
+        return fn(self.params)
 
     def to(self, *, device=None, dtype: Optional[torch.dtype] = None) -> "System":
         """A copy with the inertia and params moved to ``device``/``dtype``
@@ -125,8 +179,11 @@ class System:
         return new
 
     def replace_params(self, params) -> "System":
-        """A copy with new ``params`` of the same keys and shapes (carried
-        over from another source, e.g. :func:`convert.params_from_numpy`)."""
+        """A copy with new ``params`` of the same keys (carried over from
+        another source, e.g. :func:`convert.params_from_numpy`).  Each leaf
+        keeps its construction-time shape as its trailing axes and may carry
+        extra leading batch axes, the same number on every leaf: the
+        parameter-sweep entry point."""
         if self.params is None:
             raise ValueError(f"system {self.name!r} carries no params")
         new_params = _as_params(params, device=self.device, dtype=self.dtype)
@@ -136,14 +193,17 @@ class System:
                 f"system's {sorted(self.params)}"
             )
         for k, v in new_params.items():
-            if v.shape != self.params[k].shape:
+            base = self._params_ndim[k]
+            want = tuple(self.params[k].shape[self.params[k].ndim - base:])
+            got = tuple(v.shape[v.ndim - base:]) if v.ndim >= base else tuple(v.shape)
+            if v.ndim < base or got != want:
                 raise ValueError(
-                    f"replace_params: {k!r} has shape {tuple(v.shape)}, the "
-                    f"system's is {tuple(self.params[k].shape)} (per-member "
-                    f"parameter sweeps are ROADMAP M9)"
+                    f"replace_params: {k!r} has shape {tuple(v.shape)}; it must "
+                    f"end in the system's {want} (batch axes lead)"
                 )
         new = self.to()
         new.params = new_params
+        new.param_batch_ndim()  # validate the leaves' batching now
         return new
 
     # -- dimensions -----------------------------------------------------
@@ -158,44 +218,46 @@ class System:
         return self._n
 
     # -- member-level closures (params bound) ---------------------------
-    def coords_bound(self) -> Callable[[torch.Tensor], torch.Tensor]:
+    def coords_bound(self, params=None) -> Callable[[torch.Tensor], torch.Tensor]:
+        """``coords`` as a one-argument closure with member params bound."""
         if self.params is None:
             return self.coords
-        p = self.params
+        p = self._member_params(params)
         return lambda q: self.coords(q, p)
 
-    def potential_bound(self) -> Callable[[torch.Tensor], torch.Tensor]:
+    def potential_bound(self, params=None) -> Callable[[torch.Tensor], torch.Tensor]:
+        """``potential`` as a one-argument closure with member params bound."""
         if self.params is None:
             return self.potential
-        p = self.params
+        p = self._member_params(params)
         return lambda q: self.potential(q, p)
 
     # -- AD-derived closures ----------------------------------------------
-    def jacobian(self, q: torch.Tensor) -> torch.Tensor:
+    def jacobian(self, q: torch.Tensor, params=None) -> torch.Tensor:
         """``J(q) = df/dq``, shape ``(m, n)``: the analytic ``jacobian_fn``
         when given, else forward-mode AD of ``coords``."""
         if self.jacobian_fn is not None:
             if self.params is None:
                 return self.jacobian_fn(q)
-            return self.jacobian_fn(q, self.params)
-        return jacfwd(self.coords_bound())(q)
+            return self.jacobian_fn(q, self._member_params(params))
+        return jacfwd(self.coords_bound(params))(q)
 
-    def hessian(self, q: torch.Tensor) -> torch.Tensor:
+    def hessian(self, q: torch.Tensor, params=None) -> torch.Tensor:
         """Rank-3 ``d²f/dq²``, shape ``(m, n, n)``."""
-        return jacfwd(jacfwd(self.coords_bound()))(q)
+        return jacfwd(jacfwd(self.coords_bound(params)))(q)
 
-    def potential_value(self, q: torch.Tensor) -> torch.Tensor:
+    def potential_value(self, q: torch.Tensor, params=None) -> torch.Tensor:
         """``U(q)`` as a 0-d tensor."""
-        return torch.as_tensor(self.potential_bound()(q)).reshape(())
+        return torch.as_tensor(self.potential_bound(params)(q)).reshape(())
 
-    def potential_grad(self, q: torch.Tensor) -> torch.Tensor:
+    def potential_grad(self, q: torch.Tensor, params=None) -> torch.Tensor:
         """``∇U(q)``, shape ``(n,)``."""
-        fn = self.potential_bound()
+        fn = self.potential_bound(params)
         return grad(lambda qq: fn(qq).reshape(()))(q)
 
-    def underlying_pos(self, q: torch.Tensor) -> torch.Tensor:
+    def underlying_pos(self, q: torch.Tensor, params=None) -> torch.Tensor:
         """``f(q)``: generalized → Cartesian positions."""
-        return self.coords_bound()(q)
+        return self.coords_bound(params)(q)
 
     def __repr__(self) -> str:
         return f"System(name={self.name!r}, m={self.m}, n={self._n})"
@@ -204,15 +266,40 @@ class System:
 def map_member(system: System, fn, *args):
     """Map a member-level ``fn(*member_args, params)`` over the leading batch
     axes of ``args`` (each ``(..., n)``-shaped, batch shapes equal) with
-    ``torch.func.vmap``; ``params`` is shared by every member."""
-    p = system.params
+    ``torch.func.vmap``.
 
-    def g(*a):
-        return fn(*a, p)
+    When the ``params`` leaves carry ``pb`` batch axes
+    (:meth:`System.param_batch_ndim`), those pair with the **trailing** ``pb``
+    batch axes of the state: an ensemble ``(B, n)`` maps member-wise with
+    ``(B, ...)``-batched params, while extra leading state axes (time,
+    stages) map with the params held fixed.  Unbatched params are shared by
+    every member; a system without params hands ``fn`` None."""
+    nd = args[0].ndim - 1
+    pb = system.param_batch_ndim()
+    if pb > nd:
+        raise ValueError(
+            f"params carry {pb} batch axes but the state has only {nd}; "
+            f"batched params align with the trailing state batch axes "
+            f"(state {tuple(args[0].shape)})"
+        )
+    if pb:
+        lead = args[0].shape[nd - pb:nd]
+        for k, v in system.params.items():
+            if tuple(v.shape[:pb]) != tuple(lead):
+                raise ValueError(
+                    f"params batch {tuple(v.shape[:pb])} of {k!r} does not "
+                    f"equal the state's trailing batch axes {tuple(lead)} "
+                    f"(broadcast size-1 axes explicitly)"
+                )
 
-    for _ in range(args[0].ndim - 1):
+    def g(params, *a):
+        return fn(*a, params)
+
+    for _ in range(pb):  # innermost: member axes, params mapped jointly
         g = vmap(g)
-    return g(*args)
+    for _ in range(nd - pb):  # outer axes: params held fixed
+        g = vmap(g, in_dims=(None,) + (0,) * len(args))
+    return g(system.params, *args)
 
 
 def mk_system(
@@ -319,4 +406,4 @@ def mk_system_cart(
 def underlying_pos(system: System, q: torch.Tensor) -> torch.Tensor:
     """Generalized → underlying Cartesian positions, batched over any
     leading axes of ``q``."""
-    return map_member(system, lambda qq, _p: system.underlying_pos(qq), q)
+    return map_member(system, lambda qq, pp: system.underlying_pos(qq, pp), q)

@@ -292,18 +292,6 @@ def test_any_batch_size_and_layout():
 # ----------------------------------------------------------------------
 
 
-def test_per_member_params_raise():
-    n, b = 4, 8
-    forms = t_step.serial_chain_forms_on(torch.rand(b, n, dtype=F64) + 0.5,
-                                         torch.ones(b, n, dtype=F64), 5.0)
-    assert forms.consts is None
-    with pytest.raises(NotImplementedError, match="M9"):
-        t_step.fused_stepper(forms, iters=(2, 0))
-    state = torch.zeros(4, n, b, dtype=F64)
-    with pytest.raises(NotImplementedError, match="M9"):
-        t_step.fused_step_reference(forms, state, 1e-3, iters=(2, 0), compensated=False)
-
-
 def test_requires_grad_inputs_raise():
     ex = tp.chain(n_links=3, fused_solver="semiseparable", device="cpu", dtype=F64)
     st = tp.make_stepper(ex.system, "leapfrog_fused", iters=(2, 0))
@@ -315,13 +303,6 @@ def test_requires_grad_inputs_raise():
                            masses=grad_sys.params["masses"].clone().requires_grad_(True))
     with pytest.raises(NotImplementedError, match="M9"):
         tp.make_stepper(grad_sys, "leapfrog_fused", iters=(2, 0))
-
-
-def test_unported_compositions_raise():
-    ex = tp.chain(n_links=3, fused_solver="semiseparable", device="cpu", dtype=F64)
-    for method in ("yoshida4_fused", "suzuki4_fused"):
-        with pytest.raises(NotImplementedError, match="M9"):
-            tp.make_stepper(ex.system, method, iters=(2, 0))
 
 
 def test_kernel_argument_checks():

@@ -1,8 +1,8 @@
 """The PyTorch port never imports JAX.
 
 A fresh interpreter imports ``hamilton_tpu_torch``, builds a chain system,
-takes a fused step and runs ``evolve_ham``; ``jax`` must stay out of
-``sys.modules``.
+takes a fused step, runs ``evolve_ham`` and counts the fused step's
+operations; ``jax`` must stay out of ``sys.modules``.
 """
 
 import os
@@ -22,6 +22,8 @@ st = tp.make_stepper(ex.system, "leapfrog_fused", iters=(2, 0), steps_per_call=2
 ph = tp.Phase(ex.init_config.q.expand(3, 4).contiguous(), torch.zeros(3, 4, dtype=torch.float64))
 st.extract(st.step(st.init(ph), 1e-3))
 tp.evolve_ham(ex.system, tp.Phase(ph.q, ph.p + 0.1), [0.0, 0.01])
+from hamilton_tpu_torch.utils import profiling, roofline
+roofline.fused_step_cost(ex.system, method="suzuki4_fused", iters=(2, 0))
 print("jax" in sys.modules, any(m.startswith("hamilton_tpu.") or m == "hamilton_tpu"
                                 for m in sys.modules))
 """

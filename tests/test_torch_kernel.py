@@ -1,5 +1,5 @@
 """The hand-written CUDA kernels themselves (``hamilton_tpu_torch/csrc/
-fused_step.cu`` and ``csrc/batched_spd.cu``).
+fused_step.cu``, ``csrc/batched_spd.cu`` and ``csrc/roofline_probes.cu``).
 
 These tests need an NVIDIA card and nvcc; elsewhere they skip.  This file
 imports no JAX, so on a machine without it run it without the suite's
@@ -16,6 +16,7 @@ import hamilton_tpu_torch as tp
 from hamilton_tpu_torch import kernels
 from hamilton_tpu_torch.ops import batched_spd as bs
 from hamilton_tpu_torch.ops import fused_step as t_step
+from hamilton_tpu_torch.utils import roofline as rl
 
 pytestmark = pytest.mark.cuda
 
@@ -76,6 +77,64 @@ def test_kernel_matches_library_leapfrog(card):
     a, b = lib.extract(cl), fus.extract(cf)
     assert float((a.q - b.q).abs().max()) < 1e-12
     assert float((a.p - b.p).abs().max()) < 1e-12
+
+
+def _sweep_state(n, batch, dtype, card, iters, compensated, composition=(1.0,), seed=4):
+    """A chain-n sweep (per-member masses and gravity) and its stepper's
+    initial carry ``(state, table)``."""
+    rng = np.random.default_rng(seed)
+    ex = tp.chain(n_links=n, fused_solver="semiseparable", device=card, dtype=dtype)
+    sysb = ex.system.replace_params(tp.params_from_numpy({
+        "masses": 1.0 + 0.05 * rng.standard_normal((batch, n)),
+        "lengths": np.ones((batch, n)),
+        "gravity": 5.0 + 0.1 * rng.standard_normal(batch),
+    }, device=card, dtype=dtype))
+    q = 0.5 + 0.01 * rng.standard_normal((batch, n))
+    p = 0.05 * rng.standard_normal((batch, n))
+    forms = sysb.fused_forms(sysb)
+    st = t_step.fused_stepper(forms, iters=iters, compensated=compensated,
+                              composition=composition)
+    return forms, st.init(tp.phase_from_numpy(q, p, device=card, dtype=dtype))
+
+
+@pytest.mark.parametrize("n", [5, 20])
+def test_per_member_kernel_matches_plain_version(card, n):
+    """Per-member tables, float64 (2,0) with Kahan, a ragged batch, ten
+    steps per launch: float64 rounding, as the shared-table test."""
+    forms, (state, table) = _sweep_state(n, 300, torch.float64, card, (2, 0), True)
+    assert forms.consts is None and table.shape == (3 * n, 300)
+    kw = dict(iters=(2, 0), compensated=True, steps_per_call=10, coef=table)
+    before = kernels.fused_step_launch.launches
+    got = t_step.fused_step_kernel(forms, state, 5e-4, **kw)
+    assert kernels.fused_step_launch.launches == before + 1
+    want = t_step.fused_step_reference(forms, state, 5e-4, **kw)
+    scale = torch.ones(state.shape[0], 1, 1, dtype=torch.float64, device=card)
+    scale[-1] = 5e-4
+    assert float(((got - want) * scale).abs().max()) < 1e-11
+
+
+@pytest.mark.parametrize("swept", [False, True], ids=["shared", "per_member"])
+@pytest.mark.parametrize("composition", [t_step.YOSHIDA4_COMPOSITION,
+                                         t_step.SUZUKI4_COMPOSITION],
+                         ids=["yoshida4", "suzuki4"])
+def test_composition_kernel_matches_plain_version(card, composition, swept):
+    """The composition weights by value, float64 (3,2), five steps per
+    launch, chain-5: float64 rounding."""
+    if swept:
+        forms, (state, table) = _sweep_state(5, 300, torch.float64, card, (3, 2), False,
+                                             composition)
+    else:
+        ex = tp.chain(n_links=5, fused_solver="semiseparable", device=card,
+                      dtype=torch.float64)
+        forms, state = _state(ex, (3, 2), False, 300, card)
+        table = None
+    kw = dict(iters=(3, 2), compensated=False, steps_per_call=5, composition=composition,
+              coef=table)
+    got = t_step.fused_step_kernel(forms, state, 1e-3, **kw)
+    want = t_step.fused_step_reference(forms, state, 1e-3, **kw)
+    scale = torch.ones(state.shape[0], 1, 1, dtype=torch.float64, device=card)
+    scale[-1] = 1e-3
+    assert float(((got - want) * scale).abs().max()) < 1e-11
 
 
 def test_uninstantiated_size_raises_on_the_card(card):
@@ -144,3 +203,33 @@ def test_k2_backward_raises(card):
                 bs.cholesky_jac(js.detach().requires_grad_(True))):
         with pytest.raises(NotImplementedError, match="M9"):
             out.sum().backward()
+
+
+# ----------------------------------------------------------------------
+# The roofline probes (K3a-K3c)
+# ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("chains", [4, 16, 32])
+def test_fma_probe_matches_plain_version(card, chains):
+    """A single-rounding FMA each rep in both: bit for bit."""
+    x = 1.0 + torch.rand(32 * 1024, device=card)
+    before = kernels.fma_probe_launch.launches
+    got = rl.fma_chain(x, 300, chains=chains, block=256)
+    assert kernels.fma_probe_launch.launches == before + 1
+    assert torch.equal(got, rl.fma_chain_plain(x, 300))
+
+
+def test_sin_probe_matches_plain_version(card):
+    """libdevice sinf against PyTorch's float32 sin on the card: an ulp or
+    two a rep, contracted by sin, within 1e-6 after 64 reps."""
+    x = torch.rand(16 * 1024, device=card)
+    got = rl.sin_chain(x, 64, chains=8)
+    want = rl.sin_chain_plain(x, 64)
+    assert float((got - want).abs().max()) <= 1e-6
+
+
+def test_add_one_matches_plain_version(card):
+    a = torch.randn(1 << 20, device=card)
+    for blocks in (1, 132, 4096):
+        assert torch.equal(rl.add_one(a, blocks=blocks), rl.add_one_plain(a))
