@@ -4,8 +4,9 @@
     python3 chip_smoke.py            # from the root of a checkout; needs one card
 
 Builds the hand-written kernels (``hamilton_tpu_torch/csrc/fused_step.cu``,
-``csrc/batched_spd.cu`` and ``csrc/roofline_probes.cu``, one nvcc each, at
-once), then runs these phases and raises as soon as one fails:
+``csrc/family_step.cu``, ``csrc/batched_spd.cu`` and
+``csrc/roofline_probes.cu``, one nvcc each, at once), then runs these
+phases and raises as soon as one fails:
 
 1. kernel against its plain PyTorch version: one 50-step call on a ragged
    batch of 1000 members, chain-20 (semiseparable, ``(2,0)``, Kahan) and the
@@ -65,7 +66,20 @@ once), then runs these phases and raises as soon as one fails:
     launches, ``max|ΔH/H₀| < 1e-6``;
 14. order 4 (``bench.py::phase_margin``): ``suzuki4_fused`` (2,0), the
     kernel against its plain version over one launch, then 1e5 steps at
-    dt=1e-3 — exactly 2000 K1 and 101 K2a launches, ``max|ΔH/H₀| < 1e-6``.
+    dt=1e-3 — exactly 2000 K1 and 101 K2a launches, ``max|ΔH/H₀| < 1e-6``;
+15. the model families (``bench.py::phase_families``) on K1's family
+    kernel (``csrc/family_step.cu``): (a) each family's kernel against its
+    plain version on 16384 members over a 5-step launch, float32 (2,0)
+    Kahan and float64 (3,2), plus the two-body sweep (per-member m1, m2)
+    and ``suzuki4_fused`` on the spherical pendulum; (b) each against the
+    library leapfrog, float64 (3,2), 1000 members, 2 steps; (c) each at
+    16384 members, float32 (2,0) Kahan, 50 steps a launch, over t = 100 at
+    its dt, float64 drift every 1000 steps — exact launch counts, finite
+    states, ``max|ΔH/H₀| < 1e-6`` for the spherical pendulum, the spring
+    and two-body in float64 (also run), the other drifts recorded; (d) the
+    spherical pendulum's and two-body's fused rate against the library
+    leapfrog's (200 steps); (e) each family's 50-step launch timed, with
+    its plain version, the host's issue and its bound.
 
 Every kernel's row gives its launches on its main path, its device time
 and its plain version's, the bound (the larger of its operations over the
@@ -173,6 +187,20 @@ PROBE_ILP = (4, 8, 16, 32)
 PROBE_BLOCKS = (128, 256)
 HBM_BLOCKS = (528, 1056, 2112, 8448, 33792, 131072)
 PROBE_SOURCE = "hamilton_tpu_torch/csrc/roofline_probes.cu"
+# the families path (bench.py::phase_families, :639-730): t = 100 at each
+# family's dt (FAMILY_DT, bench.py:620-625; ellipse and Bézier were never
+# calibrated and run at the smallest calibrated dt), 50 steps a launch,
+# float64 drift samples every 1000 steps; the library leapfrog it is set
+# against, cut to 200 steps (its per-step cost is what is compared)
+FAMILY_HORIZON = 100.0
+FAMILY_SPC = 50
+FAMILY_DRIFT_EVERY = 1000
+FAMILY_LIBRARY_STEPS = 200
+FAMILY_SOURCE = "hamilton_tpu_torch/csrc/family_step.cu"
+BEZIER2_POINTS = ((-1.0, -1.0), (1.0, 1.0))
+# the family codes of csrc/family_step.cu, for its ptxas report
+FAMILY_CODES = ("spherical", "two_body", "room", "spring", "ellipse", "bezier 5 points",
+                "bezier 2 points")
 PROBE_REPLACES = {"fma_probe": "hamilton_tpu/utils/roofline.py:261",
                   "sin_probe": "hamilton_tpu/utils/roofline.py:304",
                   "add_one": "hamilton_tpu/utils/roofline.py:375"}
@@ -200,6 +228,7 @@ _K2_NAMES = {("factor_solve_kernel", "0"): "spd_solve (K2a)",
              ("factor_kernel", "1"): "cholesky_jac (K2e)"}
 
 
+_FAMILY_RE = re.compile(r"family_step_kernelI([fd])Li(\d+)ELb([01])ELb([01])ELb([01])E")
 _K3_RE = re.compile(r"(fma_probe_kernel|sin_probe_kernel|add_one_kernel)(?:ILi(\d+)E)?")
 
 
@@ -207,6 +236,13 @@ def _k1_label(m):
     t, n, semi, comp, per_member, composed = m.groups()
     return (f"{'float' if t == 'f' else 'double'} n={n} "
             f"{'semiseparable' if semi == '1' else 'dense'}"
+            f"{' kahan' if comp == '1' else ''}{' per-member' if per_member == '1' else ''}"
+            f"{' composed' if composed == '1' else ''}")
+
+
+def _family_label(m):
+    t, code, comp, per_member, composed = m.groups()
+    return (f"{'float' if t == 'f' else 'double'} {FAMILY_CODES[int(code)]}"
             f"{' kahan' if comp == '1' else ''}{' per-member' if per_member == '1' else ''}"
             f"{' composed' if composed == '1' else ''}")
 
@@ -255,6 +291,22 @@ def jittered_phase(example, batch, dtype, device, seed):
     q = torch.as_tensor(ph0.q.cpu().numpy().astype(np_dtype) + jitter)
     p = ph0.p.cpu().to(dtype).expand(batch, n).contiguous()
     return Phase(q.to(device=device, dtype=dtype), p.to(device))
+
+
+def family_phase(example, batch, scale, rng, device):
+    """``bench.py::phase_families``' initial conditions: the example's
+    initial phase in float32 plus ``scale``·N(0,1) in q, drawn from ``rng``
+    (the bench shares one generator across its families), p tiled."""
+    import numpy as np
+    import torch
+    from hamilton_tpu_torch.state import Phase
+
+    ph0 = example.init_phase
+    n = ph0.q.shape[-1]
+    q = ph0.q.cpu().numpy().astype(np.float32) + scale * rng.standard_normal(
+        (batch, n)).astype(np.float32)
+    p = np.broadcast_to(ph0.p.cpu().numpy().astype(np.float32), (batch, n))
+    return Phase(torch.tensor(q, device=device), torch.tensor(p.copy(), device=device))
 
 
 def compare_states(kernel_out, plain_out, dtype_name):
@@ -428,6 +480,223 @@ def steady_rate(marks, t0, batch, chunk):
     return batch * chunk * len(steady) / sum(steady), marks[0] - t0, len(steady)
 
 
+def phase_families(dev, entries, summary):
+    """Phase 15: the model families on K1's family kernel; appends each
+    family's row to ``entries`` and its readings to ``summary``."""
+    import numpy as np
+    import torch
+    from hamilton_tpu_torch.convert import params_from_numpy
+    from hamilton_tpu_torch.ensemble import evolve_ensemble_final
+    from hamilton_tpu_torch.integrators.fixed import make_stepper
+    from hamilton_tpu_torch.mechanics import hamiltonian
+    from hamilton_tpu_torch.models import (
+        bezier, ellipse, room, spherical_pendulum, spring, two_body,
+    )
+    from hamilton_tpu_torch.ops.fused_step import (
+        SUZUKI4_COMPOSITION, coef_table, fused_step_kernel, fused_step_reference,
+        fused_stepper,
+    )
+    from hamilton_tpu_torch.utils.profiling import time_queued
+
+    t_phase = time.perf_counter()
+
+    # (label, factory, the bench's jitter scale, dt); the 2-point Bézier is
+    # the family's other instantiation
+    fam_cases = [
+        ("spherical", spherical_pendulum, 0.05, 2.5e-4),
+        ("twobody", two_body, 0.02, 2.5e-4),
+        ("spring", spring, 0.02, 1e-3),
+        ("room", room, 0.05, 2.5e-4),
+        ("ellipse", ellipse, 0.05, 2.5e-4),
+        ("bezier", bezier, 0.05, 2.5e-4),
+        ("bezier2", lambda **kw: bezier(BEZIER2_POINTS, **kw), 0.05, 2.5e-4),
+    ]
+    f32, f64 = torch.float32, torch.float64
+
+    # (a) each family's kernel against its plain version, 16384 members
+    rng_a = np.random.default_rng(15)
+    fam_err = {}
+    fam_checks = []
+    for label, make, scale, dt in fam_cases:
+        ph_a = family_phase(make(device=dev, dtype=f64), BATCH, scale, rng_a, dev)
+        for dtype, iters, comp in ((f32, (2, 0), True), (f64, (3, 2), False)):
+            ex = make(device=dev, dtype=dtype)
+            fam_checks.append((f"{label} {str(dtype)[6:]} {iters}{' kahan' if comp else ''}",
+                               ex.system, ph_a.astype(dtype), iters, comp, (1.0,), dt))
+    tb_params = {"m1": 4.0 + rng_a.random(BATCH), "m2": 0.3 + 0.3 * rng_a.random(BATCH)}
+    ph_tb = family_phase(two_body(device=dev, dtype=f64), BATCH, 0.02, rng_a, dev)
+    for dtype, iters, comp in ((f32, (2, 0), True), (f64, (3, 2), False)):
+        sys_tb = two_body(device=dev, dtype=dtype).system.replace_params(
+            params_from_numpy(tb_params, device=dev, dtype=dtype))
+        fam_checks.append((f"twobody sweep {str(dtype)[6:]} {iters}{' kahan' if comp else ''}",
+                           sys_tb, ph_tb.astype(dtype), iters, comp, (1.0,), 2.5e-4))
+    ph_sp = family_phase(spherical_pendulum(device=dev, dtype=f64), BATCH, 0.05, rng_a, dev)
+    fam_checks.append(("spherical suzuki4 float32 (2, 0) kahan",
+                       spherical_pendulum(device=dev, dtype=f32).system, ph_sp.astype(f32),
+                       (2, 0), True, SUZUKI4_COMPOSITION, 2.5e-4))
+    fam_failures = []
+    for label, system, ph_a, iters, comp, composition, dt in fam_checks:
+        forms = system.fused_forms(system)
+        st = fused_stepper(forms, iters=iters, compensated=comp, composition=composition)
+        carry = st.init(ph_a)
+        state, table = carry if forms.consts is None else (carry, None)
+        kw = dict(iters=iters, compensated=comp, steps_per_call=5, composition=composition,
+                  coef=table)
+        k_out = fused_step_kernel(forms, state, dt, **kw)
+        p_out = fused_step_reference(forms, state, dt, **kw)
+        torch.cuda.synchronize()
+        dname = str(state.dtype).split(".")[-1]
+        worst, errs, failures = compare_states(k_out, p_out, dname)
+        fam_failures += [f"{label}: {f}" for f in failures]
+        if dname == "float32" and "sweep" not in label and "suzuki" not in label:
+            fam_err[label.split()[0]] = worst
+        log(f"phase 15 {'FAILED' if failures else 'ok'}: {label} kernel vs plain, B={BATCH} "
+            f"spc=5: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    if fam_failures:
+        raise AssertionError("family kernel disagrees with its plain version: "
+                             + "; ".join(fam_failures))
+
+    # (b) each family's kernel against the library leapfrog, float64 (3,2)
+    dt_b = torch.tensor(1e-3, dtype=f64)
+    for label, make, scale, _ in fam_cases:
+        ex = make(device=dev, dtype=f64)
+        ph_b = family_phase(ex, 1000, scale, rng_a, dev).astype(f64)
+        lib = make_stepper(ex.system, "leapfrog", iters=(3, 2))
+        fus = make_stepper(ex.system, "leapfrog_fused", iters=(3, 2))
+        c_lib, c_fus = lib.init(ph_b), fus.init(ph_b)
+        for _ in range(2):
+            c_lib, c_fus = lib.step(c_lib, dt_b), fus.step(c_fus, dt_b)
+        a, b = lib.extract(c_lib), fus.extract(c_fus)
+        err = max(float((a.q - b.q).abs().max()), float((a.p - b.p).abs().max()))
+        log(f"phase 15 {'ok' if err <= PHYSICS_TOL else 'FAILED'}: {label} float64 (3,2) "
+            f"kernel vs library leapfrog, 1000 members, 2 steps: {err:.2e}")
+        if not err <= PHYSICS_TOL:
+            raise AssertionError(f"{label}: family kernel vs library leapfrog {err:.3e}")
+
+    # (c) bench.py::phase_families at full width: t = 100 at each family's dt
+    rng = np.random.default_rng(11)  # the bench's generator, drawn in its order
+    fam_runs = {}
+    for label, make, scale, dt in fam_cases:
+        ex32 = make(device=dev, dtype=f32)
+        ph_c = family_phase(make(device=dev, dtype=f64), BATCH, scale, rng, dev)
+        runs = [(label, ex32.system, ph_c)]
+        if label == "twobody":
+            runs.append(("twobody float64", make(device=dev, dtype=f64).system,
+                         ph_c.astype(f64)))
+        for run_label, system, ph_run in runs:
+            n_steps = round(FAMILY_HORIZON / dt)
+            t0 = time.perf_counter()
+            (fin, drift), counts = counted(lambda: evolve_ensemble_final(
+                system, ph_run, dt, n_steps, method="leapfrog_fused", iters=(2, 0),
+                compensated=True, drift_every=FAMILY_DRIFT_EVERY, drift_dtype=f64,
+                steps_per_call=FAMILY_SPC))
+            el = time.perf_counter() - t0
+            samples = n_steps // FAMILY_DRIFT_EVERY
+            want = {"family_step": n_steps // FAMILY_SPC}
+            if system.n >= 3:  # the float64 sampler's solve: K2d from n = 3
+                want["spd_solve_jac"] = 1 + samples
+            expect_counts(run_label, counts, **want)
+            if not all_finite(fin.q, fin.p, drift) or tuple(fin.q.shape) != (BATCH, system.n):
+                raise AssertionError(f"{run_label}: output not finite or not "
+                                     f"({BATCH}, {system.n})")
+            sys64 = system.to(dtype=f64)
+            fin64 = fin.astype(f64)
+            h_ms, _ = time_call(lambda: hamiltonian(sys64, fin64), 5)
+            max_drift_f = float(drift.max())
+            rate = BATCH * n_steps / el
+            fam_runs[run_label] = dict(rate=rate, drift=max_drift_f, launches=counts,
+                                       seconds=el, sample_ms=h_ms, samples=samples,
+                                       steps=n_steps, dt=dt)
+            log(f"phase 15: {run_label} {BATCH} x n={system.n} {str(system.dtype)[6:]} (2,0) "
+                f"kahan dt={dt}, {n_steps} steps (t = {FAMILY_HORIZON:g}) in {el:.3f} s: "
+                f"{rate:.6e} member-steps/s, max|dH/H0| {max_drift_f:.6e}, launches "
+                f"{ {k: v for k, v in counts.items() if v} }, float64 drift sample "
+                f"{h_ms:.3f} ms x {1 + samples}")
+            gated = label in ("spherical", "spring") or run_label == "twobody float64"
+            if gated and not max_drift_f < DRIFT_BOUND:
+                raise AssertionError(f"{run_label} drift {max_drift_f:.3e} >= {DRIFT_BOUND}")
+        summary[f"{label}_fused_member_steps_per_sec"] = fam_runs[label]["rate"]
+        summary[f"{label}_fused_max_drift"] = fam_runs[label]["drift"]
+        summary[f"{label}_dt"] = dt
+    summary["twobody_float64_fused_max_drift"] = fam_runs["twobody float64"]["drift"]
+    summary["twobody_float64_fused_member_steps_per_sec"] = fam_runs["twobody float64"]["rate"]
+
+    # (d) the fused rate against the library leapfrog's, cut to 200 steps
+    rng_d = np.random.default_rng(11)
+    for label, make, scale, dt in fam_cases[:2]:
+        ex32 = make(device=dev, dtype=f32)
+        ph_d = family_phase(make(device=dev, dtype=f64), BATCH, scale, rng_d, dev)
+        run = lambda: evolve_ensemble_final(  # noqa: E731
+            ex32.system, ph_d, dt, FAMILY_LIBRARY_STEPS, method="leapfrog", iters=(2, 0),
+            compensated=True, track_drift=False, drift_every=FAMILY_LIBRARY_STEPS)
+        run()  # warm-up
+        t0 = time.perf_counter()
+        (lib_fin, _), counts = counted(run)
+        el = time.perf_counter() - t0
+        expect_counts(f"{label} library leapfrog", counts)  # n = 2: closed-form solves
+        if not all_finite(lib_fin.q, lib_fin.p):
+            raise AssertionError(f"{label} library leapfrog output is not finite")
+        lib_rate = BATCH * FAMILY_LIBRARY_STEPS / el
+        ratio = fam_runs[label]["rate"] / lib_rate
+        log(f"phase 15: {label} library leapfrog f32 (2,0) kahan, {FAMILY_LIBRARY_STEPS} "
+            f"steps in {el:.3f} s: {lib_rate:.6e} member-steps/s; fused / library "
+            f"{ratio:.2f}")
+        summary[f"{label}_library_member_steps_per_sec"] = lib_rate
+        summary[f"{label}_fused_vs_library"] = ratio
+
+    # (e) each family's K1 row: a 50-step launch at 16384 members
+    rng_e = np.random.default_rng(16)
+    for label, make, scale, dt in fam_cases:
+        ex32 = make(device=dev, dtype=f32)
+        forms = ex32.system.fused_forms(ex32.system)
+        st = fused_stepper(forms, iters=(2, 0), compensated=True, steps_per_call=FAMILY_SPC)
+        state = st.init(family_phase(make(device=dev, dtype=f64), BATCH, scale, rng_e, dev))
+        coef = coef_table(forms, dev, f32)
+        kw = dict(iters=(2, 0), compensated=True, steps_per_call=FAMILY_SPC)
+
+        def kern():
+            return fused_step_kernel(forms, state, dt, coef=coef, **kw)
+
+        def plain():
+            return fused_step_reference(forms, state, dt, **kw)
+
+        k_out = kern()
+        p1, p_out = time_call(plain, 1)
+        k1, h1 = time_queued(kern, 100)
+        k2, h2 = time_queued(kern, 100)
+        p2, _ = time_call(plain, 1)
+        worst, errs, failures = compare_states(k_out, p_out, "float32")
+        if failures:
+            raise AssertionError(f"{label}: 50-step family kernel disagrees with its plain "
+                                 f"version: " + "; ".join(failures))
+        bound_ms, bound_by, cost = k1_bound(ex32.system, "leapfrog_fused", (2, 0), True,
+                                            BATCH, FAMILY_SPC)
+        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        run = fam_runs[label]
+        k1_share = ms * run["launches"]["family_step"] / 1e3 / run["seconds"]
+        sample_share = run["sample_ms"] * (1 + run["samples"]) / 1e3 / run["seconds"]
+        log(f"phase 15: family_step {label} n={forms.n} f32 (2,0) kahan B={BATCH} "
+            f"spc={FAMILY_SPC}: kernel {ms:.4f} ms on the card ({k1:.4f}, {k2:.4f}), host "
+            f"{(h1 + h2) / 2 * 1e3:.2f} us to issue one ({h1 * 1e3:.2f}, {h2 * 1e3:.2f}), "
+            f"plain {plain_ms:.2f} ms ({p1:.2f}, {p2:.2f}), bound {bound_ms:.6f} ms "
+            f"({bound_by}; {cost['flops_per_member_step']:.2f} flops, "
+            f"{cost['transcendentals_per_member_step']:.2f} transcendentals a member-step); "
+            f"of the t = {FAMILY_HORIZON:g} run's {run['seconds']:.3f} s: K1 {k1_share:.3f} "
+            f"({run['launches']['family_step']} launches), drift samples {sample_share:.3f}; "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        entries.append({
+            "name": f"family_step {forms.name}"
+                    f"{' 2 points' if label == 'bezier2' else ''} n={forms.n} float32 kahan "
+                    f"(2,0)",
+            "route": "cuda", "source": FAMILY_SOURCE, "replaces": REPLACES,
+            "launches": run["launches"]["family_step"],
+            "max_abs_err": max(worst, fam_err[label]), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        })
+        summary[f"{label}_k1_ms"] = ms
+    log(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -467,6 +736,7 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s for {len(builds)} sources at once ("
         + ", ".join(f"{b.path.name} {b.seconds:.1f} s" for b in builds.values()) + ")")
     for name, pattern, label in (("fused_step", _KERNEL_RE, _k1_label),
+                                 ("family_step", _FAMILY_RE, _family_label),
                                  ("batched_spd", _K2_RE, _k2_label),
                                  ("roofline_probes", _K3_RE, _k3_label)):
         regs = ptxas_report(builds[name].log, pattern, label)
@@ -1176,6 +1446,10 @@ def main() -> int:
     })
     summary.update({"order4_member_steps_per_sec": o4_rate, "order4_max_drift": o4_max,
                     "order4_steps": ORDER4_STEPS})
+    del state_o4, k_out, p_out
+
+    # ---- phase 15: the model families ------------------------------------------
+    phase_families(dev, entries, summary)
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

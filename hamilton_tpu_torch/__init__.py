@@ -11,10 +11,12 @@ tensors and as their plain PyTorch versions on CPU tensors.  Ported so far:
 the ensemble main path — state, system, mechanics, the serial-chain models,
 the library and fused leapfrog with its order-4 compositions and per-member
 parameter sweeps, and the final-state ensemble drivers with f64 drift
-sampling — the library path: the spring, GSL-RKF45 ``evolve_ham`` and its
-``stepHam``/``evolveHam`` wrappers — and the roofline accounting
-(``utils.roofline``, ``utils.profiling``); see ``ROADMAP.md`` for what is
-still to come.  This package never imports JAX.
+sampling — the library path: GSL-RKF45 ``evolve_ham`` and its
+``stepHam``/``evolveHam`` wrappers — every bundled model (spherical
+pendulum, two-body, room, spring, ellipse and Bézier beside the chain) with
+its fused forms on the card (``csrc/family_step.cu``), and the roofline
+accounting (``utils.roofline``, ``utils.profiling``); see ``ROADMAP.md`` for
+what is still to come.  This package never imports JAX.
 """
 
 from hamilton_tpu_torch.convert import params_from_numpy, phase_from_numpy
@@ -48,7 +50,22 @@ from hamilton_tpu_torch.mechanics import (
     to_phase,
     velocities,
 )
-from hamilton_tpu_torch.models import Example, chain, double_pendulum, pendulum, spring
+from hamilton_tpu_torch.models import (
+    DEFAULT_POINTS,
+    REGISTRY,
+    Example,
+    bezier,
+    bezier_curve,
+    chain,
+    double_pendulum,
+    ellipse,
+    get_example,
+    pendulum,
+    room,
+    spherical_pendulum,
+    spring,
+    two_body,
+)
 from hamilton_tpu_torch.ops.fused_step import (
     FusedForms,
     FamilyFns,
@@ -88,6 +105,15 @@ __all__ = [
     "double_pendulum",
     "pendulum",
     "spring",
+    "room",
+    "two_body",
+    "spherical_pendulum",
+    "ellipse",
+    "bezier",
+    "bezier_curve",
+    "DEFAULT_POINTS",
+    "REGISTRY",
+    "get_example",
     "GSL_EPS_DEFAULT",
     "gsl_evolve_to",
     "evolve_ham",

@@ -30,9 +30,10 @@ def params_from_numpy(
     params: Mapping[str, np.ndarray], *, device, dtype: torch.dtype
 ) -> Dict[str, torch.Tensor]:
     """``{name: array}`` → ``{name: tensor}`` on ``device`` in ``dtype``
-    (hand the result to ``System.replace_params``).  Arrays may carry
-    leading batch axes, e.g. ``(B, n)`` masses and ``(B,)`` gravity for a
-    parameter sweep; every leaf then carries the same number of them."""
+    (hand the result to ``System.replace_params``).  A leaf keeps its shape,
+    e.g. a Bézier's ``(k, 2)`` control points.  Arrays may carry leading
+    batch axes, e.g. ``(B, n)`` masses and ``(B,)`` gravity for a parameter
+    sweep; every leaf then carries the same number of them."""
     return {k: _tensor(v, device=device, dtype=dtype) for k, v in params.items()}
 
 

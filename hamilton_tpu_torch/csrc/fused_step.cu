@@ -1,35 +1,16 @@
-// Fused whole-step generalized Stormer-Verlet kernel for NVIDIA Hopper (sm_90a).
+// Fused whole-step generalized Stormer-Verlet kernel for NVIDIA Hopper
+// (sm_90a): the planar serial chain.
 //
 // Replaces the TPU kernel hamilton_tpu/ops/pallas_step.py::fused_stepper.kernel
-// (launched by its _call through pl.pallas_call).  One launch advances every
-// ensemble member by steps_per_call dt-steps of the fused leapfrog, with the
-// same arithmetic in the same order as the reference and as the plain PyTorch
-// version beside the wrapper (hamilton_tpu_torch/ops/fused_step.py):
-//   - the p-half fixed point on the cached factor (iters_p solves + dH/dq),
-//   - v0 and the warm predictor q1 = q0 + dt*v0 + (dt*dt/2)*vdot,
-//   - the q-refinement: iters_q fresh factorizations, or (iters_q == 0) the
-//     predictor-factor mode with one factor at the predictor,
-//   - the end-of-step force, the increments (Kahan-compensated when COMP),
-//     and the warm-start carries (a_est, vdot_est).
-// Each dt-step runs the composition's substeps (1 to 5 weights w; (1.0) is
-// plain Verlet, the Yoshida/Suzuki weights are order 4), each at T(w)*dt and
-// T(w)*half, the weight rounded to T first as the reference rounds a Python
-// float against a tile of the state's dtype.  The entry point computes each
-// substep's step sizes once on the host, with the device's IEEE arithmetic,
-// and passes them by value (a __grid_constant__ read through the constant
-// cache), so a step pays no division for them.  The first
-// substep of a launch factorizes afresh; every later one reuses the previous
-// substep's end-of-step factor and aux (the factor never crosses launches).
-// Two closed-form families of the planar serial chain are compiled in:
-// SEMISEP (the O(n) semiseparable factorization, serial_chain_forms_on) and
-// dense (the in-register Cholesky of serial_chain_forms).
-//
-// The coefficient table is shared by every member (staged once per block in
-// shared memory, read as broadcasts) or, for a parameter sweep (PM), one
-// column per member of a batch-minor (L, batch) table: thread b reads entry k
-// at coef[k * batch + b], so a warp's reads coalesce, through the read-only
-// cache where each entry is used rather than held in registers (the n=20
-// live set already exceeds 255 registers).
+// (launched by its _call through pl.pallas_call) for the serial chain.  One
+// launch advances every ensemble member by steps_per_call dt-steps of the
+// fused leapfrog: the step template step_member in fused_step.cuh (shared
+// with the model families' kernel, family_step.cu) under one of two policies
+// of the chain's closed forms, SEMISEP (the O(n) semiseparable factorization,
+// serial_chain_forms_on) and dense (the in-register Cholesky of
+// serial_chain_forms).  In float32 the within-step aux re-evaluations rotate
+// the trig aux to first order (the reference's aux_shift); in float64 they
+// re-evaluate it.
 //
 // What bounds it on this card: it is latency- and register-bound.  Each
 // member reads and writes 4 or 6 vectors of n values per launch (O(100)
@@ -41,8 +22,10 @@
 // live set still exceeds 255 registers at N=20, so some of it spills to
 // L1-backed local memory), the factor and aux carried in registers across
 // the steps of a launch, and batch-minor x[i*B + b] loads and stores that
-// coalesce.  Making it faster (fewer live values, several threads per
-// member) is later work.
+// coalesce.  A per-member table is read where each entry is used rather
+// than held in registers (the n=20 live set already exceeds 255 registers).
+// Making it faster (fewer live values, several threads per member) is later
+// work.
 //
 // Build (no fast-math: it would reassociate the Kahan compensation away and
 // swap sinf/cosf for approximations whose error shows in the drift):
@@ -50,21 +33,9 @@
 //        -Xcompiler -fPIC -o libfused_step.so fused_step.cu
 // FMA contraction (nvcc's default) stays on; it changes rounding only.
 
-#include <cuda_runtime.h>
-
-#include <type_traits>
+#include "fused_step.cuh"
 
 namespace {
-
-constexpr int kThreads = 128;
-constexpr int kMaxWeights = 5;
-
-__device__ __forceinline__ float dsin(float x) { return sinf(x); }
-__device__ __forceinline__ double dsin(double x) { return sin(x); }
-__device__ __forceinline__ float dcos(float x) { return cosf(x); }
-__device__ __forceinline__ double dcos(double x) { return cos(x); }
-__device__ __forceinline__ float dsqrt(float x) { return sqrtf(x); }
-__device__ __forceinline__ double dsqrt(double x) { return sqrt(x); }
 
 // The flat coefficient table: semiseparable (l_i, S_i, g*l_i*S_i), 3N
 // entries; dense (C_ij = l_i*l_j*S_max(i,j) row-major, g*l_i*S_i), N*N+N.
@@ -73,59 +44,9 @@ struct CoefLen {
   static constexpr int value = SEMISEP ? 3 * N : N * N + N;
 };
 
-// Entry k of the shared table (staged in shared memory).
-template <typename T>
-struct SharedTable {
-  const T* cf;
-  __device__ __forceinline__ T operator[](int k) const { return cf[k]; }
-};
-
-// Entry k of this member's column of the (L, batch) per-member table.
-template <typename T>
-struct MemberTable {
-  const T* __restrict__ col;
-  long long batch;
-  __device__ __forceinline__ T operator[](int k) const { return __ldg(col + k * batch); }
-};
-
-// The step sizes of each composition substep k in T, from its weight w_k:
-// h = T(w_k)*T(dt), half = T(w_k)*(T(dt)*0.5), dth = h*half, inv_h = 1/h
-// (round to nearest, as the plain version computes them).
-template <typename T>
-struct Substeps {
-  T h[kMaxWeights], half[kMaxWeights], dth[kMaxWeights], inv_h[kMaxWeights];
-  int count;
-};
-
-template <typename T>
-Substeps<T> make_substeps(const double (&w)[kMaxWeights], int count, double dt) {
-  Substeps<T> s{};
-  const T dt_t = static_cast<T>(dt);
-  const T half0 = dt_t * T(0.5);
-  for (int k = 0; k < count; ++k) {
-    const T wk = static_cast<T>(w[k]);
-    s.h[k] = wk * dt_t;
-    s.half[k] = wk * half0;
-    s.dth[k] = s.h[k] * s.half[k];
-    s.inv_h[k] = T(1) / s.h[k];
-  }
-  s.count = count;
-  return s;
-}
-
-// The factorization state carried within a launch.
-template <typename T, int N, bool SEMISEP>
-struct Factor;
-
 template <typename T, int N>
-struct Factor<T, N, true> {
+struct SemisepFactor {
   T zx[N], zy[N], id[N], ux[N], uy[N];  // per link in tip-to-base order
-};
-
-template <typename T, int N>
-struct Factor<T, N, false> {
-  T low[N][N];  // lower Cholesky factor (j <= i used)
-  T id[N];      // reciprocal diagonal
 };
 
 template <typename T, int N>
@@ -158,7 +79,7 @@ __device__ __forceinline__ void aux_at(const T (&q_new)[N], const T (&q_base)[N]
 
 template <typename T, int N, class C>
 __device__ __forceinline__ void factor(const C& cf, const T (&s)[N], const T (&c)[N],
-                                       Factor<T, N, true>& f) {
+                                       SemisepFactor<T, N>& f) {
   T pxx = T(0), pxy = T(0), pyy = T(0);
 #pragma unroll
   for (int a = 0; a < N; ++a) {
@@ -196,7 +117,7 @@ __device__ __forceinline__ void factor(const C& cf, const T (&s)[N], const T (&c
 }
 
 template <typename T, int N>
-__device__ __forceinline__ void solve(const Factor<T, N, true>& f, const T (&b)[N],
+__device__ __forceinline__ void solve(const SemisepFactor<T, N>& f, const T (&b)[N],
                                       T (&x)[N]) {
   T y[N];
   T sx = T(0), sy = T(0);
@@ -275,7 +196,7 @@ __device__ __forceinline__ void dhdq(const C& cf, const T (&s)[N], const T (&c)[
 
 template <typename T, int N, class C>
 __device__ __forceinline__ void factor(const C& cf, const T (&s)[N], const T (&c)[N],
-                                       Factor<T, N, false>& f) {
+                                       DenseFactor<T, N>& f) {
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     T acc = cf[j * N + j];  // K_jj = C_jj exactly
@@ -292,26 +213,6 @@ __device__ __forceinline__ void factor(const C& cf, const T (&s)[N], const T (&c
       for (int k = 0; k < j; ++k) e = e - f.low[i][k] * f.low[j][k];
       f.low[i][j] = e * inv_d;
     }
-  }
-}
-
-template <typename T, int N>
-__device__ __forceinline__ void solve(const Factor<T, N, false>& f, const T (&b)[N],
-                                      T (&x)[N]) {
-  T y[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    T acc = b[i];
-#pragma unroll
-    for (int k = 0; k < i; ++k) acc = acc - f.low[i][k] * y[k];
-    y[i] = acc * f.id[i];
-  }
-#pragma unroll
-  for (int i = N - 1; i >= 0; --i) {
-    T acc = y[i];
-#pragma unroll
-    for (int k = i + 1; k < N; ++k) acc = acc - f.low[k][i] * x[k];
-    x[i] = acc * f.id[i];
   }
 }
 
@@ -338,139 +239,44 @@ __device__ __forceinline__ void dhdq(const C& cf, const T (&s)[N], const T (&c)[
   }
 }
 
-// ---- the step ----------------------------------------------------------
+// ---- the chain's policy --------------------------------------------------
 
-template <typename T>
-__device__ __forceinline__ void kahan_add(T& x, T& c, T d) {
-  const T y = d + c;
-  const T t = x + y;
-  c = y - (t - x);
-  x = t;
-}
+// The serial chain's forms for step_member: the trig aux (sin, cos of every
+// link angle), its shift in float32, and the semiseparable or dense factor.
+// The chain's K and dH/dq read only the aux, never q.
+template <typename T, int N_, bool SEMISEP>
+struct ChainPolicy {
+  static constexpr int N = N_;
+  struct Aux {
+    T s[N], c[N];
+  };
+  using Factor = typename std::conditional<SEMISEP, SemisepFactor<T, N>,
+                                           DenseFactor<T, N>>::type;
 
-// steps_per_call dt-steps of member b, reading its state from `in` and
-// writing it to `out`, with coefficient entries from `cf`.  Without
-// COMPOSED the one substep's sizes are compile-time indices into `subs`, so
-// plain Verlet keeps no substep loop and reads them as kernel parameters.
-template <typename T, int N, bool SEMISEP, bool COMP, bool COMPOSED, class C>
-__device__ __forceinline__ void step_member(const C& cf, const T* __restrict__ in,
-                                            T* __restrict__ out, long long batch,
-                                            long long b, const Substeps<T>& subs,
-                                            int iters_p, int iters_q,
-                                            int steps_per_call) {
-  constexpr int NSV = COMP ? 6 : 4;
-
-  // state vectors in the order of the reference's carry: q, p, [cq, cp,]
-  // a_est, vdot_est
-  T q[N], p[N], cq[N], cp[N], av[N], vd[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    q[i] = in[(0 * N + i) * batch + b];
-    p[i] = in[(1 * N + i) * batch + b];
-    if constexpr (COMP) {
-      cq[i] = in[(2 * N + i) * batch + b];
-      cp[i] = in[(3 * N + i) * batch + b];
-    }
-    av[i] = in[((NSV - 2) * N + i) * batch + b];
-    vd[i] = in[((NSV - 1) * N + i) * batch + b];
+  template <class C>
+  static __device__ __forceinline__ void aux(const C&, const T (&q)[N], Aux& a) {
+    trig<T, N>(q, a.s, a.c);
   }
-
-  const std::integral_constant<bool, SEMISEP> fam{};
-
-  Factor<T, N, SEMISEP> fac;
-  T as[N], ac[N];  // aux: sin, cos at the factor's point
-
-  for (int st = 0; st < steps_per_call; ++st) {
-    for (int sub = 0; sub < (COMPOSED ? subs.count : 1); ++sub) {
-      const T h = subs.h[sub];
-      const T half = subs.half[sub];
-      if (st == 0 && sub == 0) {  // peeled: no carried factor at launch entry
-        trig<T, N>(q, as, ac);
-        factor<T, N>(cf, as, ac, fac);
-      }
-      T ph[N], a_last[N], v0[N], vl[N], q1[N], q1p[N], bt[N];
-#pragma unroll
-      for (int i = 0; i < N; ++i) {
-        ph[i] = p[i] - half * av[i];
-        a_last[i] = av[i];
-      }
-      for (int it = 0; it < iters_p; ++it) {
-        T wv[N];
-        solve<T, N>(fac, ph, wv);
-        dhdq<T, N>(cf, as, ac, wv, a_last, fam);
-#pragma unroll
-        for (int i = 0; i < N; ++i) ph[i] = p[i] - half * a_last[i];
-      }
-      solve<T, N>(fac, ph, v0);
-      const T dth = subs.dth[sub];
-#pragma unroll
-      for (int i = 0; i < N; ++i) q1[i] = q[i] + h * v0[i] + dth * vd[i];
-
-      if (iters_q == 0) {
-        // predictor-factor placement: one factor at the predictor serves the
-        // q-refinement and the end-of-step force
-        trig<T, N>(q1, as, ac);
-        factor<T, N>(cf, as, ac, fac);
-        solve<T, N>(fac, ph, vl);
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-          q1p[i] = q1[i];
-          q1[i] = q[i] + half * (v0[i] + vl[i]);
-        }
-        aux_at<T, N>(q1, q1p, as, ac);
-        dhdq<T, N>(cf, as, ac, vl, bt, fam);
-      } else {
-        for (int it = 0; it < iters_q; ++it) {
-          if (it == 0) {
-            trig<T, N>(q1, as, ac);
-          } else {
-            aux_at<T, N>(q1, q1p, as, ac);
-          }
-#pragma unroll
-          for (int i = 0; i < N; ++i) q1p[i] = q1[i];
-          factor<T, N>(cf, as, ac, fac);
-          solve<T, N>(fac, ph, vl);
-#pragma unroll
-          for (int i = 0; i < N; ++i) q1[i] = q[i] + half * (v0[i] + vl[i]);
-        }
-        // exact end-of-step factor at the converged q1
-        aux_at<T, N>(q1, q1p, as, ac);
-        factor<T, N>(cf, as, ac, fac);
-        T w1[N];
-        solve<T, N>(fac, ph, w1);
-        dhdq<T, N>(cf, as, ac, w1, bt, fam);
-      }
-      // increments, accumulation, and the warm-start carries
-      const T inv_h = subs.inv_h[sub];
-#pragma unroll
-      for (int i = 0; i < N; ++i) {
-        const T dq = half * (v0[i] + vl[i]);
-        const T dp = -half * (a_last[i] + bt[i]);
-        if constexpr (COMP) {
-          kahan_add(q[i], cq[i], dq);
-          kahan_add(p[i], cp[i], dp);
-        } else {
-          q[i] = q[i] + dq;
-          p[i] = p[i] + dp;
-        }
-        vd[i] = (vl[i] - v0[i]) * inv_h;
-        av[i] = bt[i];
-      }
-    }
+  template <class C>
+  static __device__ __forceinline__ void aux_at(const C&, const T (&q_new)[N],
+                                                const T (&q_base)[N], Aux& a) {
+    ::aux_at<T, N>(q_new, q_base, a.s, a.c);
   }
-
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    out[(0 * N + i) * batch + b] = q[i];
-    out[(1 * N + i) * batch + b] = p[i];
-    if constexpr (COMP) {
-      out[(2 * N + i) * batch + b] = cq[i];
-      out[(3 * N + i) * batch + b] = cp[i];
-    }
-    out[((NSV - 2) * N + i) * batch + b] = av[i];
-    out[((NSV - 1) * N + i) * batch + b] = vd[i];
+  template <class C>
+  static __device__ __forceinline__ void factor(const C& cf, const Aux& a, const T (&)[N],
+                                                Factor& f) {
+    ::factor<T, N>(cf, a.s, a.c, f);
   }
-}
+  static __device__ __forceinline__ void solve(const Factor& f, const T (&b)[N],
+                                               T (&x)[N]) {
+    ::solve<T, N>(f, b, x);
+  }
+  template <class C>
+  static __device__ __forceinline__ void dhdq(const C& cf, const Aux& a, const T (&)[N],
+                                              const T (&w)[N], T (&out)[N]) {
+    ::dhdq<T, N>(cf, a.s, a.c, w, out, std::integral_constant<bool, SEMISEP>{});
+  }
+};
 
 template <typename T, int N, bool SEMISEP, bool COMP, bool PM, bool COMPOSED>
 __global__ void __launch_bounds__(kThreads)
@@ -478,35 +284,22 @@ __global__ void __launch_bounds__(kThreads)
                       T* __restrict__ out, long long batch,
                       const __grid_constant__ Substeps<T> subs, int iters_p,
                       int iters_q, int steps_per_call) {
+  using P = ChainPolicy<T, N, SEMISEP>;
   const long long b = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if constexpr (PM) {
     if (b >= batch) return;
-    step_member<T, N, SEMISEP, COMP, COMPOSED>(MemberTable<T>{coef + b, batch}, in, out,
-                                               batch, b, subs, iters_p, iters_q,
-                                               steps_per_call);
+    step_member<T, P, COMP, COMPOSED>(MemberTable<T>{coef + b, batch}, in, out, batch, b,
+                                      subs, iters_p, iters_q, steps_per_call);
   } else {
     constexpr int L = CoefLen<N, SEMISEP>::value;
     __shared__ T cf[L];
     for (int k = threadIdx.x; k < L; k += blockDim.x) cf[k] = coef[k];
     __syncthreads();
     if (b >= batch) return;
-    step_member<T, N, SEMISEP, COMP, COMPOSED>(SharedTable<T>{cf}, in, out, batch, b,
-                                               subs, iters_p, iters_q, steps_per_call);
+    step_member<T, P, COMP, COMPOSED>(SharedTable<T>{cf}, in, out, batch, b, subs,
+                                      iters_p, iters_q, steps_per_call);
   }
 }
-
-// The launch arguments after the template choices.
-struct Args {
-  const void* coef;
-  const void* in;
-  void* out;
-  long long batch;
-  double dt;
-  int iters_p, iters_q, steps_per_call;
-  double weights[kMaxWeights];
-  int n_weights;
-  cudaStream_t stream;
-};
 
 template <typename T, int N, bool SEMISEP, bool COMP, bool PM, bool COMPOSED>
 int launch(const Args& a) {
@@ -565,8 +358,8 @@ int hamilton_fused_step(int dtype_code, int n, int flags, const void* coef,
                         const void* state_in, void* state_out, long long batch, double dt,
                         int iters_p, int iters_q, int steps_per_call, int n_weights,
                         const double* weights, void* stream) {
-  if (batch < 1 || steps_per_call < 1 || iters_p < 1 || iters_q < 0 ||
-      n_weights < 1 || n_weights > kMaxWeights || flags < 0 || flags > 7)
+  if (!valid_args(batch, iters_p, iters_q, steps_per_call, n_weights) || flags < 0 ||
+      flags > 7)
     return -2;
   Args a{coef, state_in, state_out, batch, dt, iters_p, iters_q, steps_per_call,
          {}, n_weights, static_cast<cudaStream_t>(stream)};

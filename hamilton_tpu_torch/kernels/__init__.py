@@ -2,10 +2,11 @@
 
 Every ``csrc/<name>.cu`` is compiled the same way, at first use, into
 ``hamilton_tpu_torch/_build/`` as a shared library with a plain C interface,
-named by a hash of the source and the flags so that an edited source is
-rebuilt.  :func:`build_all` starts one nvcc per source at once.  Only the
-machine with the card has ``nvcc``; importing this module builds nothing.  A
-failed build raises with nvcc's stderr.
+named by a hash of the source, the shared headers ``csrc/*.cuh`` and the
+flags so that an edited source or header is rebuilt.  :func:`build_all`
+starts one nvcc per source at once.  Only the machine with the card has
+``nvcc``; importing this module builds nothing.  A failed build raises with
+nvcc's stderr.
 
 Each launch function counts its launches in ``<function>.launches`` (a plain
 integer: :func:`reset_launches` sets them all to 0 before a run,
@@ -29,10 +30,12 @@ from typing import Dict, Optional
 __all__ = [
     "KernelBuild",
     "NVCC_FLAGS",
+    "SOURCE_FLAGS",
     "SOURCES",
     "build",
     "build_all",
     "fused_step_launch",
+    "family_step_launch",
     "fma_probe_launch",
     "sin_probe_launch",
     "add_one_launch",
@@ -58,6 +61,14 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+#: Flags of one source beside :data:`NVCC_FLAGS`.  ``family_step``: no FMA
+#: contraction, so the families' kernel rounds each product and sum as its
+#: plain version does.  Their warm-start carry ``vdot_est = (v1 − v0)/h`` is
+#: a difference of nearly equal velocities (it vanishes where K is
+#: constant), so an FMA's other rounding of v, an ulp, would show at the
+#: scale of ``vdot_est`` itself.
+SOURCE_FLAGS = {"family_step": ("-fmad=false",)}
 
 
 @dataclass(frozen=True)
@@ -88,7 +99,11 @@ def _paths(name: str):
     if name not in SOURCES:
         raise ValueError(f"no kernel source {name!r}; sources: {SOURCES}")
     src = _CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    # the shared headers are part of every source's key: an edited header
+    # rebuilds what includes it
+    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
+    flags = NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+    key = hashlib.sha256(src.read_bytes() + headers + " ".join(flags).encode())
     stem = f"lib{name}-{key.hexdigest()[:16]}"
     return src, _BUILD_DIR / f"{stem}.so", _BUILD_DIR / f"{stem}.log"
 
@@ -107,7 +122,7 @@ def _start(name: str) -> Optional[tuple]:
         return None
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = _BUILD_DIR / f"{lib.stem}.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [_nvcc(), *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), "-o", str(tmp), str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     return proc, cmd, tmp, lib, log, time.perf_counter()
 
@@ -160,6 +175,10 @@ _SIGNATURES = {
         "hamilton_fused_step": [_INT, _INT, _INT, _VP, _VP, _VP, _LL, _DBL, _INT,
                                 _INT, _INT, _INT, ctypes.POINTER(_DBL), _VP],
     },
+    "family_step": {
+        "hamilton_family_step": [_INT, _INT, _INT, _VP, _VP, _VP, _LL, _DBL, _INT,
+                                 _INT, _INT, _INT, ctypes.POINTER(_DBL), _VP],
+    },
     "roofline_probes": {
         "hamilton_fma_probe": [_INT, _VP, _VP, _LL, _INT, _INT, _VP],
         "hamilton_sin_probe": [_INT, _VP, _VP, _LL, _INT, _INT, _VP],
@@ -207,35 +226,51 @@ def _weights(weights: tuple):
     return (_DBL * len(weights))(*weights)
 
 
-def fused_step_launch(
-    *,
-    dtype_code: int,
-    n: int,
-    semiseparable: bool,
-    compensated: bool,
-    per_member: bool,
-    coef: int,
-    state_in: int,
-    state_out: int,
-    batch: int,
-    dt: float,
-    iters_p: int,
-    iters_q: int,
-    steps_per_call: int,
-    weights: tuple,
-    stream: int,
-) -> None:
-    """Launch the fused-step kernel (K1) on raw device pointers
-    (``data_ptr()`` ints) and a stream handle; the caller has validated every
-    argument (``ops.fused_step.fused_step_kernel``).  ``coef`` is the shared
-    table, or the ``(L, B)`` per-member one when ``per_member``; ``weights``
-    is the tuple of 1 to 5 composition weights.  Raises if the launch
-    fails."""
-    flags = int(semiseparable) | int(compensated) << 1 | int(per_member) << 2
-    _call("fused_step", "hamilton_fused_step", "fused-step", dtype_code, n, flags, coef,
-          state_in, state_out, batch, dt, iters_p, iters_q, steps_per_call, len(weights),
-          _weights(weights), stream)
-    fused_step_launch.launches += 1
+def _k1_launcher(source: str, entry: str, what: str):
+    """A launch function for one of K1's libraries: ``source`` is
+    ``csrc/<source>.cu``, ``entry`` its C entry point."""
+
+    def launch(
+        *,
+        dtype_code: int,
+        code: int,
+        semiseparable: bool,
+        compensated: bool,
+        per_member: bool,
+        coef: int,
+        state_in: int,
+        state_out: int,
+        batch: int,
+        dt: float,
+        iters_p: int,
+        iters_q: int,
+        steps_per_call: int,
+        weights: tuple,
+        stream: int,
+    ) -> None:
+        flags = int(semiseparable) | int(compensated) << 1 | int(per_member) << 2
+        _call(source, entry, what, dtype_code, code, flags, coef, state_in, state_out,
+              batch, dt, iters_p, iters_q, steps_per_call, len(weights), _weights(weights),
+              stream)
+        launch.launches += 1
+
+    return launch
+
+
+#: Launch the fused-step kernel (K1) of the serial chain (``csrc/
+#: fused_step.cu``; ``code`` is its n, ``semiseparable`` picks the forms) on
+#: raw device pointers (``data_ptr()`` ints) and a stream handle; the caller
+#: has validated every argument (``ops.fused_step.fused_step_kernel``).
+#: ``coef`` is the shared table, or the ``(L, B)`` per-member one when
+#: ``per_member``; ``weights`` is the tuple of 1 to 5 composition weights.
+#: Raises if the launch fails.
+fused_step_launch = _k1_launcher("fused_step", "hamilton_fused_step", "fused-step")
+
+#: K1 for the bundled model families (``csrc/family_step.cu``): as
+#: :func:`fused_step_launch`, with ``code`` the family's case of the
+#: library's dispatch (``ops.fused_step.KERNEL_INSTANTIATIONS``) and
+#: ``semiseparable`` False; ``coef`` may be null for room, which has no table.
+family_step_launch = _k1_launcher("family_step", "hamilton_family_step", "family-step")
 
 
 # The batched tiny-SPD entries (K2a-K2e, csrc/batched_spd.cu).  Each takes
@@ -307,6 +342,7 @@ def add_one_launch(*, a, out, elements, blocks, stream) -> None:
 #: Every launch function, by the name the counts are reported under.
 LAUNCHERS = {
     "fused_step": fused_step_launch,
+    "family_step": family_step_launch,
     "spd_solve": spd_solve_launch,
     "cholesky": cholesky_launch,
     "cho_solve": cho_solve_launch,

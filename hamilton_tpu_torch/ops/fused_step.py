@@ -6,9 +6,12 @@ whose physics admit *closed forms* states them once, as a
 :class:`FusedForms` contract, against entry accessors ``at`` and a math
 namespace ``fm`` (:data:`FM_TORCH`); the same family code then evaluates on
 ``(B,)`` member columns (the plain version, :func:`fused_step_reference`)
-and, for the families compiled into it, runs inside the CUDA kernel
-``csrc/fused_step.cu``, which computes the identical arithmetic in the same
-order with one thread per member.
+and, for the families compiled into them, runs inside the CUDA kernels —
+``csrc/fused_step.cu`` for the serial chain, ``csrc/family_step.cu`` for the
+bundled model families (spherical pendulum, two-body, room, spring, ellipse,
+Bézier), one step template shared through ``csrc/fused_step.cuh`` — which
+compute the identical arithmetic in the same order with one thread per
+member.
 
 The state of a fused stepper is one contiguous tensor ``(n_sv, n, B)``
 (batch-minor, so the kernel's loads and stores coalesce): ``q, p, a_est,
@@ -27,8 +30,9 @@ carries them as one batch-minor ``(L, B)`` table beside the state.
 
 A tensor on the CPU runs the plain version; a CUDA tensor launches the
 kernel, or raises when no kernel is compiled for its family, size or
-dtype.  Not ported yet (ROADMAP): the ``linv``/``mobius`` chain solvers, the
-other model families, and gradients through the fused step.
+dtype (:data:`KERNEL_INSTANTIATIONS`; a user's own family raises).  Not
+ported yet (ROADMAP): the ``linv``/``mobius`` chain solvers, user-defined
+families on the card, and gradients through the fused step.
 """
 
 from __future__ import annotations
@@ -183,6 +187,10 @@ class FusedForms:
     as a tensor of shape ``lead + (coef_lens[t],)``, ``lead`` being ``()``
     or ``(B,)`` (a parameter sweep); it is read when ``consts`` is None.
     ``requires_grad``: some parameter needs a gradient (not ported).
+    ``kernel_consts``: the kernel's flat shared table where it is not
+    ``consts`` flattened — the entries with the Python-float factors that
+    the forms fold into them in double on the shared path (Bézier's
+    binomials), so the kernel reads the values the forms compute.
     """
 
     n: int
@@ -193,6 +201,7 @@ class FusedForms:
     name: str = "family"
     arrays_fn: Optional[Callable[..., Tuple[torch.Tensor, ...]]] = None
     requires_grad: bool = False
+    kernel_consts: Optional[Tuple[float, ...]] = None
 
     def const_accessors(self):
         """Entry accessors over the concrete tables."""
@@ -832,23 +841,40 @@ def fused_step_reference(
 # The Hopper kernel's wrapper
 # ----------------------------------------------------------------------
 
-#: Family name → the kernel's linear-algebra variant.
-_KERNEL_FAMILIES = {"serial_chain_on": "semiseparable", "serial_chain": "dense"}
-
-#: The (variant, n) pairs compiled into csrc/fused_step.cu, each for float32
-#: and float64, compensated or not, with shared or per-member tables.  Keep
-#: in step with its dispatch table.
-KERNEL_INSTANTIATIONS = (("semiseparable", 20), ("semiseparable", 5), ("dense", 2))
+#: The compiled kernels: ``(family name, n, coefficient-table length)`` →
+#: ``(source, code)``.  ``csrc/fused_step.cu`` holds the serial chain (code:
+#: its n; ``serial_chain_on`` the semiseparable forms, ``serial_chain`` the
+#: dense ones), ``csrc/family_step.cu`` the bundled model families (code: the
+#: case of its dispatch; the table length tells Bézier's degrees apart).
+#: Each is compiled in float32 and float64, compensated or not, with a shared
+#: or a per-member table (room: shared only, it has no parameters), plain or
+#: composed.  Keep in step with the two dispatch tables.
+KERNEL_INSTANTIATIONS = {
+    ("serial_chain_on", 20, 60): ("fused_step", 20),
+    ("serial_chain_on", 5, 15): ("fused_step", 5),
+    ("serial_chain", 2, 6): ("fused_step", 2),
+    ("spherical_pendulum", 2, 2): ("family_step", 0),
+    ("two_body", 2, 2): ("family_step", 1),
+    ("room", 2, 0): ("family_step", 2),
+    ("spring", 3, 4): ("family_step", 3),
+    ("ellipse", 1, 4): ("family_step", 4),
+    ("bezier", 1, 14): ("family_step", 5),  # 5 control points (degree 4)
+    ("bezier", 1, 2): ("family_step", 6),   # 2 control points (degree 1)
+}
 
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
+
+
+def _kernel_key(forms: FusedForms):
+    return forms.name, forms.n, sum(forms.coef_lens)
 
 
 def check_kernel_args(device, dtype, forms: FusedForms, shape,
                       composition=(1.0,)) -> Tuple[float, ...]:
     """Raise unless the kernel is compiled for this call: a CUDA device, a
-    float32/float64 state, an instantiated (family, n) pair and at most
-    :data:`MAX_COMPOSITION` composition weights.  Returns the weights as a
-    tuple of floats.  Takes a device (or its string) so the check is
+    float32/float64 state, an instantiated (family, n, table length) and at
+    most :data:`MAX_COMPOSITION` composition weights.  Returns the weights as
+    a tuple of floats.  Takes a device (or its string) so the check is
     testable without a card."""
     device = torch.device(device)
     if device.type != "cuda":
@@ -857,13 +883,13 @@ def check_kernel_args(device, dtype, forms: FusedForms, shape,
         raise ValueError(
             f"the fused-step kernel takes float32 or float64, not {dtype}"
         )
-    variant = _KERNEL_FAMILIES.get(forms.name)
-    if (variant, forms.n) not in KERNEL_INSTANTIATIONS:
+    if _kernel_key(forms) not in KERNEL_INSTANTIATIONS:
         raise ValueError(
             f"no fused-step kernel is compiled for family {forms.name!r} at "
-            f"n={forms.n}; instantiated (variant, n): "
-            f"{list(KERNEL_INSTANTIATIONS)} (serial_chain_on = semiseparable, "
-            f"serial_chain = dense), each in float32 and float64"
+            f"n={forms.n} with a table of {sum(forms.coef_lens)}; instantiated "
+            f"(family, n, table length): {list(KERNEL_INSTANTIATIONS)}, each in "
+            f"float32 and float64 (a user's own family on the card is "
+            f"ROADMAP.md §2a; run it on the CPU or with the library leapfrog)"
         )
     if len(shape) != 3 or shape[1] != forms.n or shape[0] not in (4, 6):
         raise ValueError(
@@ -876,8 +902,11 @@ def check_kernel_args(device, dtype, forms: FusedForms, shape,
 def coef_table(forms: FusedForms, device, dtype) -> torch.Tensor:
     """The kernel's flat ``(L,)`` shared coefficient table for ``forms``
     (``coef=`` of :func:`fused_step_kernel`; the stepper builds it once per
-    device)."""
-    flat = [v for table in forms.consts for v in table]
+    device): ``forms.kernel_consts``, or the tables of ``forms.consts`` end
+    to end.  Empty for a family without parameters (room)."""
+    flat = forms.kernel_consts
+    if flat is None:
+        flat = [v for table in forms.consts for v in table]
     return torch.tensor(flat, device=device, dtype=dtype)
 
 
@@ -892,7 +921,8 @@ def fused_step_kernel(
     composition=(1.0,),
     coef: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Launch the Hopper kernel (``csrc/fused_step.cu``) on a CUDA state:
+    """Launch the Hopper kernel (``csrc/fused_step.cu`` for the serial chain,
+    ``csrc/family_step.cu`` for the bundled families) on a CUDA state:
     ``steps_per_call`` steps of the ``(n_sv, n, B)`` state into a new tensor
     (allocated here; the kernel allocates nothing).  ``coef`` is the
     kernel's one coefficient table on the state's device: with shared
@@ -906,16 +936,19 @@ def fused_step_kernel(
     iters_p, iters_q = _iters_pair(iters)
     if not state.is_contiguous():
         raise ValueError("the fused-step kernel needs a contiguous state")
-    per_member = forms.consts is None
     if coef is None:
         coef = coef_table(forms, state.device, state.dtype)
     out = torch.empty_like(state)
-    kernels.fused_step_launch(
+    source, code = KERNEL_INSTANTIATIONS[_kernel_key(forms)]
+    # the chain's library takes n and the semiseparable flag, the families'
+    # library the family's case
+    launch = kernels.fused_step_launch if source == "fused_step" else kernels.family_step_launch
+    launch(
         dtype_code=_DTYPE_CODES[state.dtype],
-        n=forms.n,
-        semiseparable=_KERNEL_FAMILIES[forms.name] == "semiseparable",
+        code=code,
+        semiseparable=forms.name == "serial_chain_on",
         compensated=compensated,
-        per_member=per_member,
+        per_member=forms.consts is None,
         coef=coef.data_ptr(),
         state_in=state.data_ptr(),
         state_out=out.data_ptr(),

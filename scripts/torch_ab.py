@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time several versions of the PyTorch port on one card, in turns.
 
-    python3 scripts/torch_ab.py [--rounds N] TREE [TREE ...]
+    python3 scripts/torch_ab.py [--rounds N | --build-only] TREE [TREE ...]
 
 Each TREE is a directory holding a ``hamilton_tpu_torch/`` package: the root
 of a checkout, or a parent commit unpacked with ``git archive`` into the
@@ -31,8 +31,13 @@ Readings, all on 16384 members:
   20 steps) and ``adaptive_f64`` (``evolve_ham`` in float64 over
   t ∈ [0, 0.05], the whole call).
 
-Prints the card's name and power limit, each tree's build seconds, a line
-per turn, and a last line of JSON:
+Each tree's ``-Xptxas -v`` report of the chain's fused-step kernels
+(``csrc/fused_step.cu``: registers and spill bytes per instantiation) is
+held against the first tree's, instantiation by instantiation;
+``--build-only`` stops there.
+
+Prints the card's name and power limit, each tree's build seconds and its
+ptxas comparison, a line per turn, and a last line of JSON:
 ``{"card": ..., "trees": [...], "ms": {reading: [[turn ms, ...] per tree]}}``.
 """
 
@@ -167,30 +172,57 @@ def _card() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def _ptxas_rows(log: str) -> dict:
+    """``{instantiation: (registers, spill stores, spill loads)}`` of the
+    chain's fused-step kernels in an nvcc ``-Xptxas -v`` report (parsed as
+    ``chip_smoke.py`` prints it)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    from chip_smoke import ptxas_report
+
+    return {name: (regs, st, ld) for name, regs, st, ld in ptxas_report(log)}
+
+
 def main(argv) -> int:
     if len(argv) >= 2 and argv[0] == "--time":
         print(json.dumps(_time_tree(argv[1])), flush=True)
         return 0
-    rounds = 1
+    rounds, build_only = 1, False
     if len(argv) >= 2 and argv[0] == "--rounds":
         rounds, argv = int(argv[1]), argv[2:]
+    elif argv and argv[0] == "--build-only":
+        build_only, argv = True, argv[1:]
     trees = argv
     if not trees or rounds < 1:
         print(__doc__, file=sys.stderr)
         return 2
     card = _card()
     print(card, flush=True)
-    build = ("import sys, time; sys.path.insert(0, sys.argv[1]); "
+    build = ("import json, sys, time; sys.path.insert(0, sys.argv[1]); "
              "from hamilton_tpu_torch import kernels; t = time.perf_counter(); "
-             "kernels.build_all(); print(time.perf_counter() - t)")
+             "b = kernels.build_all(); "
+             "print(json.dumps([time.perf_counter() - t, b['fused_step'].log]))")
     procs = [subprocess.Popen([sys.executable, "-c", build, str(Path(t).resolve())],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for t in trees]
+    first = None
     for tree, proc in zip(trees, procs):
         out, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"building {tree} failed:\n{err}")
-        print(f"build {tree}: {float(out.split()[-1]):.1f} s", flush=True)
+        seconds, log = json.loads(out.strip().splitlines()[-1])
+        rows = _ptxas_rows(log)
+        print(f"build {tree}: {seconds:.1f} s, {len(rows)} fused_step instantiations",
+              flush=True)
+        if first is None:
+            first = (tree, rows)
+            continue
+        differ = {k: (first[1].get(k), v) for k, v in rows.items() if first[1].get(k) != v}
+        differ.update({k: (v, None) for k, v in first[1].items() if k not in rows})
+        print(f"ptxas {tree} against {first[0]}: {len(rows) - len(differ)} of "
+              f"{len(first[1])} instantiations equal in registers and spills"
+              + "".join(f"\n  {k}: {a} -> {b}" for k, (a, b) in differ.items()), flush=True)
+    if build_only:
+        return 0
     ms = {r: [[] for _ in trees] for r in READINGS}
     order = (list(range(len(trees))) + list(reversed(range(len(trees))))) * rounds
     for i in order:

@@ -203,9 +203,10 @@ def test_argument_checks():
         tp.evolve_ham(ex.system, ex.init_phase, [0.5])
     with pytest.raises(ValueError, match="batch_mode"):
         tp.evolve_ham(ex.system, ex.init_phase, [0.0, 0.1], batch_mode="lockstep")
-    with pytest.raises(NotImplementedError, match="M9"):
-        sp = tp.spring(device="cpu", dtype=F64)
-        tp.make_stepper(sp.system, "leapfrog_fused")
+    sp = tp.spring(device="cpu", dtype=F64)
+    assert tp.make_stepper(sp.system, "leapfrog_fused").order == 2
+    with pytest.raises(NotImplementedError, match="M11"):
+        tp.make_stepper(sp.system, "rk4")
 
 
 def test_host_reads_count_attempts():

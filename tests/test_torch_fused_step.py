@@ -323,5 +323,5 @@ def test_kernel_argument_checks():
         t_step.check_kernel_args("cuda", torch.float32, on20, (5, 20, 1000))
     with pytest.raises(ValueError, match="CUDA"):
         t_step.check_kernel_args("cpu", torch.float32, on20, (6, 20, 1000))
-    assert ("semiseparable", 20) in t_step.KERNEL_INSTANTIATIONS
-    assert ("dense", 2) in t_step.KERNEL_INSTANTIATIONS
+    assert ("serial_chain_on", 20, 60) in t_step.KERNEL_INSTANTIATIONS
+    assert ("serial_chain", 2, 6) in t_step.KERNEL_INSTANTIATIONS

@@ -1,8 +1,9 @@
 """The PyTorch port never imports JAX.
 
 A fresh interpreter imports ``hamilton_tpu_torch``, builds a chain system,
-takes a fused step, runs ``evolve_ham`` and counts the fused step's
-operations; ``jax`` must stay out of ``sys.modules``.
+takes a fused step, runs ``evolve_ham``, counts the fused step's operations
+and takes a fused step of three model families; ``jax`` must stay out of
+``sys.modules``.
 """
 
 import os
@@ -24,6 +25,12 @@ st.extract(st.step(st.init(ph), 1e-3))
 tp.evolve_ham(ex.system, tp.Phase(ph.q, ph.p + 0.1), [0.0, 0.01])
 from hamilton_tpu_torch.utils import profiling, roofline
 roofline.fused_step_cost(ex.system, method="suzuki4_fused", iters=(2, 0))
+for name in ("spherical", "room", "bezier"):
+    fam = tp.get_example(name, device="cpu", dtype=torch.float64)
+    fst = tp.make_stepper(fam.system, "leapfrog_fused", iters=(2, 0), steps_per_call=2)
+    n = fam.n
+    fph = tp.Phase(fam.init_config.q.expand(3, n).contiguous(), torch.zeros(3, n, dtype=torch.float64))
+    fst.extract(fst.step(fst.init(fph), 1e-3))
 print("jax" in sys.modules, any(m.startswith("hamilton_tpu.") or m == "hamilton_tpu"
                                 for m in sys.modules))
 """

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels themselves (``hamilton_tpu_torch/csrc/
-fused_step.cu``, ``csrc/batched_spd.cu`` and ``csrc/roofline_probes.cu``).
+fused_step.cu``, ``csrc/family_step.cu``, ``csrc/batched_spd.cu`` and
+``csrc/roofline_probes.cu``).
 
 These tests need an NVIDIA card and nvcc; elsewhere they skip.  This file
 imports no JAX, so on a machine without it run it without the suite's
@@ -144,6 +145,106 @@ def test_uninstantiated_size_raises_on_the_card(card):
                              torch.zeros(4, 7, device=card)))
     with pytest.raises(ValueError, match="instantiated"):
         st.step(carry, 1e-3)
+
+
+# ----------------------------------------------------------------------
+# The model families' kernel (csrc/family_step.cu)
+# ----------------------------------------------------------------------
+
+# name → (example factory, q jitter scale)
+FAMILIES = {
+    "spherical": (tp.spherical_pendulum, 0.05),
+    "two_body": (tp.two_body, 0.02),
+    "room": (tp.room, 0.05),
+    "spring": (tp.spring, 0.02),
+    "ellipse": (tp.ellipse, 0.05),
+    "bezier": (tp.bezier, 0.05),
+    "bezier2": (lambda **kw: tp.bezier([(-1.0, -1.0), (1.0, 1.0)], **kw), 0.05),
+}
+
+
+def _family_state(name, card, dtype, iters, compensated, swept, composition=(1.0,)):
+    """A family's forms and its stepper's initial carry on 300 members at the
+    example's initial phase with jittered q; ``swept`` draws every parameter
+    per member (5 % jitter), giving the per-member table."""
+    make, scale = FAMILIES[name]
+    ex = make(device=card, dtype=dtype)
+    system = ex.system
+    rng = np.random.default_rng(5)
+    if swept:
+        system = system.replace_params({
+            k: v * torch.as_tensor(1.0 + 0.05 * rng.standard_normal((300,) + (1,) * v.ndim),
+                                   device=card, dtype=dtype)
+            for k, v in system.params.items()})
+    ph0 = ex.init_phase
+    q = ph0.q.cpu().numpy() + scale * rng.standard_normal((300, ex.n))
+    p = ph0.p.cpu().numpy() + np.zeros((300, ex.n))
+    forms = system.fused_forms(system)
+    st = t_step.fused_stepper(forms, iters=iters, compensated=compensated,
+                              composition=composition)
+    return forms, st.init(tp.phase_from_numpy(q, p, device=card, dtype=dtype))
+
+
+@pytest.mark.parametrize("name,swept", [(name, swept) for name in sorted(FAMILIES)
+                                         for swept in (False, True)
+                                         if not (swept and name == "room")])
+def test_family_kernel_matches_plain_version(card, name, swept):
+    """float64 (2,0) Kahan and (3,2), ten steps per launch, a ragged batch,
+    shared and per-member tables (room has no parameters, so no per-member
+    table): the family kernel agrees with its plain version to float64
+    rounding."""
+    for iters, comp in (((2, 0), True), ((3, 2), False)):
+        forms, carry = _family_state(name, card, torch.float64, iters, comp, swept)
+        state, table = carry if swept else (carry, None)
+        kw = dict(iters=iters, compensated=comp, steps_per_call=10, coef=table)
+        before = kernels.family_step_launch.launches
+        got = t_step.fused_step_kernel(forms, state, 1e-3, **kw)
+        assert kernels.family_step_launch.launches == before + 1
+        want = t_step.fused_step_reference(forms, state, 1e-3, **kw)
+        scale = torch.ones(state.shape[0], 1, 1, dtype=torch.float64, device=card)
+        scale[-1] = 1e-3
+        assert bool(torch.isfinite(got).all())
+        assert float(((got - want) * scale).abs().max()) < 1e-11
+
+
+def test_family_composition_kernel_matches_plain_version(card):
+    forms, state = _family_state("spherical", card, torch.float64, (2, 0), True, False,
+                                 t_step.SUZUKI4_COMPOSITION)
+    kw = dict(iters=(2, 0), compensated=True, steps_per_call=5,
+              composition=t_step.SUZUKI4_COMPOSITION)
+    got = t_step.fused_step_kernel(forms, state, 1e-3, **kw)
+    want = t_step.fused_step_reference(forms, state, 1e-3, **kw)
+    scale = torch.ones(state.shape[0], 1, 1, dtype=torch.float64, device=card)
+    scale[-1] = 1e-3
+    assert float(((got - want) * scale).abs().max()) < 1e-11
+
+
+def test_family_kernel_matches_library_leapfrog(card):
+    """The spring (n = 3, dense K with a structural zero), float64 (3,2):
+    the kernel and the library leapfrog agree over two steps."""
+    _, state = _family_state("spring", card, torch.float64, (3, 2), False, False)
+    ph = tp.Phase(state[0].T.contiguous(), state[1].T.contiguous())
+    system = tp.spring(device=card, dtype=torch.float64).system
+    lib = tp.make_stepper(system, "leapfrog", iters=(3, 2))
+    fus = tp.make_stepper(system, "leapfrog_fused", iters=(3, 2))
+    dt = torch.tensor(1e-3, dtype=torch.float64)
+    cl, cf = lib.init(ph), fus.init(ph)
+    for _ in range(2):
+        cl, cf = lib.step(cl, dt), fus.step(cf, dt)
+    a, b = lib.extract(cl), fus.extract(cf)
+    assert float((a.q - b.q).abs().max()) < 1e-12
+    assert float((a.p - b.p).abs().max()) < 1e-12
+
+
+def test_uninstantiated_family_raises_on_the_card(card):
+    ex = tp.bezier([(-1.0, -1.0), (0.0, 1.0), (1.0, -1.0)], device=card, dtype=torch.float32)
+    st = tp.make_stepper(ex.system, "leapfrog_fused", iters=(2, 0))
+    carry = st.init(tp.Phase(ex.init_config.q.expand(4, 1).contiguous(),
+                             torch.zeros(4, 1, device=card)))
+    before = kernels.family_step_launch.launches
+    with pytest.raises(ValueError, match="instantiated"):
+        st.step(carry, 1e-3)
+    assert kernels.family_step_launch.launches == before
 
 
 # ----------------------------------------------------------------------
