@@ -4,8 +4,8 @@
     python3 chip_smoke.py            # from the root of a checkout; needs one card
 
 Builds the hand-written kernels (``hamilton_tpu_torch/csrc/fused_step.cu``,
-``csrc/family_step.cu``, ``csrc/batched_spd.cu`` and
-``csrc/roofline_probes.cu``, one nvcc each, at once), then runs these
+``csrc/chain_variants.cu``, ``csrc/family_step.cu``, ``csrc/batched_spd.cu``
+and ``csrc/roofline_probes.cu``, one nvcc each, at once), then runs these
 phases and raises as soon as one fails:
 
 1. kernel against its plain PyTorch version: one 50-step call on a ragged
@@ -79,7 +79,29 @@ phases and raises as soon as one fails:
     and two-body in float64 (also run), the other drifts recorded; (d) the
     spherical pendulum's and two-body's fused rate against the library
     leapfrog's (200 steps); (e) each family's 50-step launch timed, with
-    its plain version, the host's issue and its bound.
+    its plain version, the host's issue and its bound;
+16. the chain's other forms (``bench.py --fused-solver``) on K1's
+    chain-variant kernel (``csrc/chain_variants.cu``), Möbius and L⁻¹ each:
+    (a) the kernel against its plain version on 16384 × chain-20 over a
+    5-step launch, float32 (2,0) Kahan and float64 (3,2), shared and
+    per-member (phase 13's) tables, and ``suzuki4_fused``; (b) against the
+    semiseparable kernel over one 50-step launch; (c) float64 (3,2) against
+    the library leapfrog on chain-20 and chain-5, 1000 members, 2 steps;
+    (d) the headline's run on this form — exactly 4000 K1 and 201 K2a
+    launches, ``max|ΔH/H₀| < 1e-6``; (e) the 50-step launch at n = 20 and
+    n = 5 timed, with its plain version, the host's issue and its bound;
+17. gradients at full width: (a) each K2 entry's gradient at 16384 × n=20
+    in float32 and float64 against autograd through the plain masked
+    Cholesky and triangular solves, a solve's backward launching its kernel
+    exactly once; (b) float64 (3,2) on 16384 × chain-20: the gradient of a
+    final-state loss with respect to (q₀, p₀) and the 20 shared masses
+    through one 50-step fused launch (the kernel forward, the replay
+    backward) against 50 library-leapfrog steps (backward on K2) to 1e-9
+    relative, and against a central difference on one mass; (c) float32
+    (2,0) Kahan: the forward and backward ms of one 50-step launch and the
+    peak memory; (d) ``fit_masses --fused`` on the card, cut to
+    ``FIT_ITERS`` Adam iterations and gated on its loss falling tenfold,
+    and the dense n = 4 launch it runs, timed.
 
 Every kernel's row gives its launches on its main path, its device time
 and its plain version's, the bound (the larger of its operations over the
@@ -204,6 +226,28 @@ FAMILY_CODES = ("spherical", "two_body", "room", "spring", "ellipse", "bezier 5 
 PROBE_REPLACES = {"fma_probe": "hamilton_tpu/utils/roofline.py:261",
                   "sin_probe": "hamilton_tpu/utils/roofline.py:304",
                   "add_one": "hamilton_tpu/utils/roofline.py:375"}
+# the chain's other forms (bench.py --fused-solver, :1189) on K1's
+# chain-variant kernel; the case codes of csrc/chain_variants.cu, for its
+# ptxas report
+CHAIN_SOLVERS = ("mobius", "linv")
+CHAIN_SOURCE = "hamilton_tpu_torch/csrc/chain_variants.cu"
+CHAIN_CODES = ("mobius n=20", "mobius n=5", "linv n=20", "linv n=5", "dense n=4")
+# a Möbius or L⁻¹ launch against the semiseparable kernel's over 50 steps:
+# the same fixed points through other rounding (float64 (3,2); float32
+# (2,0) Kahan)
+FORMS_TOL = {"float64": 1e-11, "float32": 1e-4}
+# the gradient phase: each K2 entry's gradient by its kernel against autograd
+# through the plain masked Cholesky and triangular solves, relative to the
+# largest entry; the fused gradient against the library leapfrog's (the JAX
+# test's 1e-9, tests/test_pallas_step.py:463-466) and a central difference
+K2_GRAD_TOL = {"float64": 1e-12, "float32": 1e-4}
+GRAD_TOL = 1e-9
+FD_RTOL = 1e-5
+# fit_masses --fused (1024 members, 24 steps a launch): its backward replays
+# the plain step (host-bound, ~2 s an iteration on the card), so the run is
+# cut from the example's 200 Adam iterations and gated on its loss falling
+# tenfold
+FIT_ITERS = 30
 
 
 def log(msg: str) -> None:
@@ -243,6 +287,16 @@ def _k1_label(m):
 def _family_label(m):
     t, code, comp, per_member, composed = m.groups()
     return (f"{'float' if t == 'f' else 'double'} {FAMILY_CODES[int(code)]}"
+            f"{' kahan' if comp == '1' else ''}{' per-member' if per_member == '1' else ''}"
+            f"{' composed' if composed == '1' else ''}")
+
+
+_VARIANT_RE = re.compile(r"chain_variant_kernelI([fd])Li(\d+)ELb([01])ELb([01])ELb([01])E")
+
+
+def _variant_label(m):
+    t, code, comp, per_member, composed = m.groups()
+    return (f"{'float' if t == 'f' else 'double'} {CHAIN_CODES[int(code)]}"
             f"{' kahan' if comp == '1' else ''}{' per-member' if per_member == '1' else ''}"
             f"{' composed' if composed == '1' else ''}")
 
@@ -289,7 +343,7 @@ def jittered_phase(example, batch, dtype, device, seed):
     rng = np.random.default_rng(seed)
     jitter = 0.01 * rng.standard_normal((batch, n)).astype(np_dtype)
     q = torch.as_tensor(ph0.q.cpu().numpy().astype(np_dtype) + jitter)
-    p = ph0.p.cpu().to(dtype).expand(batch, n).contiguous()
+    p = ph0.p.cpu().expand(batch, n).contiguous()
     return Phase(q.to(device=device, dtype=dtype), p.to(device))
 
 
@@ -697,6 +751,400 @@ def phase_families(dev, entries, summary):
     log(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
 
 
+def k1_row(name, source, forms, state, dt, kw, system, method, launches, extra_err=0.0):
+    """A K1 row at one launch's shape: the kernel against its plain version
+    (in turns on one card: plain, kernel, kernel, plain), its queued device
+    ms, the host's issue and the bound; raises if they disagree."""
+    from hamilton_tpu_torch.ops.fused_step import fused_step_kernel, fused_step_reference
+    from hamilton_tpu_torch.utils.profiling import time_queued
+
+    def kern():
+        return fused_step_kernel(forms, state, dt, **kw)
+
+    def plain():
+        return fused_step_reference(forms, state, dt, **kw)
+
+    k_out = kern()
+    p1, p_out = time_call(plain, 1)
+    k1, h1 = time_queued(kern, 100)
+    k2, h2 = time_queued(kern, 100)
+    p2, _ = time_call(plain, 1)
+    dname = str(state.dtype).split(".")[-1]
+    worst, errs, failures = compare_states(k_out, p_out, dname)
+    if failures:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version: "
+                             + "; ".join(failures))
+    batch, spc = state.shape[2], kw["steps_per_call"]
+    bound_ms, bound_by, cost = k1_bound(system, method, kw["iters"], kw["compensated"], batch,
+                                        spc)
+    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    log(f"{name} B={batch} spc={spc}: kernel {ms:.4f} ms on the card ({k1:.4f}, {k2:.4f}), "
+        f"host {(h1 + h2) / 2 * 1e3:.2f} us to issue one ({h1 * 1e3:.2f}, {h2 * 1e3:.2f}), "
+        f"plain {plain_ms:.2f} ms ({p1:.2f}, {p2:.2f}), bound {bound_ms:.6f} ms ({bound_by}; "
+        f"{cost['flops_per_member_step']:.2f} flops, "
+        f"{cost['transcendentals_per_member_step']:.2f} transcendentals a member-step), "
+        f"launches {launches}; " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": REPLACES,
+        "launches": launches, "max_abs_err": max(worst, extra_err), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }
+
+
+def phase_chain_solvers(dev, ph, head_rate, entries, summary):
+    """Phase 16: the chain's Möbius and L⁻¹ forms on K1's chain-variant
+    kernel (``csrc/chain_variants.cu``), at the headline's configuration;
+    appends each one's rows to ``entries`` and its readings to ``summary``."""
+    import numpy as np
+    import torch
+    from hamilton_tpu_torch.convert import params_from_numpy
+    from hamilton_tpu_torch.ensemble import evolve_ensemble_chunked
+    from hamilton_tpu_torch.integrators.fixed import make_stepper
+    from hamilton_tpu_torch.models import chain
+    from hamilton_tpu_torch.ops.fused_step import (
+        SUZUKI4_COMPOSITION, coef_table, fused_step_kernel, fused_step_reference,
+        fused_stepper,
+    )
+    from hamilton_tpu_torch.state import Phase
+
+    t_phase = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    spc, chunk = 50, 10_000
+    # phase 13's per-member tables
+    rng = np.random.default_rng(7)
+    sweep_np = {"masses": 1.0 + 0.05 * rng.standard_normal((BATCH, 20))}
+    sweep_np["lengths"] = np.ones((BATCH, 20))
+    sweep_np["gravity"] = 5.0 + 0.1 * rng.standard_normal(BATCH)
+
+    def one_launch(solver, dtype, iters, comp):
+        ex = chain(n_links=20, fused_solver=solver, device=dev, dtype=dtype)
+        st = fused_stepper(ex.system.fused_forms(ex.system), iters=iters, compensated=comp,
+                           steps_per_call=spc)
+        return st.extract(st.step(st.init(ph.astype(dtype)), 5e-4))
+
+    semisep = {dtype: one_launch("semiseparable", dtype, iters, comp)
+               for dtype, iters, comp in ((f64, (3, 2), False), (f32, (2, 0), True))}
+    ex5 = chain(n_links=5, device=dev, dtype=f64)
+    ph5 = jittered_phase(ex5, 1000, f64, dev, 2)
+    ph5 = Phase(ph5.q, ph5.p + 0.01)
+    ph20 = Phase(ph.q[:1000].to(f64), ph.p[:1000].to(f64) + 0.01)
+    dt_lib = torch.tensor(1e-3, dtype=f64)
+    for solver in CHAIN_SOLVERS:
+        def make(dtype, n=20):
+            return chain(n_links=n, fused_solver=solver, device=dev, dtype=dtype)
+
+        # (a) the kernel against its plain version: float32 (2,0) Kahan and
+        # float64 (3,2), shared and per-member tables, and composed
+        checks = []
+        for dtype, iters, comp in ((f32, (2, 0), True), (f64, (3, 2), False)):
+            system = make(dtype).system
+            swept = system.replace_params(params_from_numpy(sweep_np, device=dev, dtype=dtype))
+            tag = f"{str(dtype)[6:]} {iters}{' kahan' if comp else ''}"
+            checks.append((tag, system, iters, comp, (1.0,)))
+            checks.append((f"{tag} per-member", swept, iters, comp, (1.0,)))
+        checks.append(("float32 (2, 0) kahan suzuki4", make(f32).system, (2, 0), True,
+                       SUZUKI4_COMPOSITION))
+        failures, worst_a = [], 0.0
+        for label, system, iters, comp, composition in checks:
+            forms = system.fused_forms(system)
+            st = fused_stepper(forms, iters=iters, compensated=comp, composition=composition)
+            carry = st.init(ph.astype(system.dtype))
+            state, table = carry if forms.consts is None else (carry, None)
+            kw = dict(iters=iters, compensated=comp, steps_per_call=5,
+                      composition=composition, coef=table)
+            k_out = fused_step_kernel(forms, state, 5e-4, **kw)
+            p_out = fused_step_reference(forms, state, 5e-4, **kw)
+            torch.cuda.synchronize()
+            dname = str(system.dtype)[6:]
+            worst, errs, fails = compare_states(k_out, p_out, dname)
+            failures += [f"{label}: {f}" for f in fails]
+            if dname == "float32":
+                worst_a = max(worst_a, worst)
+            log(f"phase 16 {'FAILED' if fails else 'ok'}: {solver} {label} kernel vs plain, "
+                f"B={BATCH} spc=5: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        if failures:
+            raise AssertionError(f"{solver} kernel disagrees with its plain version: "
+                                 + "; ".join(failures))
+
+        # (b) against the semiseparable kernel over one 50-step launch
+        for dtype, iters, comp in ((f64, (3, 2), False), (f32, (2, 0), True)):
+            out = one_launch(solver, dtype, iters, comp)
+            ref = semisep[dtype]
+            err = max(float((out.q - ref.q).abs().max()), float((out.p - ref.p).abs().max()))
+            limit = FORMS_TOL[str(dtype)[6:]]
+            log(f"phase 16 {'ok' if err <= limit else 'FAILED'}: {solver} vs semiseparable "
+                f"kernel, {str(dtype)[6:]} {iters}, {BATCH} x chain-20, one {spc}-step "
+                f"launch: {err:.3e} (limit {limit:.0e})")
+            if not (all_finite(out.q, out.p) and err <= limit):
+                raise AssertionError(f"{solver} vs semiseparable: {err:.3e} > {limit:.0e}")
+            summary[f"{solver}_vs_semiseparable_{str(dtype)[6:]}"] = err
+
+        # (c) float64 (3,2) against the library leapfrog: chain-20 and chain-5
+        n5_launches = 0
+        for n, ph_c in ((20, ph20), (5, ph5)):
+            system = make(f64, n).system
+            lib = make_stepper(system, "leapfrog", iters=(3, 2))
+            fus = make_stepper(system, "leapfrog_fused", iters=(3, 2))
+            c_lib, c_fus = lib.init(ph_c), fus.init(ph_c)
+            for _ in range(2):
+                c_lib = lib.step(c_lib, dt_lib)
+            c_fus, counts = counted(lambda: fus.step(fus.step(c_fus, dt_lib), dt_lib))
+            expect_counts(f"{solver} chain-{n} fused", counts, chain_variants=2)
+            a, b = lib.extract(c_lib), fus.extract(c_fus)
+            err = max(float((a.q - b.q).abs().max()), float((a.p - b.p).abs().max()))
+            log(f"phase 16 {'ok' if err <= PHYSICS_TOL else 'FAILED'}: {solver} chain-{n} "
+                f"float64 (3,2) kernel vs library leapfrog, 1000 members, 2 steps: {err:.2e}")
+            if not err <= PHYSICS_TOL:
+                raise AssertionError(f"{solver} chain-{n} vs library leapfrog {err:.3e}")
+            if n == 5:
+                n5_launches = counts["chain_variants"]
+
+        # (d) the headline run on this form: 2e5 steps, exactly 4000 launches
+        ex32 = make(f32)
+        marks = []
+        t0 = time.perf_counter()
+        (fin, drift), counts = counted(lambda: evolve_ensemble_chunked(
+            ex32.system, ph, 5e-4, HEADLINE_STEPS, chunk_steps=chunk, method="leapfrog_fused",
+            iters=(2, 0), compensated=True, drift_every=1000, drift_dtype=f64,
+            callback=lambda ci, phase, d: marks.append(time.perf_counter()),
+            steps_per_call=spc))
+        expect_counts(f"{solver} headline", counts, chain_variants=HEADLINE_STEPS // spc,
+                      spd_solve=1 + HEADLINE_STEPS // 1000)
+        if not all_finite(fin.q, fin.p, drift) or tuple(fin.q.shape) != (BATCH, 20):
+            raise AssertionError(f"{solver} headline output is not finite or not (16384, 20)")
+        rate, first, n_chunks = steady_rate(marks, t0, BATCH, chunk)
+        max_drift = float(drift.max())
+        log(f"phase 16: {solver} 16384 x chain-20 float32 (2,0) kahan dt=5e-4, "
+            f"{HEADLINE_STEPS} steps: {rate:.6e} member-steps/s over {n_chunks} steady chunks "
+            f"(first chunk {first:.3f} s; {rate / head_rate:.4f} of the headline), "
+            f"max|dH/H0| {max_drift:.6e}, launches {counts}")
+        if not max_drift < DRIFT_BOUND:
+            raise AssertionError(f"{solver} headline drift {max_drift:.3e} >= {DRIFT_BOUND}")
+        summary[f"{solver}_member_steps_per_sec"] = rate
+        summary[f"{solver}_max_drift"] = max_drift
+
+        # (e) the K1 rows: the 50-step launch at 16384 members, n = 20 and 5
+        for n, launches in ((20, counts["chain_variants"]), (5, n5_launches)):
+            exn = make(f32, n)
+            forms = exn.system.fused_forms(exn.system)
+            st = fused_stepper(forms, iters=(2, 0), compensated=True, steps_per_call=spc)
+            phn = ph if n == 20 else jittered_phase(exn, BATCH, f32, dev, 16)
+            kw = dict(iters=(2, 0), compensated=True, steps_per_call=spc,
+                      coef=coef_table(forms, dev, f32))
+            row = k1_row(f"chain_variants {forms.name} n={n} float32 kahan (2,0)",
+                         CHAIN_SOURCE, forms, st.init(phn), 5e-4, kw, exn.system,
+                         "leapfrog_fused", launches, worst_a if n == 20 else 0.0)
+            log(f"phase 16: {row['name']}: {row['ms']:.4f} ms a launch")
+            entries.append(row)
+            summary[f"{solver}_n{n}_k1_ms"] = row["ms"]
+    log(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+
+
+def k2_plain_grad_fn(entry):
+    """The entry's function in differentiable plain PyTorch: the out-of-place
+    masked Cholesky (``batched_spd.masked_cholesky``) and two triangular
+    solves."""
+    import torch
+    from hamilton_tpu_torch.ops.batched_spd import masked_cholesky
+
+    def solve(low, b):
+        y = torch.linalg.solve_triangular(low, b[..., None], upper=False)
+        return torch.linalg.solve_triangular(low.mT, y, upper=True)[..., 0]
+
+    return {
+        "spd_solve_batched": lambda k, b: solve(masked_cholesky(k), b),
+        "cholesky_batched": masked_cholesky,
+        "cho_solve_batched": solve,
+        "spd_solve_jac": lambda js, b: solve(masked_cholesky(js.mT @ js), b),
+        "cholesky_jac": lambda js: masked_cholesky(js.mT @ js),
+    }[entry.name]
+
+
+def phase_gradients(dev, ph, entries, summary):
+    """Phase 17: gradients at full width — the K2 entries' backwards, the
+    fused step's replay against the library leapfrog and a central
+    difference, the replay's cost, and ``fit_masses --fused``."""
+    import contextlib
+    import io
+
+    import torch
+    from hamilton_tpu_torch.examples import fit_masses
+    from hamilton_tpu_torch.integrators.fixed import make_stepper
+    from hamilton_tpu_torch.models import chain
+    from hamilton_tpu_torch.ops.batched_spd import ENTRIES
+    from hamilton_tpu_torch.ops.fused_step import coef_table, fused_stepper
+    from hamilton_tpu_torch.state import Phase
+
+    t_phase = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+
+    # (a) each K2 entry's gradient at n = 20 by its kernel against autograd
+    # through the plain masked Cholesky and triangular solves, on the same
+    # card tensors; a solve's backward launches its kernel once more
+    for dtype in (f32, f64):
+        dname = str(dtype)[6:]
+        k, js, b = k2_inputs(BATCH, 20, dtype, dev, 17)
+        g = torch.Generator(device=dev).manual_seed(17)
+        row = []
+        for e in ENTRIES:
+            args = [a.detach().requires_grad_(True) for a in k2_args(e, k, js, b)]
+            out = e.entry(*args)
+            cot = torch.randn(out.shape, device=dev, dtype=dtype, generator=g)
+            got, counts = counted(lambda: torch.autograd.grad(out, args, cot))
+            expect_counts(f"{e.name} backward {dname}", counts,
+                          **({_launch_name(e): 1} if e.solves else {}))
+            want = torch.autograd.grad(k2_plain_grad_fn(e)(*args), args, cot)
+            if e.name == "spd_solve_batched":
+                # the plain factorization reads K's lower triangle: the
+                # kernel's full gK acts on a symmetric K as tril(gK + gKᵀ)
+                # less its diagonal
+                gk = got[0]
+                got = (torch.tril(gk + gk.mT) - torch.diag_embed(torch.diagonal(gk, 0, -2, -1)),
+                       got[1])
+            err = max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+                      for x, y in zip(got, want))
+            limit = K2_GRAD_TOL[dname]
+            row.append(f"{e.name} {err:.2e}")
+            if not (all_finite(*got) and err <= limit):
+                raise AssertionError(f"{e.name} {dname}: kernel gradient vs plain autograd "
+                                     f"{err:.3e} > {limit:.0e}")
+            summary[f"{e.name}_grad_err_{dname}"] = err
+        log(f"phase 17 ok: K2 gradients, {BATCH} x n=20 {dname}, kernel vs autograd through "
+            f"the plain version (relative; a solve's backward launched its kernel once): "
+            + ", ".join(row))
+    del k, js, b
+
+    # (b) float64 (3,2): the gradient of a final-state loss with respect to
+    # (q₀, p₀) and the 20 shared masses through one 50-step fused launch,
+    # against 50 library-leapfrog steps (their backward on K2) and a central
+    # difference on one mass
+    ex = chain(n_links=20, fused_solver="semiseparable", device=dev, dtype=f64)
+    ph64 = ph.astype(f64)
+    m0 = ex.system.params["masses"].detach().clone()
+    dt = 5e-4
+
+    def loss_of(method, masses, q0, p0):
+        system = ex.system.replace_params(dict(ex.system.params, masses=masses))
+        fused = method == "leapfrog_fused"
+        st = make_stepper(system, method, iters=(3, 2), steps_per_call=50 if fused else 1)
+        carry = st.init(Phase(q0, p0))
+        step_dt = dt if fused else torch.tensor(dt, dtype=f64)
+        for _ in range(1 if fused else 50):
+            carry = st.step(carry, step_dt)
+        out = st.extract(carry)
+        return torch.sum(out.q ** 2) + torch.sum(out.p * out.q)
+
+    grads, secs, fwd_counts, bwd_counts = {}, {}, {}, {}
+    for method in ("leapfrog_fused", "leapfrog"):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (ph64.q, ph64.p, m0)]
+        t0 = time.perf_counter()
+        loss, fwd_counts[method] = counted(lambda: loss_of(method, leaves[2], *leaves[:2]))
+        grads[method], bwd_counts[method] = counted(
+            lambda: torch.autograd.grad(loss, leaves))
+        secs[method] = time.perf_counter() - t0
+        del loss
+    expect_counts("fused gradient forward", fwd_counts["leapfrog_fused"], fused_step=1)
+    expect_counts("fused gradient backward", bwd_counts["leapfrog_fused"])
+    if not bwd_counts["leapfrog"]["cho_solve"]:
+        raise AssertionError("the library leapfrog's backward launched no K2c")
+    rel = [float((a - b).abs().max()) / float(b.abs().max())
+           for a, b in zip(grads["leapfrog_fused"], grads["leapfrog"])]
+    eps = 1e-5
+    e1 = torch.zeros_like(m0)
+    e1[7] = eps
+    with torch.no_grad():
+        fd = (loss_of("leapfrog_fused", m0 + e1, ph64.q, ph64.p)
+              - loss_of("leapfrog_fused", m0 - e1, ph64.q, ph64.p)) / (2 * eps)
+    g7 = float(grads["leapfrog_fused"][2][7])
+    fd_rel = abs(g7 - float(fd)) / abs(float(fd))
+    log(f"phase 17: float64 (3,2) gradient, {BATCH} x chain-20, 50 steps: fused (one launch, "
+        f"the replay backward) vs library leapfrog (50 steps, backward on K2): relative "
+        f"{rel[0]:.3e} (q0), {rel[1]:.3e} (p0), {rel[2]:.3e} (masses); dL/dm7 {g7:.12e} vs "
+        f"central difference {float(fd):.12e} ({fd_rel:.3e}); fused "
+        f"{secs['leapfrog_fused']:.3f} s, library {secs['leapfrog']:.3f} s; library launches "
+        f"forward {fwd_counts['leapfrog']}, "
+        f"backward {bwd_counts['leapfrog']}")
+    if not max(rel) <= GRAD_TOL or not fd_rel <= FD_RTOL:
+        raise AssertionError(f"fused gradient vs library leapfrog {max(rel):.3e} (limit "
+                             f"{GRAD_TOL}) or vs central difference {fd_rel:.3e} (limit {FD_RTOL})")
+    summary.update({"fused_grad_vs_library": max(rel), "fused_grad_vs_fd": fd_rel})
+    del grads
+
+    # (c) float32 (2,0) Kahan: the forward (the kernel) and the backward (the
+    # replay) of one 50-step launch, and the peak memory
+    ex32 = chain(n_links=20, fused_solver="semiseparable", device=dev, dtype=f32)
+    masses = ex32.system.params["masses"].detach().clone().requires_grad_(True)
+    system = ex32.system.replace_params(dict(ex32.system.params, masses=masses))
+    st = make_stepper(system, "leapfrog_fused", iters=(2, 0), compensated=True,
+                      steps_per_call=50)
+    q0 = ph.q.detach().clone().requires_grad_(True)
+    st.step(st.init(Phase(ph.q, ph.p)), 5e-4)  # warm-up, no gradient
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = st.extract(st.step(st.init(Phase(q0, ph.p)), 5e-4))
+    loss = torch.sum(out.q ** 2)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (gq, gm), counts = counted(lambda: torch.autograd.grad(loss, (q0, masses)))
+    bwd_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    expect_counts("replay backward", counts)
+    if not all_finite(gq, gm):
+        raise AssertionError("the replay's gradient is not finite")
+    del out, loss, gq, gm
+    log(f"phase 17: float32 (2,0) kahan gradient, {BATCH} x chain-20, one 50-step launch, "
+        f"(q0, masses): forward {fwd_s * 1e3:.1f} ms (the kernel, with the table and the "
+        f"carry built), backward (the replay) {bwd_s * 1e3:.1f} ms, peak memory above the "
+        f"inputs {peak / 2**30:.3f} GiB")
+    summary.update({"replay_forward_ms": fwd_s * 1e3, "replay_backward_ms": bwd_s * 1e3,
+                    "replay_peak_bytes": peak})
+
+    # (d) fit_masses --fused on the card, cut to FIT_ITERS iterations
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc, counts = counted(lambda: fit_masses.main(
+            ["--fused", "--device", "cuda", "--iters", str(FIT_ITERS)]))
+    el = time.perf_counter() - t0
+    text = buf.getvalue()
+    for line in text.strip().splitlines():
+        log(f"phase 17: fit_masses | {line}")
+    expect_counts("fit_masses --fused", counts, chain_variants=FIT_ITERS + 1)
+    first, last = (float(x) for x in re.search(r"loss (\S+) -> (\S+)", text).groups())
+    log(f"phase 17 {'ok' if last <= first / 10 else 'FAILED'}: fit_masses --fused, "
+        f"{FIT_ITERS} iterations in {el:.1f} s: loss {first:.3e} -> {last:.3e} "
+        f"({first / last:.1f}x), masses within 0.05: {rc == 0}")
+    if not last <= first / 10:
+        raise AssertionError(f"fit_masses --fused: the loss fell only {first / last:.2f}x")
+    summary.update({"fit_masses_loss_fall": first / last, "fit_masses_seconds": el,
+                    "fit_masses_recovered": rc == 0})
+
+    # the dense n = 4 row: one launch at the example's shape
+    ex4 = chain(n_links=4, device=dev, dtype=f32)
+    forms = ex4.system.fused_forms(ex4.system)
+    st4 = fused_stepper(forms, iters=(3, 1), compensated=False, steps_per_call=24)
+    ph4 = Phase(ex4.init_phase.q.expand(1024, 4).contiguous(),
+                torch.tensor([0.8, -0.3, 0.5, -0.2], device=dev).expand(1024, 4).contiguous())
+    kw = dict(iters=(3, 1), compensated=False, steps_per_call=24,
+              coef=coef_table(forms, dev, f32))
+    row = k1_row("chain_variants serial_chain n=4 float32 (3,1) (fit_masses --fused)",
+                 CHAIN_SOURCE, forms, st4.init(ph4), 0.01, kw, ex4.system, "leapfrog_fused",
+                 counts["chain_variants"])
+    entries.append(row)
+    summary["dense4_k1_ms"] = row["ms"]
+    log(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
+
+
+def _launch_name(entry):
+    """The name an entry's launches are counted under."""
+    from hamilton_tpu_torch import kernels
+
+    return next(name for name, fn in kernels.LAUNCHERS.items() if fn is entry.launch)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -733,9 +1181,13 @@ def main() -> int:
     # ---- build ----------------------------------------------------------
     t0 = time.perf_counter()
     builds = kernels.build_all()
-    log(f"build: {time.perf_counter() - t0:.1f} s for {len(builds)} sources at once ("
-        + ", ".join(f"{b.path.name} {b.seconds:.1f} s" for b in builds.values()) + ")")
+    log(f"build: {time.perf_counter() - t0:.1f} s for {len(builds)} sources at once, one nvcc "
+        f"a source or part (" + ", ".join(
+            f"{name}.cu {b.seconds:.1f} s" + (
+                f" in {len(b.paths)} parts: " + " ".join(f"{x:.1f}" for x in b.part_seconds)
+                if len(b.paths) > 1 else "") for name, b in builds.items()) + ")")
     for name, pattern, label in (("fused_step", _KERNEL_RE, _k1_label),
+                                 ("chain_variants", _VARIANT_RE, _variant_label),
                                  ("family_step", _FAMILY_RE, _family_label),
                                  ("batched_spd", _K2_RE, _k2_label),
                                  ("roofline_probes", _K3_RE, _k3_label)):
@@ -1450,6 +1902,12 @@ def main() -> int:
 
     # ---- phase 15: the model families ------------------------------------------
     phase_families(dev, entries, summary)
+
+    # ---- phase 16: the chain's Möbius and L⁻¹ forms -------------------------------
+    phase_chain_solvers(dev, ph, head_rate, entries, summary)
+
+    # ---- phase 17: gradients at full width ---------------------------------------
+    phase_gradients(dev, ph, entries, summary)
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

@@ -14,9 +14,12 @@ parameter sweeps, and the final-state ensemble drivers with f64 drift
 sampling — the library path: GSL-RKF45 ``evolve_ham`` and its
 ``stepHam``/``evolveHam`` wrappers — every bundled model (spherical
 pendulum, two-body, room, spring, ellipse and Bézier beside the chain) with
-its fused forms on the card (``csrc/family_step.cu``), and the roofline
-accounting (``utils.roofline``, ``utils.profiling``); see ``ROADMAP.md`` for
-what is still to come.  This package never imports JAX.
+its fused forms on the card (``csrc/family_step.cu``), the chain's Möbius
+and L⁻¹ forms (``csrc/chain_variants.cu``), the roofline accounting
+(``utils.roofline``, ``utils.profiling``), and gradients through all of it:
+the fused step (its backward replays the plain version), the K2 entries
+(their backwards launch the kernels again) and ``evolve_ham_fixed``; see
+``ROADMAP.md`` for what is still to come.  This package never imports JAX.
 """
 
 from hamilton_tpu_torch.convert import params_from_numpy, phase_from_numpy
@@ -26,6 +29,7 @@ from hamilton_tpu_torch.integrators.evolve import (
     evolve_ham,
     evolve_ham_c,
     evolve_ham_c_list,
+    evolve_ham_fixed,
     evolve_ham_list,
     iterate_ham,
     step_ham,
@@ -72,6 +76,8 @@ from hamilton_tpu_torch.ops.fused_step import (
     fused_step_reference,
     fused_stepper,
     serial_chain_forms,
+    serial_chain_forms_linv,
+    serial_chain_forms_mobius,
     serial_chain_forms_on,
 )
 from hamilton_tpu_torch.state import Config, Phase
@@ -118,6 +124,7 @@ __all__ = [
     "gsl_evolve_to",
     "evolve_ham",
     "evolve_ham_list",
+    "evolve_ham_fixed",
     "step_ham",
     "iterate_ham",
     "step_ham_c",
@@ -132,6 +139,8 @@ __all__ = [
     "fused_step_reference",
     "serial_chain_forms",
     "serial_chain_forms_on",
+    "serial_chain_forms_mobius",
+    "serial_chain_forms_linv",
     "evolve_ensemble_final",
     "evolve_ensemble_chunked",
     "params_from_numpy",

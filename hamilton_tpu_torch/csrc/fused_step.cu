@@ -32,251 +32,14 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o libfused_step.so fused_step.cu
 // FMA contraction (nvcc's default) stays on; it changes rounding only.
+// Built as six parts at once (kernels.PARTS): part 2*v + dtype_code, with
+// -DHAMILTON_PART set to it, holds variant v (0 semiseparable n=20, 1
+// semiseparable n=5, 2 dense n=2) in one dtype; without it, one library
+// holds all.
 
-#include "fused_step.cuh"
+#include "chain_forms.cuh"
 
 namespace {
-
-// The flat coefficient table: semiseparable (l_i, S_i, g*l_i*S_i), 3N
-// entries; dense (C_ij = l_i*l_j*S_max(i,j) row-major, g*l_i*S_i), N*N+N.
-template <int N, bool SEMISEP>
-struct CoefLen {
-  static constexpr int value = SEMISEP ? 3 * N : N * N + N;
-};
-
-template <typename T, int N>
-struct SemisepFactor {
-  T zx[N], zy[N], id[N], ux[N], uy[N];  // per link in tip-to-base order
-};
-
-template <typename T, int N>
-__device__ __forceinline__ void trig(const T (&q)[N], T (&s)[N], T (&c)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) s[i] = dsin(q[i]);
-#pragma unroll
-  for (int i = 0; i < N; ++i) c[i] = dcos(q[i]);
-}
-
-// First-order rotation of the trig aux to q_new (float32 only): s' = s+dq*c,
-// c' = c-dq*s with dq = q_new - q_base; in float64 the aux is re-evaluated.
-template <typename T, int N>
-__device__ __forceinline__ void aux_at(const T (&q_new)[N], const T (&q_base)[N],
-                                       T (&s)[N], T (&c)[N]) {
-  if constexpr (std::is_same<T, float>::value) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const T dq = q_new[i] - q_base[i];
-      const T s0 = s[i], c0 = c[i];
-      s[i] = s0 + dq * c0;
-      c[i] = c0 - dq * s0;
-    }
-  } else {
-    trig<T, N>(q_new, s, c);
-  }
-}
-
-// ---- semiseparable family (serial_chain_forms_on) ----------------------
-
-template <typename T, int N, class C>
-__device__ __forceinline__ void factor(const C& cf, const T (&s)[N], const T (&c)[N],
-                                       SemisepFactor<T, N>& f) {
-  T pxx = T(0), pxy = T(0), pyy = T(0);
-#pragma unroll
-  for (int a = 0; a < N; ++a) {
-    const int i = N - 1 - a;
-    const T ux = cf[i] * c[i];
-    const T uy = cf[i] * s[i];
-    const T si = cf[N + i];
-    T yx, yy;
-    if (a == 0) {
-      yx = si * ux;
-      yy = si * uy;
-    } else {
-      yx = si * ux - (pxx * ux + pxy * uy);
-      yy = si * uy - (pxy * ux + pyy * uy);
-    }
-    const T d = dsqrt(ux * yx + uy * yy);
-    const T inv_d = T(1) / d;
-    const T zx = yx * inv_d;
-    const T zy = yy * inv_d;
-    if (a == 0) {
-      pxx = zx * zx;
-      pxy = zx * zy;
-      pyy = zy * zy;
-    } else {
-      pxx = pxx + zx * zx;
-      pxy = pxy + zx * zy;
-      pyy = pyy + zy * zy;
-    }
-    f.zx[a] = zx;
-    f.zy[a] = zy;
-    f.id[a] = inv_d;
-    f.ux[a] = ux;
-    f.uy[a] = uy;
-  }
-}
-
-template <typename T, int N>
-__device__ __forceinline__ void solve(const SemisepFactor<T, N>& f, const T (&b)[N],
-                                      T (&x)[N]) {
-  T y[N];
-  T sx = T(0), sy = T(0);
-#pragma unroll
-  for (int a = 0; a < N; ++a) {
-    const T bi = b[N - 1 - a];
-    const T t = (a == 0) ? bi : bi - (f.ux[a] * sx + f.uy[a] * sy);
-    const T ya = t * f.id[a];
-    y[a] = ya;
-    if (a == 0) {
-      sx = f.zx[a] * ya;
-      sy = f.zy[a] * ya;
-    } else {
-      sx = sx + f.zx[a] * ya;
-      sy = sy + f.zy[a] * ya;
-    }
-  }
-  T tx = T(0), ty = T(0);
-#pragma unroll
-  for (int a = N - 1; a >= 0; --a) {
-    const T t = (a == N - 1) ? y[a] : y[a] - (f.zx[a] * tx + f.zy[a] * ty);
-    const T xa = t * f.id[a];
-    x[N - 1 - a] = xa;
-    if (a == N - 1) {
-      tx = f.ux[a] * xa;
-      ty = f.uy[a] * xa;
-    } else {
-      tx = tx + f.ux[a] * xa;
-      ty = ty + f.uy[a] * xa;
-    }
-  }
-}
-
-template <typename T, int N, class C>
-__device__ __forceinline__ void dhdq(const C& cf, const T (&s)[N], const T (&c)[N],
-                                     const T (&w)[N], T (&out)[N],
-                                     std::integral_constant<bool, true>) {
-  T lcw[N], lsw[N];
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    const T lw = cf[j] * w[j];
-    lcw[j] = lw * c[j];
-    lsw[j] = lw * s[j];
-  }
-  T qc[N], qs[N];
-  qc[N - 1] = cf[N + N - 1] * lcw[N - 1];
-  qs[N - 1] = cf[N + N - 1] * lsw[N - 1];
-#pragma unroll
-  for (int k = N - 2; k >= 0; --k) {
-    qc[k] = qc[k + 1] + cf[N + k] * lcw[k];
-    qs[k] = qs[k + 1] + cf[N + k] * lsw[k];
-  }
-  T pc = T(0), ps = T(0);
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    T ak, bk;
-    if (k == 0) {
-      ak = qc[k];
-      bk = qs[k];
-    } else {
-      ak = cf[N + k] * pc + qc[k];
-      bk = cf[N + k] * ps + qs[k];
-    }
-    out[k] = cf[2 * N + k] * s[k] + w[k] * cf[k] * (s[k] * ak - c[k] * bk);
-    if (k == 0) {
-      pc = lcw[k];
-      ps = lsw[k];
-    } else {
-      pc = pc + lcw[k];
-      ps = ps + lsw[k];
-    }
-  }
-}
-
-// ---- dense family (serial_chain_forms) --------------------------------
-
-template <typename T, int N, class C>
-__device__ __forceinline__ void factor(const C& cf, const T (&s)[N], const T (&c)[N],
-                                       DenseFactor<T, N>& f) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    T acc = cf[j * N + j];  // K_jj = C_jj exactly
-#pragma unroll
-    for (int k = 0; k < j; ++k) acc = acc - f.low[j][k] * f.low[j][k];
-    const T d = dsqrt(acc);
-    f.low[j][j] = d;
-    const T inv_d = T(1) / d;
-    f.id[j] = inv_d;
-#pragma unroll
-    for (int i = j + 1; i < N; ++i) {
-      T e = cf[i * N + j] * (c[i] * c[j] + s[i] * s[j]);
-#pragma unroll
-      for (int k = 0; k < j; ++k) e = e - f.low[i][k] * f.low[j][k];
-      f.low[i][j] = e * inv_d;
-    }
-  }
-}
-
-template <typename T, int N, class C>
-__device__ __forceinline__ void dhdq(const C& cf, const T (&s)[N], const T (&c)[N],
-                                     const T (&w)[N], T (&out)[N],
-                                     std::integral_constant<bool, false>) {
-  T cw[N], sw[N];
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    cw[j] = c[j] * w[j];
-    sw[j] = s[j] * w[j];
-  }
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    T acc_c = cf[k * N] * cw[0];
-    T acc_s = cf[k * N] * sw[0];
-#pragma unroll
-    for (int j = 1; j < N; ++j) {
-      acc_c = acc_c + cf[k * N + j] * cw[j];
-      acc_s = acc_s + cf[k * N + j] * sw[j];
-    }
-    out[k] = cf[N * N + k] * s[k] + w[k] * (s[k] * acc_c - c[k] * acc_s);
-  }
-}
-
-// ---- the chain's policy --------------------------------------------------
-
-// The serial chain's forms for step_member: the trig aux (sin, cos of every
-// link angle), its shift in float32, and the semiseparable or dense factor.
-// The chain's K and dH/dq read only the aux, never q.
-template <typename T, int N_, bool SEMISEP>
-struct ChainPolicy {
-  static constexpr int N = N_;
-  struct Aux {
-    T s[N], c[N];
-  };
-  using Factor = typename std::conditional<SEMISEP, SemisepFactor<T, N>,
-                                           DenseFactor<T, N>>::type;
-
-  template <class C>
-  static __device__ __forceinline__ void aux(const C&, const T (&q)[N], Aux& a) {
-    trig<T, N>(q, a.s, a.c);
-  }
-  template <class C>
-  static __device__ __forceinline__ void aux_at(const C&, const T (&q_new)[N],
-                                                const T (&q_base)[N], Aux& a) {
-    ::aux_at<T, N>(q_new, q_base, a.s, a.c);
-  }
-  template <class C>
-  static __device__ __forceinline__ void factor(const C& cf, const Aux& a, const T (&)[N],
-                                                Factor& f) {
-    ::factor<T, N>(cf, a.s, a.c, f);
-  }
-  static __device__ __forceinline__ void solve(const Factor& f, const T (&b)[N],
-                                               T (&x)[N]) {
-    ::solve<T, N>(f, b, x);
-  }
-  template <class C>
-  static __device__ __forceinline__ void dhdq(const C& cf, const Aux& a, const T (&)[N],
-                                              const T (&w)[N], T (&out)[N]) {
-    ::dhdq<T, N>(cf, a.s, a.c, w, out, std::integral_constant<bool, SEMISEP>{});
-  }
-};
 
 template <typename T, int N, bool SEMISEP, bool COMP, bool PM, bool COMPOSED>
 __global__ void __launch_bounds__(kThreads)
@@ -328,16 +91,33 @@ int launch_modes(int compensated, int per_member, const Args& a) {
                     : launch_composed<T, N, SEMISEP, false, false>(a);
 }
 
+#ifndef HAMILTON_PART
+#define HAMILTON_PART -1
+#endif
+
+// Whether this build holds variant v in float64 (or float32).
+constexpr bool in_part(int v, bool is_double) {
+  return HAMILTON_PART < 0 || HAMILTON_PART == 2 * v + (is_double ? 1 : 0);
+}
+
+template <typename T, int V, int N, bool SEMISEP>
+int launch_variant(int compensated, int per_member, const Args& a) {
+  if constexpr (in_part(V, std::is_same<T, double>::value))
+    return launch_modes<T, N, SEMISEP>(compensated, per_member, a);
+  else
+    return -1;
+}
+
 // The instantiated (variant, N) set; KERNEL_INSTANTIATIONS in
 // hamilton_tpu_torch/ops/fused_step.py lists the same pairs.
 template <typename T>
 int dispatch(int n, int semiseparable, int compensated, int per_member, const Args& a) {
   if (semiseparable && n == 20)
-    return launch_modes<T, 20, true>(compensated, per_member, a);
+    return launch_variant<T, 0, 20, true>(compensated, per_member, a);
   if (semiseparable && n == 5)
-    return launch_modes<T, 5, true>(compensated, per_member, a);
+    return launch_variant<T, 1, 5, true>(compensated, per_member, a);
   if (!semiseparable && n == 2)
-    return launch_modes<T, 2, false>(compensated, per_member, a);
+    return launch_variant<T, 2, 2, false>(compensated, per_member, a);
   return -1;
 }
 
@@ -351,8 +131,8 @@ extern "C" {
 // dense), bit 1 compensated, bit 2 per-member table.  coef is the flat
 // shared table, or the (L, batch) per-member one.  weights points to the
 // n_weights (1 to 5) composition weights in host memory, read before this
-// returns.  Returns 0, -1 when the combination is not instantiated, -2 for
-// a bad argument, or cudaGetLastError()'s code.  (Few arguments: each one
+// returns.  Returns 0, -1 when the combination is not instantiated (or not
+// in this part), -2 for a bad argument, or cudaGetLastError()'s code.  (Few arguments: each one
 // costs the caller's ctypes marshalling on every launch.)
 int hamilton_fused_step(int dtype_code, int n, int flags, const void* coef,
                         const void* state_in, void* state_out, long long batch, double dt,

@@ -2,8 +2,8 @@
 
 Ported so far: the fixed-step leapfrog family (:mod:`.fixed`), the adaptive
 GSL-parity driver (:mod:`.adaptive`, over the Butcher tableaus of
-:mod:`.tableaus`) and the ``evolveHam`` drivers (:mod:`.evolve`).  The other
-fixed-step methods and ``evolve_ham_fixed`` are ROADMAP M11.
+:mod:`.tableaus`) and the ``evolveHam`` drivers with ``evolve_ham_fixed``
+(:mod:`.evolve`).  The other fixed-step methods are ROADMAP M11.
 """
 
 from hamilton_tpu_torch.integrators.adaptive import (
@@ -16,6 +16,7 @@ from hamilton_tpu_torch.integrators.evolve import (
     evolve_ham,
     evolve_ham_c,
     evolve_ham_c_list,
+    evolve_ham_fixed,
     evolve_ham_list,
     iterate_ham,
     step_ham,
@@ -31,6 +32,7 @@ __all__ = [
     "evolve_ham",
     "evolve_ham_c",
     "evolve_ham_c_list",
+    "evolve_ham_fixed",
     "evolve_ham_list",
     "iterate_ham",
     "step_ham",

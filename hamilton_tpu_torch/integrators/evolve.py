@@ -13,8 +13,12 @@ PyTorch counterpart of :mod:`hamilton_tpu.integrators.evolve`:
   configuration-space wrappers (``:470-515``); the simulation itself always
   runs in phase space.
 
-The reference's ``evolve_ham_fixed`` is not ported yet (ROADMAP M11: its
-default method, ``gauss4``, is not ported).
+* :func:`evolve_ham_fixed` — fixed-step evolution with chunked emission, for
+  the ported fixed-step methods (``leapfrog`` and the fused
+  ``leapfrog_fused``/``yoshida4_fused``/``suzuki4_fused``); its default,
+  ``gauss4``, and the other methods raise naming ROADMAP M11.  Everything is
+  differentiable (the library leapfrog through the K2 entries' backwards,
+  the fused methods through the fused step's replay).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from hamilton_tpu_torch.integrators.adaptive import GSL_EPS_DEFAULT, gsl_evolve_to
+from hamilton_tpu_torch.integrators.fixed import make_stepper
 from hamilton_tpu_torch.mechanics import from_phase, ham_rhs, to_phase
 from hamilton_tpu_torch.state import Config, Phase
 from hamilton_tpu_torch.system import System
@@ -33,6 +38,7 @@ __all__ = [
     "iterate_ham",
     "evolve_ham",
     "evolve_ham_list",
+    "evolve_ham_fixed",
     "step_ham_c",
     "evolve_ham_c",
     "evolve_ham_c_list",
@@ -163,6 +169,129 @@ def iterate_ham(system: System, phase0: Phase, dt: float, **kwargs):
     while True:
         yield ph
         ph = step_ham(system, ph, dt, **kwargs)
+
+
+def _carry_leaves(carry) -> List[torch.Tensor]:
+    """The tensors of a stepper's carry (a tensor, a :class:`Phase`, or
+    tuples and named tuples of them), depth first."""
+    if isinstance(carry, torch.Tensor):
+        return [carry]
+    if isinstance(carry, Phase):
+        return [carry.q, carry.p]
+    return [t for part in carry for t in _carry_leaves(part)]
+
+
+def _rebuild(like, leaves):
+    """``like``'s structure around the next tensors of ``leaves``."""
+    if isinstance(like, torch.Tensor):
+        return next(leaves)
+    if isinstance(like, Phase):
+        return Phase(next(leaves), next(leaves))
+    parts = [_rebuild(part, leaves) for part in like]
+    return type(like)(*parts) if hasattr(like, "_fields") else tuple(parts)
+
+
+class _Remat(torch.autograd.Function):
+    """One step call that keeps no intermediates for the backward, which
+    runs it again from its saved inputs and differentiates that
+    (``evolve_ham_fixed(remat=True)``).  Its inputs are the carry's tensors,
+    then the parameter tensors that need a gradient: the step reads those
+    from the system, not from its arguments, so their gradients are returned
+    here.  (``torch.utils.checkpoint``'s saved-tensor hooks would refuse the
+    ``torch.func`` transforms of the library leapfrog's force.)"""
+
+    @staticmethod
+    def forward(ctx, run, n_carry, *tensors):
+        ctx.run, ctx.n_carry = run, n_carry
+        ctx.params = tensors[n_carry:]
+        ctx.save_for_backward(*tensors[:n_carry])
+        return tuple(run(list(tensors[:n_carry])))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        wanted = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            carry = [t.detach().requires_grad_(w)
+                     for t, w in zip(ctx.saved_tensors, wanted)]
+            outs = ctx.run(carry)
+            inputs = [x for x, w in zip(carry + list(ctx.params), wanted) if w]
+            pairs = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
+            got = iter(torch.autograd.grad([o for o, _ in pairs], inputs,
+                                           [g for _, g in pairs], allow_unused=True))
+        return (None, None) + tuple(next(got) if w else None for w in wanted)
+
+
+def evolve_ham_fixed(
+    system: System,
+    phase0: Phase,
+    dt,
+    n_steps: int,
+    *,
+    method: str = "gauss4",
+    emit_every: int = 1,
+    iters=6,
+    omega: float = 20.0,
+    remat: bool = False,
+    compensated: bool = False,
+    steps_per_call: int = 1,
+    group_unroll: int = 1,
+) -> Phase:
+    """Fixed-step evolution: ``n_steps`` steps of size ``dt``, emitting every
+    ``emit_every``-th state.  Returns a :class:`Phase` whose leading axis has
+    ``n_steps // emit_every + 1`` entries, the initial state first; states
+    may carry leading batch axes (the fused methods take ``(B, n)``).
+
+    ``steps_per_call`` (fused methods only) runs that many dt-steps in each
+    kernel launch; it must divide ``emit_every`` so emissions land on launch
+    boundaries.  Everything is differentiable; with ``remat=True`` each step
+    call is checkpointed (:class:`_Remat`): the backward keeps the step
+    carries and recomputes one call's intermediates at a time.  ``omega`` belongs to the
+    ``tao2``/``tao4`` methods and ``group_unroll`` (which must be 1) to the
+    TPU kernel's tiling: the signature keeps both.  A plain Python loop.
+    ``n_steps`` must be divisible by ``emit_every``."""
+    if n_steps % emit_every != 0:
+        raise ValueError(f"{n_steps=} not divisible by {emit_every=}")
+    if emit_every % steps_per_call != 0:
+        raise ValueError(
+            f"{emit_every=} not divisible by {steps_per_call=} (emissions "
+            f"must land on kernel-call boundaries)"
+        )
+    if group_unroll != 1:
+        raise ValueError(
+            f"group_unroll={group_unroll}: the port's kernel takes any batch, "
+            f"one thread a member; only 1 is accepted"
+        )
+    stepper = make_stepper(system, method, iters=iters, compensated=compensated,
+                           steps_per_call=steps_per_call)
+    if isinstance(dt, torch.Tensor) or not method.endswith("_fused"):
+        # in the state's dtype, as the reference takes it; a fused method
+        # keeps a Python float, which its launches read without a host sync
+        dt = torch.as_tensor(dt, dtype=phase0.q.dtype, device=phase0.q.device)
+
+    params = [v for v in (system.params or {}).values()
+              if isinstance(v, torch.Tensor) and v.requires_grad]
+    if isinstance(dt, torch.Tensor) and dt.requires_grad:
+        params.append(dt)
+
+    def step(carry):
+        if not (remat and torch.is_grad_enabled()):
+            return stepper.step(carry, dt)
+        leaves = _carry_leaves(carry)
+
+        def run(xs):
+            return _carry_leaves(stepper.step(_rebuild(carry, iter(xs)), dt))
+
+        return _rebuild(carry, iter(_Remat.apply(run, len(leaves), *leaves, *params)))
+
+    carry = stepper.init(phase0)
+    qs, ps = [phase0.q], [phase0.p]
+    for i in range(n_steps // steps_per_call):
+        carry = step(carry)
+        if ((i + 1) * steps_per_call) % emit_every == 0:
+            ph = stepper.extract(carry)
+            qs.append(ph.q)
+            ps.append(ph.p)
+    return Phase(torch.stack(qs), torch.stack(ps))
 
 
 # ----------------------------------------------------------------------

@@ -4,7 +4,8 @@ Every ``csrc/<name>.cu`` is compiled the same way, at first use, into
 ``hamilton_tpu_torch/_build/`` as a shared library with a plain C interface,
 named by a hash of the source, the shared headers ``csrc/*.cuh`` and the
 flags so that an edited source or header is rebuilt.  :func:`build_all`
-starts one nvcc per source at once.  Only the machine with the card has
+starts one nvcc per source at once, or one per part of a source that
+:data:`PARTS` splits.  Only the machine with the card has
 ``nvcc``; importing this module builds nothing.  A failed build raises with
 nvcc's stderr.
 
@@ -23,18 +24,21 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 __all__ = [
     "KernelBuild",
     "NVCC_FLAGS",
     "SOURCE_FLAGS",
     "SOURCES",
+    "PARTS",
     "build",
     "build_all",
     "fused_step_launch",
+    "chain_variants_launch",
     "family_step_launch",
     "fma_probe_launch",
     "sin_probe_launch",
@@ -62,23 +66,40 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-#: Flags of one source beside :data:`NVCC_FLAGS`.  ``family_step``: no FMA
-#: contraction, so the families' kernel rounds each product and sum as its
-#: plain version does.  Their warm-start carry ``vdot_est = (v1 − v0)/h`` is
-#: a difference of nearly equal velocities (it vanishes where K is
-#: constant), so an FMA's other rounding of v, an ulp, would show at the
-#: scale of ``vdot_est`` itself.
-SOURCE_FLAGS = {"family_step": ("-fmad=false",)}
+#: Flags of one source beside :data:`NVCC_FLAGS`.  ``family_step`` and
+#: ``chain_variants``: no FMA contraction, so the kernel rounds each product
+#: and sum as its plain version does.  The families' warm-start carry
+#: ``vdot_est = (v1 − v0)/h`` is a difference of nearly equal velocities (it
+#: vanishes where K is constant), so an FMA's other rounding of v, an ulp,
+#: would show at the scale of ``vdot_est`` itself; the chain's L⁻¹ solves go
+#: through the explicit inverse factor, whose entries grow with cond(K), so
+#: an ulp there shows at cond(K) times it.
+SOURCE_FLAGS = {"family_step": ("-fmad=false",), "chain_variants": ("-fmad=false",)}
+
+#: Sources built as several libraries at once: name → (number of parts, the
+#: part that holds a launch's ``(dtype_code, code)``).  Part ``i`` is the
+#: source compiled with ``-DHAMILTON_PART=i`` and holds that share of its
+#: dispatch: one part per variant and dtype, so the instantiations compile
+#: on as many cores.  As one nvcc each, ``chain_variants``' 80 took 560 s
+#: and ``fused_step``'s 48 up to 311 s on the card's machine (PERF.md §6).
+#: ``fused_step``'s code is n: 20 and 5 semiseparable, 2 dense.
+PARTS: Dict[str, Tuple[int, Callable[[int, int], int]]] = {
+    "fused_step": (6, lambda dtype_code, n: 2 * {20: 0, 5: 1, 2: 2}.get(n, 3) + dtype_code),
+    "chain_variants": (10, lambda dtype_code, code: 2 * code + dtype_code),
+}
 
 
 @dataclass(frozen=True)
 class KernelBuild:
-    """A built kernel library: its path, the seconds the build took in this
-    process (0.0 when an earlier build was reused) and nvcc's report."""
+    """A built kernel source: its libraries (one, or one per part), the
+    seconds its build took in this process (its slowest part's; 0.0 when
+    earlier builds were reused), each part's, and nvcc's report (every
+    part's)."""
 
-    path: Path
+    paths: Tuple[Path, ...]
     seconds: float
     log: str
+    part_seconds: Tuple[float, ...]
 
 
 def _nvcc() -> str:
@@ -95,75 +116,92 @@ def _nvcc() -> str:
     )
 
 
-def _paths(name: str):
+def _units(name: str):
+    """The build units of a source: ``(name, None)``, or one per part."""
     if name not in SOURCES:
         raise ValueError(f"no kernel source {name!r}; sources: {SOURCES}")
+    if name not in PARTS:
+        return [(name, None)]
+    return [(name, part) for part in range(PARTS[name][0])]
+
+
+def _paths(name: str, part: Optional[int]):
     src = _CSRC / f"{name}.cu"
     # the shared headers are part of every source's key: an edited header
     # rebuilds what includes it
     headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
-    flags = NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+    flags = _flags(name, part)
     key = hashlib.sha256(src.read_bytes() + headers + " ".join(flags).encode())
-    stem = f"lib{name}-{key.hexdigest()[:16]}"
+    stem = f"lib{name}{'' if part is None else f'-p{part}'}-{key.hexdigest()[:16]}"
     return src, _BUILD_DIR / f"{stem}.so", _BUILD_DIR / f"{stem}.log"
 
 
-_BUILT: Dict[str, KernelBuild] = {}
+def _flags(name: str, part: Optional[int]):
+    part_flag = () if part is None else (f"-DHAMILTON_PART={part}",)
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ()) + part_flag
 
 
-def _start(name: str) -> Optional[tuple]:
-    """Reuse a finished build of ``name``, or start nvcc on it:
-    ``None`` once built, else what :func:`_finish` waits on."""
-    if name in _BUILT:
-        return None
-    src, lib, log = _paths(name)
+#: Finished builds by unit, ``(name, part)``: ``(library, seconds, report)``.
+_BUILT: Dict[tuple, tuple] = {}
+
+
+def _build_unit(unit: tuple) -> tuple:
+    """Reuse a finished build of ``unit`` or run nvcc on it (it waits for
+    nvcc, so the seconds are this unit's own); raises on nvcc failure."""
+    if unit in _BUILT:
+        return _BUILT[unit]
+    name, part = unit
+    src, lib, log = _paths(name, part)
     if lib.exists() and log.exists():
-        _BUILT[name] = KernelBuild(lib, 0.0, log.read_text())
-        return None
+        _BUILT[unit] = (lib, 0.0, log.read_text())
+        return _BUILT[unit]
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = _BUILD_DIR / f"{lib.stem}.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), "-o", str(tmp), str(src)]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    return proc, cmd, tmp, lib, log, time.perf_counter()
-
-
-def _finish(name: str, started: Optional[tuple]) -> KernelBuild:
-    if started is None:
-        return _BUILT[name]
-    proc, cmd, tmp, lib, log, t0 = started
-    out, err = proc.communicate()
+    cmd = [_nvcc(), *_flags(name, part), "-o", str(tmp), str(src)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
             f"nvcc failed (exit {proc.returncode}) building csrc/{name}.cu:\n"
-            f"{' '.join(cmd)}\n{err}"
+            f"{' '.join(cmd)}\n{proc.stderr}"
         )
-    report = out + err
+    report = proc.stdout + proc.stderr
     log.write_text(report)
     os.replace(tmp, lib)  # atomic: a concurrent build never loads a partial file
-    _BUILT[name] = KernelBuild(lib, seconds, report)
-    return _BUILT[name]
+    _BUILT[unit] = (lib, seconds, report)
+    return _BUILT[unit]
+
+
+def _build_units(units) -> list:
+    """Build units at once, one nvcc process each; raises on the first
+    failure after all have ended."""
+    with ThreadPoolExecutor(max_workers=max(len(units), 1)) as pool:
+        futures = [pool.submit(_build_unit, unit) for unit in units]
+    failures = [str(f.exception()) for f in futures if f.exception() is not None]
+    if failures:
+        raise RuntimeError("\n\n".join(failures))
+    return [f.result() for f in futures]
+
+
+def _merged(built) -> KernelBuild:
+    return KernelBuild(tuple(b[0] for b in built), max(b[1] for b in built),
+                       "".join(b[2] for b in built), tuple(b[1] for b in built))
 
 
 def build(name: str) -> KernelBuild:
-    """Build (or reuse) ``csrc/<name>.cu``; raises on nvcc failure."""
-    return _finish(name, _start(name))
+    """Build (or reuse) ``csrc/<name>.cu``, every part at once; raises on
+    nvcc failure."""
+    return _merged(_build_units(_units(name)))
 
 
 def build_all() -> Dict[str, KernelBuild]:
-    """Build every source at once, one nvcc process each; raises on the
-    first failure after all have ended."""
-    started = {name: _start(name) for name in SOURCES}
-    results, failures = {}, []
-    for name, st in started.items():
-        try:
-            results[name] = _finish(name, st)
-        except RuntimeError as e:
-            failures.append(str(e))
-    if failures:
-        raise RuntimeError("\n\n".join(failures))
-    return results
+    """Build every source (every part) at once, one nvcc process each;
+    raises on the first failure after all have ended."""
+    units = [unit for name in SOURCES for unit in _units(name)]
+    built = dict(zip(units, _build_units(units)))
+    return {name: _merged([built[u] for u in _units(name)]) for name in SOURCES}
 
 
 _VP, _INT, _LL, _DBL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
@@ -174,6 +212,10 @@ _SIGNATURES = {
     "fused_step": {
         "hamilton_fused_step": [_INT, _INT, _INT, _VP, _VP, _VP, _LL, _DBL, _INT,
                                 _INT, _INT, _INT, ctypes.POINTER(_DBL), _VP],
+    },
+    "chain_variants": {
+        "hamilton_chain_variant_step": [_INT, _INT, _INT, _VP, _VP, _VP, _LL, _DBL, _INT,
+                                        _INT, _INT, _INT, ctypes.POINTER(_DBL), _VP],
     },
     "family_step": {
         "hamilton_family_step": [_INT, _INT, _INT, _VP, _VP, _VP, _LL, _DBL, _INT,
@@ -196,8 +238,15 @@ SOURCES = tuple(sorted(_SIGNATURES))
 
 
 @functools.lru_cache(maxsize=None)
-def _library(name: str) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build(name).path))
+def _library(name: str, part: Optional[int] = None) -> ctypes.CDLL:
+    """The loaded library of a source (of one part of it), built at first
+    use."""
+    if name not in SOURCES:
+        raise ValueError(f"no kernel source {name!r}; sources: {SOURCES}")
+    n_parts = PARTS[name][0] if name in PARTS else None
+    if (part is None) != (n_parts is None) or not (part is None or 0 <= part < n_parts):
+        raise ValueError(f"{name}: no part {part} (parts: {n_parts})")
+    lib = ctypes.CDLL(str(_build_unit((name, part))[0]))
     for fn, argtypes in _SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
@@ -206,9 +255,10 @@ def _library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def _call(name: str, fn: str, what: str, *args) -> None:
-    """Call a C entry point; raise unless it launched (0)."""
-    lib = _library(name)
+def _call(name: str, fn: str, what: str, *args, part: Optional[int] = None) -> None:
+    """Call a C entry point (of one part of a source built in parts); raise
+    unless it launched (0)."""
+    lib = _library(name, part)
     code = getattr(lib, fn)(*args)
     if code == -1:
         raise ValueError(f"{what} kernel not instantiated for these arguments: {args}")
@@ -228,7 +278,9 @@ def _weights(weights: tuple):
 
 def _k1_launcher(source: str, entry: str, what: str):
     """A launch function for one of K1's libraries: ``source`` is
-    ``csrc/<source>.cu``, ``entry`` its C entry point."""
+    ``csrc/<source>.cu``, ``entry`` its C entry point (in the part that
+    :data:`PARTS` assigns the launch, for a source built in parts)."""
+    part_of = PARTS[source][1] if source in PARTS else None
 
     def launch(
         *,
@@ -251,7 +303,7 @@ def _k1_launcher(source: str, entry: str, what: str):
         flags = int(semiseparable) | int(compensated) << 1 | int(per_member) << 2
         _call(source, entry, what, dtype_code, code, flags, coef, state_in, state_out,
               batch, dt, iters_p, iters_q, steps_per_call, len(weights), _weights(weights),
-              stream)
+              stream, part=None if part_of is None else part_of(dtype_code, code))
         launch.launches += 1
 
     return launch
@@ -265,6 +317,13 @@ def _k1_launcher(source: str, entry: str, what: str):
 #: ``per_member``; ``weights`` is the tuple of 1 to 5 composition weights.
 #: Raises if the launch fails.
 fused_step_launch = _k1_launcher("fused_step", "hamilton_fused_step", "fused-step")
+
+#: K1 for the chain's Möbius and L⁻¹ forms and its dense forms at n = 4
+#: (``csrc/chain_variants.cu``): as :func:`fused_step_launch`, with ``code``
+#: the case of the library's dispatch (``ops.fused_step.
+#: KERNEL_INSTANTIATIONS``) and ``semiseparable`` False.
+chain_variants_launch = _k1_launcher("chain_variants", "hamilton_chain_variant_step",
+                                     "chain-variant step")
 
 #: K1 for the bundled model families (``csrc/family_step.cu``): as
 #: :func:`fused_step_launch`, with ``code`` the family's case of the
@@ -342,6 +401,7 @@ def add_one_launch(*, a, out, elements, blocks, stream) -> None:
 #: Every launch function, by the name the counts are reported under.
 LAUNCHERS = {
     "fused_step": fused_step_launch,
+    "chain_variants": chain_variants_launch,
     "family_step": family_step_launch,
     "spd_solve": spd_solve_launch,
     "cholesky": cholesky_launch,

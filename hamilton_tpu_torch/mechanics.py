@@ -165,7 +165,8 @@ def _dtdq(system: System, q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             return jvp(coords1, (qq,), (wi,))[1]
 
         jw_val, vjp_fn = vjp(jw, qi)
-        return -vjp_fn(inert * jw_val)[0]
+        # in q's dtype (see System.jacobian)
+        return -vjp_fn((inert * jw_val).to(jw_val.dtype))[0].to(qi.dtype)
 
     return map_member(system, one, q, w)
 

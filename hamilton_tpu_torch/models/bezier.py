@@ -115,7 +115,7 @@ def bezier(
         table_len = 2 * deg + (2 * (deg - 1) if deg >= 2 else 0)
 
         def arrays_fn(dtype, device):
-            return (_deriv_tables(pp.detach().to(device=device, dtype=dtype), deg),)
+            return (_deriv_tables(pp.to(device=device, dtype=dtype), deg),)
 
         def make(at, fm):
             def bernstein(t, one_t, d, base):
@@ -187,8 +187,8 @@ def bezier(
 
         return FusedForms(
             n=1, n_aux=4, coef_lens=(table_len,), consts=consts, make=make,
-            name="bezier", arrays_fn=arrays_fn, requires_grad=pp.requires_grad,
-            kernel_consts=kernel_consts,
+            name="bezier", arrays_fn=arrays_fn, kernel_consts=kernel_consts,
+            runtime_shared=False,
         )
 
     system = mk_system(

@@ -18,8 +18,6 @@ from hamilton_tpu_torch.system import mk_system_cart
 
 __all__ = ["chain"]
 
-_UNPORTED_SOLVERS = ("linv", "mobius")
-
 
 def chain(
     n_links: int = 20,
@@ -38,29 +36,30 @@ def chain(
     rest.
 
     ``fused_solver`` picks the fused kernel's linear algebra: ``"dense"``
-    (in-register Cholesky) or ``"semiseparable"`` (the exact O(n)
-    factorization).  A parameter sweep replaces the params with batched
-    ones (``System.replace_params``: ``(B, n)`` masses and lengths, ``(B,)``
-    gravity); ``fused_forms`` then gives per-member coefficient tables
-    (``(l, S, g·l·S)``, 3n entries a member, for the semiseparable family).
+    (in-register Cholesky), ``"semiseparable"`` (the exact O(n)
+    factorization), ``"mobius"`` (that factorization with its recursion
+    collapsed to a scalar Möbius chain) or ``"linv"`` (it plus the explicit
+    inverse factor, so each solve is two mat-vecs).  A parameter sweep
+    replaces the params with batched ones (``System.replace_params``:
+    ``(B, n)`` masses and lengths, ``(B,)`` gravity); ``fused_forms`` then
+    gives per-member coefficient tables (``(l, S, g·l·S)``, 3n entries a
+    member, for the semiseparable and L⁻¹ families; Möbius adds ``m`` and
+    ``1/m``).  Params that need a gradient give a shared run-time table.
     """
-    if fused_solver in _UNPORTED_SOLVERS:
-        raise NotImplementedError(
-            f"fused_solver={fused_solver!r} is not ported yet (ROADMAP M9); "
-            f"use 'dense' or 'semiseparable'"
-        )
     from hamilton_tpu_torch.ops.fused_step import (
-        serial_chain_forms, serial_chain_forms_on,
+        serial_chain_forms, serial_chain_forms_linv, serial_chain_forms_mobius,
+        serial_chain_forms_on,
     )
 
     factories = {
         "dense": serial_chain_forms,
         "semiseparable": serial_chain_forms_on,
+        "mobius": serial_chain_forms_mobius,
+        "linv": serial_chain_forms_linv,
     }
     if fused_solver not in factories:
         raise ValueError(
-            f"fused_solver must be one of "
-            f"{sorted(factories) + list(_UNPORTED_SOLVERS)}, got {fused_solver!r}"
+            f"fused_solver must be one of {sorted(factories)}, got {fused_solver!r}"
         )
     forms_factory = factories[fused_solver]
 

@@ -60,7 +60,7 @@ def ellipse(
                        m_ * (b_ * b_ - a_ * a_)),)
 
         def arrays_fn(dtype, device):
-            a_, b_, m_, g_ = (p[k].detach().to(device=device, dtype=dtype)
+            a_, b_, m_, g_ = (p[k].to(device=device, dtype=dtype)
                               for k in ("a", "b", "mass", "gravity"))
             return (torch.stack([m_ * a_ * a_, m_ * b_ * b_, g_ * m_ * b_,
                                  m_ * (b_ * b_ - a_ * a_)], dim=-1),)
@@ -91,7 +91,6 @@ def ellipse(
         return FusedForms(
             n=1, n_aux=2, coef_lens=(4,), consts=consts, make=make,
             name="ellipse", arrays_fn=arrays_fn,
-            requires_grad=any(v.requires_grad for v in p.values()),
         )
 
     system = mk_system_cart(

@@ -59,8 +59,8 @@ def spherical_pendulum(
             consts = ((m_c, g_c * m_c),)
 
         def arrays_fn(dtype, device):
-            m_ = p["mass"].detach().to(device=device, dtype=dtype)
-            g_ = p["gravity"].detach().to(device=device, dtype=dtype)
+            m_ = p["mass"].to(device=device, dtype=dtype)
+            g_ = p["gravity"].to(device=device, dtype=dtype)
             return (torch.stack([m_, g_ * m_], dim=-1),)
 
         def make(at, fm):
@@ -98,7 +98,6 @@ def spherical_pendulum(
         return FusedForms(
             n=2, n_aux=2, coef_lens=(2,), consts=consts, make=make,
             name="spherical_pendulum", arrays_fn=arrays_fn,
-            requires_grad=any(v.requires_grad for v in p.values()),
         )
 
     system = mk_system_cart(

@@ -84,7 +84,7 @@ def spring(
             consts = ((mb_c + mw_c, mw_c, k_c, mb_c),)
 
         def arrays_fn(dtype, device):
-            mb_, mw_, k_ = (p[k].detach().to(device=device, dtype=dtype)
+            mb_, mw_, k_ = (p[k].to(device=device, dtype=dtype)
                             for k in ("m_block", "m_weight", "k"))
             return (torch.stack([mb_ + mw_, mw_, k_, mb_], dim=-1),)
 
@@ -153,7 +153,6 @@ def spring(
         return FusedForms(
             n=3, n_aux=2, coef_lens=(4,), consts=consts, make=make,
             name="spring", arrays_fn=arrays_fn,
-            requires_grad=any(v.requires_grad for v in p.values()),
         )
 
     system = mk_system(

@@ -59,8 +59,8 @@ def two_body(
             consts = ((m1_c * m2_c / (m1_c + m2_c), m1_c * m2_c),)
 
         def arrays_fn(dtype, device):
-            m1_ = p["m1"].detach().to(device=device, dtype=dtype)
-            m2_ = p["m2"].detach().to(device=device, dtype=dtype)
+            m1_ = p["m1"].to(device=device, dtype=dtype)
+            m2_ = p["m2"].to(device=device, dtype=dtype)
             mm = m1_ * m2_
             return (torch.stack([mm / (m1_ + m2_), mm], dim=-1),)
 
@@ -98,7 +98,6 @@ def two_body(
         return FusedForms(
             n=2, n_aux=1, coef_lens=(2,), consts=consts, make=make,
             name="two_body", arrays_fn=arrays_fn,
-            requires_grad=any(v.requires_grad for v in p.values()),
         )
 
     system = mk_system(

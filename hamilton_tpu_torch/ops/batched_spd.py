@@ -19,11 +19,19 @@ hand-written kernel of ``csrc/batched_spd.cu``; on a CPU tensor it runs the
 plain PyTorch version beside it (``*_plain``), which computes the same IEEE
 operations in the same order: the left-looking Cholesky of the reference's
 ``_chol_entries`` and the substitutions of its ``_solve_entries``.  A matrix
-that is not SPD gives NaN in its member only.  The entries are
-``torch.autograd.Function``\\ s that are forward-only: their gradients come
-with the gradient slice (ROADMAP M9), and bf16 with ROADMAP M10's follow-up.
-The reference's three layouts (member-major, batch-minor, (8, 128) tiles)
-exist for TPU relayout costs; the port keeps the member-major one.
+that is not SPD gives NaN in its member only.  bf16 is ROADMAP M10's
+follow-up.  The reference's three layouts (member-major, batch-minor,
+(8, 128) tiles) exist for TPU relayout costs; the port keeps the
+member-major one.
+
+Gradients: each entry is a ``torch.autograd.Function`` with the reference's
+VJP.  The solves (K2a, K2c, K2d) call the same entry on the cotangent,
+``gb = K⁻¹g`` — on a CUDA tensor that launches the kernel again — and form
+the rank-1 terms (``gK = −gb xᵀ``, ``gL = tril((gK + gKᵀ)L)``, ``gJs =
+Js(gK + gKᵀ)``) as plain tensor code; the factors (K2b, K2e) pull back
+through the out-of-place masked Cholesky :func:`masked_cholesky` (the
+reference's ``_masked_cholesky``), as the reference pulls back outside its
+kernel.  Each composes with ``torch.func`` as with ``.backward()``.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ __all__ = [
     "spd_solve_jac",
     "cholesky_jac",
     "jac_scaled",
+    "masked_cholesky",
     "spd_solve_plain",
     "cholesky_plain",
     "cho_solve_plain",
@@ -107,6 +116,28 @@ def _k_from_jac(js: torch.Tensor) -> torch.Tensor:
     for r in range(1, js.shape[1]):
         k = k + js[:, r, :, None] * js[:, r, None, :]
     return k
+
+
+def masked_cholesky(k: torch.Tensor) -> torch.Tensor:
+    """The lower factor of K ``(..., n, n)``, zeros above the diagonal, as the
+    reference's ``_masked_cholesky`` (``hamilton_tpu/ops/linalg.py``) forms
+    it: right-looking, a masked rank-1 update a column, out of place so that
+    autograd differentiates it (the backwards of K2b and K2e pull back
+    through it).  It reads K's lower triangle only."""
+    n = k.shape[-1]
+    idx = torch.arange(n, device=k.device)
+    a = k
+    for j in range(n):
+        d = torch.sqrt(a[..., j, j])
+        col = a[..., :, j] / d[..., None]
+        l_col = torch.where(idx >= j, col, torch.zeros_like(col))
+        below = idx > j
+        upd = l_col[..., :, None] * l_col[..., None, :]
+        keep = below[:, None] & below[None, :]
+        a = a - torch.where(keep, upd, torch.zeros_like(upd))
+        # column j of the factor, rows above j zeroed
+        a = torch.where(idx == j, l_col[..., :, None], a)
+    return a
 
 
 def spd_solve_plain(k: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -189,12 +220,6 @@ def _cholesky_jac_kernel(js):
 # The entries
 # ----------------------------------------------------------------------
 
-_NO_BACKWARD = (
-    "gradients through the batched tiny-SPD kernels (K2) are not ported yet "
-    "(ROADMAP M9, with the fused step's backward)"
-)
-
-
 def _check(name: str, mats: torch.Tensor, vecs=None) -> None:
     dtype = mats.dtype
     if dtype == torch.bfloat16:
@@ -246,42 +271,103 @@ def _run(name: str, kernel: Callable, plain: Callable, mats, vecs=None):
     return out.reshape(*batch, *out.shape[1:])
 
 
-class _Entry(torch.autograd.Function):
-    """Forward-only: ``backward`` raises (the gradients are ROADMAP M9)."""
+def _outer(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return u[..., :, None] * v[..., None, :]
 
+
+class _SpdSolve(torch.autograd.Function):
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(_NO_BACKWARD)
-
-
-class _SpdSolve(_Entry):
-    @staticmethod
-    def forward(ctx, k_mat, b):
+    def forward(k_mat, b):
         return _run("spd_solve_batched", _spd_solve_kernel, spd_solve_plain, k_mat, b)
 
-
-class _Cholesky(_Entry):
     @staticmethod
-    def forward(ctx, k_mat):
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], output)
+        ctx.shapes = tuple(x.shape for x in inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        # x = K⁻¹b:  gb = K⁻¹g (the kernel again),  gK = −gb xᵀ
+        k_mat, x = ctx.saved_tensors
+        gb = _SpdSolve.apply(k_mat, g)
+        gk = -_outer(gb, x)
+        return gk.sum_to_size(ctx.shapes[0]), gb.sum_to_size(ctx.shapes[1])
+
+
+class _Cholesky(torch.autograd.Function):
+    @staticmethod
+    def forward(k_mat):
         return _run("cholesky_batched", _cholesky_kernel, cholesky_plain, k_mat)
 
-
-class _ChoSolve(_Entry):
     @staticmethod
-    def forward(ctx, low, b):
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+
+    @staticmethod
+    def backward(ctx, g_low):
+        # the pullback of the masked factorization, outside the kernel
+        (k_mat,) = ctx.saved_tensors
+        _, pullback = torch.func.vjp(masked_cholesky, k_mat)
+        return pullback(g_low)[0]
+
+
+class _ChoSolve(torch.autograd.Function):
+    @staticmethod
+    def forward(low, b):
         return _run("cho_solve_batched", _cho_solve_kernel, cho_solve_plain, low, b)
 
-
-class _SpdSolveJac(_Entry):
     @staticmethod
-    def forward(ctx, js, b):
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], output)
+        ctx.shapes = tuple(x.shape for x in inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        # x = K⁻¹b, K = LLᵀ:  gb = K⁻¹g (the kernel again),  gK = −gb xᵀ,
+        # gL = tril((gK + gKᵀ)L)
+        low, x = ctx.saved_tensors
+        gb = _ChoSolve.apply(low, g)
+        gk = -_outer(gb, x)
+        gl = torch.tril((gk + gk.mT) @ low)
+        return gl.sum_to_size(ctx.shapes[0]), gb.sum_to_size(ctx.shapes[1])
+
+
+class _SpdSolveJac(torch.autograd.Function):
+    @staticmethod
+    def forward(js, b):
         return _run("spd_solve_jac", _spd_solve_jac_kernel, spd_solve_jac_plain, js, b)
 
-
-class _CholeskyJac(_Entry):
     @staticmethod
-    def forward(ctx, js):
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], output)
+        ctx.shapes = tuple(x.shape for x in inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        # x = K⁻¹b, K = JsᵀJs:  gb = K⁻¹g (the kernel again),
+        # gJs = Js(gK + gKᵀ) = −Js(gb xᵀ + x gbᵀ)
+        js, x = ctx.saved_tensors
+        gb = _SpdSolveJac.apply(js, g)
+        gjs = -(js @ (_outer(gb, x) + _outer(x, gb)))
+        return gjs.sum_to_size(ctx.shapes[0]), gb.sum_to_size(ctx.shapes[1])
+
+
+class _CholeskyJac(torch.autograd.Function):
+    @staticmethod
+    def forward(js):
         return _run("cholesky_jac", _cholesky_jac_kernel, cholesky_jac_plain, js)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+
+    @staticmethod
+    def backward(ctx, g_low):
+        # gK by the masked factorization's pullback, then gJs = Js(gK + gKᵀ)
+        (js,) = ctx.saved_tensors
+        _, pullback = torch.func.vjp(masked_cholesky, js.mT @ js)
+        (gk,) = pullback(g_low)
+        return js @ (gk + gk.mT)
 
 
 def spd_solve_batched(k_mat: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -30,9 +30,18 @@ carries them as one batch-minor ``(L, B)`` table beside the state.
 
 A tensor on the CPU runs the plain version; a CUDA tensor launches the
 kernel, or raises when no kernel is compiled for its family, size or
-dtype (:data:`KERNEL_INSTANTIATIONS`; a user's own family raises).  Not
-ported yet (ROADMAP): the ``linv``/``mobius`` chain solvers, user-defined
-families on the card, and gradients through the fused step.
+dtype (:data:`KERNEL_INSTANTIATIONS`; a user's own family raises; user
+families on the card are ROADMAP §2a).
+
+Gradients: :func:`fused_step` is differentiable in the state, ``dt`` and
+the coefficient table.  Its backward replays the plain version from the
+saved inputs, one ``torch.utils.checkpoint`` per step, and differentiates
+that (the reference's custom VJP over ``_replay``): the kernel has no
+backward of its own, as the TPU kernel had none.  Physical parameters that
+need a gradient make the table a run-time one (``FusedForms.consts`` is
+None): shared parameters give a shared ``(L,)`` table, built by
+``arrays_fn`` and differentiable back to them, which the kernel reads in its
+shared mode.
 """
 
 from __future__ import annotations
@@ -62,6 +71,8 @@ __all__ = [
     "member_table",
     "serial_chain_forms",
     "serial_chain_forms_on",
+    "serial_chain_forms_mobius",
+    "serial_chain_forms_linv",
     "fused_step",
     "fused_step_kernel",
     "fused_step_reference",
@@ -185,12 +196,14 @@ class FusedForms:
     and math namespace ``fm``; ``name`` names the family (and selects its
     compiled kernel).  ``arrays_fn(dtype, device)`` materializes each table
     as a tensor of shape ``lead + (coef_lens[t],)``, ``lead`` being ``()``
-    or ``(B,)`` (a parameter sweep); it is read when ``consts`` is None.
-    ``requires_grad``: some parameter needs a gradient (not ported).
+    or ``(B,)`` (a parameter sweep); it is read when ``consts`` is None
+    (batched parameters, or parameters that need a gradient).
     ``kernel_consts``: the kernel's flat shared table where it is not
     ``consts`` flattened — the entries with the Python-float factors that
     the forms fold into them in double on the shared path (Bézier's
-    binomials), so the kernel reads the values the forms compute.
+    binomials), so the kernel reads the values the forms compute.  Such a
+    family sets ``runtime_shared`` False: its unbatched run-time table then
+    runs in the kernel's per-member mode, broadcast to every member.
     """
 
     n: int
@@ -200,8 +213,8 @@ class FusedForms:
     make: Callable[..., FamilyFns]
     name: str = "family"
     arrays_fn: Optional[Callable[..., Tuple[torch.Tensor, ...]]] = None
-    requires_grad: bool = False
     kernel_consts: Optional[Tuple[float, ...]] = None
+    runtime_shared: bool = True
 
     def const_accessors(self):
         """Entry accessors over the concrete tables."""
@@ -222,9 +235,9 @@ def _chain_size(masses, lengths) -> int:
 
 def _table_input(x, dtype, device) -> torch.Tensor:
     """A physical parameter (sequence, scalar or tensor) as a tensor for
-    ``arrays_fn``."""
+    ``arrays_fn``; a tensor keeps its gradient."""
     if isinstance(x, torch.Tensor):
-        return x.detach().to(device=device, dtype=dtype)
+        return x.to(device=device, dtype=dtype)
     return torch.as_tensor(x, device=device, dtype=dtype)
 
 
@@ -235,6 +248,19 @@ def _suffix(m: torch.Tensor) -> torch.Tensor:
 
 def _needs_grad(*xs) -> bool:
     return any(isinstance(x, torch.Tensor) and x.requires_grad for x in xs)
+
+
+def _tree_sum(terms):
+    """Balanced pairwise sum of a list of per-member values (the
+    reference's ``_tree_sum``): depth ⌈log₂ k⌉ instead of k − 1, the same
+    adds, paired as the kernel pairs them."""
+    terms = list(terms)
+    while len(terms) > 1:
+        nxt = [terms[i] + terms[i + 1] for i in range(0, len(terms) - 1, 2)]
+        if len(terms) % 2:
+            nxt.append(terms[-1])
+        terms = nxt
+    return terms[0]
 
 
 def _trig_aux(fm):
@@ -342,7 +368,6 @@ def serial_chain_forms(masses, lengths, gravity) -> FusedForms:
     return FusedForms(
         n=n, n_aux=2 * n, coef_lens=(n * n, n), consts=consts, make=make,
         name="serial_chain", arrays_fn=arrays_fn,
-        requires_grad=_needs_grad(masses, lengths, gravity),
     )
 
 
@@ -508,7 +533,157 @@ def serial_chain_forms_on(masses, lengths, gravity) -> FusedForms:
     return FusedForms(
         n=n, n_aux=2 * n, coef_lens=(3 * n,), consts=consts, make=make,
         name="serial_chain_on", arrays_fn=arrays_fn,
-        requires_grad=_needs_grad(masses, lengths, gravity),
+    )
+
+
+def serial_chain_forms_mobius(masses, lengths, gravity) -> FusedForms:
+    """:func:`serial_chain_forms_on` with the semiseparable Cholesky's 2×2
+    Riccati recursion collapsed to a scalar Möbius chain (the reference's
+    ``serial_chain_forms_mobius``).
+
+    The running factor state is ``W_a = δ_a·I + β_{a−1}·f̂f̂ᵀ`` with ``δ_a``
+    the processed link's mass, and ``β = p/q`` obeys, in homogeneous form,
+    ``p' = p + δ_a·q``, ``q' = (σ_a/δ_a)·p + q`` with ``σ_a = sin²(θ_a −
+    θ_{a−1})``: two multiply-adds a link on the critical path, no division
+    and no square root; β, ``y``, ``d`` and ``z`` are per-link work off it.
+    The factor has the base family's 5n-entry layout, so the solves and
+    ``∂H/∂q`` are the base family's.  The table is 5n entries a member,
+    ``(l, S, g·l·S, m, 1/m)``; in exact arithmetic the factor equals the
+    base family's.
+    """
+    base = serial_chain_forms_on(masses, lengths, gravity)
+    n = base.n
+    m_c = concrete_vec(masses, n)
+    consts = None
+    if base.consts is not None:
+        consts = (base.consts[0] + tuple(m_c) + tuple(1.0 / m for m in m_c),)
+
+    def arrays_fn(dtype, device):
+        """The flat table ``(l, S, g·l·S, m, 1/m)``, 5n entries a member."""
+        (head,) = base.arrays_fn(dtype, device)
+        m_ = _table_input(masses, dtype, device)
+        m_ = m_.expand(*head.shape[:-1], n)
+        return (torch.cat([head, m_, 1.0 / m_], dim=-1),)
+
+    def make(at, fm):
+        # the base family against the 3n prefix of the 5n table
+        fam = base.make(at, fm)
+        l_at = lambda i: at[0](i)              # noqa: E731
+        m_at = lambda i: at[0](3 * n + i)      # noqa: E731  δ by link index
+        im_at = lambda i: at[0](4 * n + i)     # noqa: E731  1/δ
+
+        def factor(aux_v, q):
+            s, c = aux_v[:n], aux_v[n:]
+            # per-link prep (tip-to-base processing order a; link n−1−a)
+            idx = [n - 1 - a for a in range(n)]
+            ux = [l_at(i) * c[i] for i in idx]
+            uy = [l_at(i) * s[i] for i in idx]
+            # cross_a = û_{a−1} × û_a = sin(θ_a − θ_{a−1});  σ_a = cross²
+            cross = [None] + [
+                c[idx[a - 1]] * s[idx[a]] - s[idx[a - 1]] * c[idx[a]]
+                for a in range(1, n)
+            ]
+            sig = [None] + [cross[a] * cross[a] for a in range(1, n)]
+            # the critical-path chain: the homogeneous Möbius pair (p, q)
+            ps, qs = [None] * n, [None] * n
+            ps[0] = fm.full(m_at(idx[0]), s[0])
+            qs[0] = fm.full(1.0, s[0])
+            for a in range(1, n):
+                da, ida = m_at(idx[a]), im_at(idx[a])
+                ps[a] = ps[a - 1] + da * qs[a - 1]
+                qs[a] = (sig[a] * ida) * ps[a - 1] + qs[a - 1]
+            # off-chain reconstruction, independent per link
+            zxs, zys, ids = [], [], []
+            for a in range(n):
+                da = m_at(idx[a])
+                if a == 0:
+                    yx = da * ux[0]
+                    yy = da * uy[0]
+                else:
+                    beta = ps[a - 1] / qs[a - 1]
+                    # f̂_{a−1} = rot90(û_{a−1});  f̂·ũ_a = l_a·cross_a
+                    bfu = beta * (l_at(idx[a]) * cross[a])
+                    yx = da * ux[a] - bfu * s[idx[a - 1]]
+                    yy = da * uy[a] + bfu * c[idx[a - 1]]
+                d2 = ux[a] * yx + uy[a] * yy
+                inv_d = 1.0 / fm.sqrt(d2)
+                zxs.append(yx * inv_d)
+                zys.append(yy * inv_d)
+                ids.append(inv_d)
+            return tuple(zxs + zys + ids + ux + uy)
+
+        return FamilyFns(fam.aux, fam.k_at, fam.dhdq, fam.potential,
+                         (factor, fam.factor_solve[1]), aux_shift=fam.aux_shift)
+
+    return FusedForms(
+        n=n, n_aux=base.n_aux, coef_lens=(5 * n,), consts=consts, make=make,
+        name="serial_chain_mobius", arrays_fn=arrays_fn,
+    )
+
+
+def serial_chain_forms_linv(masses, lengths, gravity) -> FusedForms:
+    """:func:`serial_chain_forms_on` with the explicit inverse Cholesky
+    factor (the reference's ``serial_chain_forms_linv``).
+
+    The factorization adds, after the O(n) semiseparable one, the n(n+1)/2
+    entries of ``L⁻¹`` (column-major lower triangle in the tip-to-base
+    processing order), n mutually independent O(n) column recursions::
+
+        col a:  x_a = 1/d_a;  s = z_a·x_a;
+                x_i = −(1/d_i)·(u_i·s),  s += z_i·x_i     (i > a)
+
+    so each solve is two triangular mat-vecs with balanced (:func:`_tree_sum`)
+    reductions, depth ~⌈log₂ n⌉ instead of two depth-n recursions.  The
+    table is the base family's 3n entries; fixed points are the same.
+    """
+    base = serial_chain_forms_on(masses, lengths, gravity)
+    n = base.n
+
+    def make(at, fm):
+        fam = base.make(at, fm)
+        base_factor = fam.factor_solve[0]
+
+        def factor(aux_v, q):
+            """The semiseparable factorization, then the L⁻¹ columns."""
+            ent = base_factor(aux_v, q)
+            zx, zy = ent[0:n], ent[n:2 * n]
+            idv = ent[2 * n:3 * n]
+            ux, uy = ent[3 * n:4 * n], ent[4 * n:5 * n]
+            flat = []
+            for a in range(n):
+                xa = idv[a]
+                col = [xa]
+                sx, sy = zx[a] * xa, zy[a] * xa
+                for i in range(a + 1, n):
+                    xi = -(idv[i] * (ux[i] * sx + uy[i] * sy))
+                    col.append(xi)
+                    if i < n - 1:
+                        sx = sx + zx[i] * xi
+                        sy = sy + zy[i] * xi
+                flat.extend(col)
+            return tuple(flat)
+
+        def solve(ent, b):
+            """``x = L⁻ᵀ(L⁻¹ b̃)``, two mat-vecs with balanced reductions;
+            ``b`` and the result in link order."""
+            linv, k = {}, 0
+            for a in range(n):
+                for i in range(a, n):
+                    linv[(i, a)] = ent[k]
+                    k += 1
+            bt = [b[n - 1 - a] for a in range(n)]  # processing order
+            y = [_tree_sum([linv[(i, a)] * bt[a] for a in range(i + 1)])
+                 for i in range(n)]
+            xt = [_tree_sum([linv[(i, a)] * y[i] for i in range(a, n)])
+                  for a in range(n)]
+            return [xt[n - 1 - j] for j in range(n)]
+
+        return FamilyFns(fam.aux, fam.k_at, fam.dhdq, fam.potential,
+                         (factor, solve), aux_shift=fam.aux_shift)
+
+    return FusedForms(
+        n=n, n_aux=base.n_aux, coef_lens=base.coef_lens, consts=base.consts,
+        make=make, name="serial_chain_linv", arrays_fn=base.arrays_fn,
     )
 
 
@@ -730,38 +905,37 @@ def _check_state(forms: FusedForms, state: torch.Tensor, compensated: bool,
         raise ValueError("fused step needs a batch of at least one member")
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
-    if state.requires_grad or forms.requires_grad:
-        raise NotImplementedError(
-            "the fused step is forward-only: gradients through it are "
-            "ROADMAP M9 (use the library leapfrog to differentiate)"
-        )
-    per_member = forms.consts is None
+    runtime = forms.consts is None
     if coef is None:
-        if per_member:
+        if runtime:
             raise ValueError(
-                f"{forms.name}: per-member parameters need their (L, B) "
-                f"coefficient table as coef= (fused_stepper's init builds it)"
+                f"{forms.name}: run-time parameters (batched, or needing a "
+                f"gradient) need their (L, B) or (L,) coefficient table as "
+                f"coef= (fused_stepper's init builds it)"
             )
         return
-    want = ((sum(forms.coef_lens), state.shape[2]) if per_member
-            else (sum(forms.coef_lens),))
-    if (tuple(coef.shape) != want or coef.dtype != state.dtype
+    length = sum(forms.coef_lens)
+    wants = [(length,)] + ([(length, state.shape[2])] if runtime else [])
+    if (tuple(coef.shape) not in wants or coef.dtype != state.dtype
             or coef.device != state.device or not coef.is_contiguous()):
         raise ValueError(
-            f"{forms.name}: the {'per-member' if per_member else 'shared'} "
-            f"coefficient table must be a contiguous {want} {state.dtype} "
-            f"tensor on {state.device}, got {tuple(coef.shape)} {coef.dtype} "
-            f"on {coef.device}"
+            f"{forms.name}: the {'shared or per-member' if runtime else 'shared'} "
+            f"coefficient table must be a contiguous "
+            f"{' or '.join(map(str, wants))} {state.dtype} tensor on "
+            f"{state.device}, got {tuple(coef.shape)} {coef.dtype} on "
+            f"{coef.device}"
         )
 
 
 def member_table(forms: FusedForms, batch: int, dtype, device) -> torch.Tensor:
-    """The per-member coefficient tables of a parameter sweep as one
-    batch-minor ``(L, B)`` tensor, ``L = sum(coef_lens)``: each table of
-    ``forms.arrays_fn`` either unbatched (broadcast to every member) or with
-    a leading batch axis equal to the state batch.  A size-1 batch axis is
-    refused, as the library path refuses it (its member-wise vmap does not
-    broadcast), so the two paths never disagree silently."""
+    """The run-time coefficient table of ``forms.arrays_fn``: one shared
+    ``(L,)`` tensor when every table is unbatched (parameters that need a
+    gradient), else the per-member tables of a parameter sweep as one
+    batch-minor ``(L, B)`` tensor, ``L = sum(coef_lens)``, each table either
+    unbatched (broadcast to every member) or with a leading batch axis equal
+    to the state batch.  A size-1 batch axis is refused, as the library path
+    refuses it (its member-wise vmap does not broadcast), so the two paths
+    never disagree silently.  Differentiable back to the parameters."""
     if forms.arrays_fn is None:
         raise ValueError(f"{forms.name} has no per-member tables (arrays_fn)")
     tables = forms.arrays_fn(dtype, device)
@@ -770,14 +944,17 @@ def member_table(forms: FusedForms, batch: int, dtype, device) -> torch.Tensor:
             f"{forms.name}: arrays_fn returned {len(tables)} tables, declared "
             f"{len(forms.coef_lens)}"
         )
-    rows = []
     for t, (arr, flat) in enumerate(zip(tables, forms.coef_lens)):
-        lead = tuple(arr.shape[:-1])
         if arr.ndim < 1 or arr.shape[-1] != flat:
             raise ValueError(
                 f"{forms.name}: coefficient table {t} has shape "
                 f"{tuple(arr.shape)}, declared flat length {flat}"
             )
+    if all(arr.ndim == 1 for arr in tables):
+        return torch.cat(tables).contiguous()
+    rows = []
+    for t, (arr, flat) in enumerate(zip(tables, forms.coef_lens)):
+        lead = tuple(arr.shape[:-1])
         if lead == ():
             arr = arr.reshape(1, flat).expand(batch, flat)
         elif lead != (batch,):
@@ -792,12 +969,45 @@ def member_table(forms: FusedForms, batch: int, dtype, device) -> torch.Tensor:
 
 
 def _accessors(forms: FusedForms, coef: Optional[torch.Tensor]):
-    """Entry accessors ``at[t](i)``: Python floats over the shared tables,
-    or ``(B,)`` rows of the per-member table."""
+    """Entry accessors ``at[t](i)``: Python floats over the shared constant
+    tables, 0-d entries of a shared run-time table (they broadcast over the
+    members, so a gradient sums over them), or ``(B,)`` rows of a
+    per-member table."""
     if forms.consts is not None:
         return forms.const_accessors()
     offsets = [sum(forms.coef_lens[:t]) for t in range(len(forms.coef_lens))]
     return tuple((lambda i, o=o: coef[o + i]) for o in offsets)
+
+
+def _reference(forms, state, dt, *, iters, compensated, steps_per_call,
+               composition, coef, checkpoint):
+    """The plain version's steps; ``checkpoint`` wraps each step in a
+    ``torch.utils.checkpoint`` (the backward's replay keeps one step's
+    intermediates at a time, as the reference's ``_replay`` does)."""
+    _check_state(forms, state, compensated, steps_per_call, coef)
+    composition = _check_composition(composition)
+    iters_p, iters_q = _iters_pair(iters)
+    n = forms.n
+    fam = forms.make(_accessors(forms, coef), FM_TORCH)
+    increments = _make_increments(fam, n, iters_p, iters_q)
+    if isinstance(dt, torch.Tensor):
+        dt_t = dt.to(dtype=state.dtype, device=state.device)
+    else:
+        dt_t = torch.tensor(float(dt), dtype=state.dtype, device=state.device)
+    step_once = _build_step_once(increments, n, compensated, dt_t, dt_t * 0.5,
+                                 composition)
+    if checkpoint:
+        inner = step_once
+
+        def step_once(st, fac):
+            return torch.utils.checkpoint.checkpoint(
+                inner, st, fac, use_reentrant=False, preserve_rng_state=False)
+
+    st = tuple(tuple(state[v, i] for i in range(n)) for v in range(state.shape[0]))
+    st, fac = step_once(st, None)
+    for _ in range(steps_per_call - 1):
+        st, fac = step_once(st, fac)
+    return torch.stack([torch.stack(cols) for cols in st])
 
 
 def fused_step_reference(
@@ -818,23 +1028,13 @@ def fused_step_reference(
     first substep of a call factorizes afresh; every later one reuses the
     previous substep's end-of-step factor and aux).  ``coef`` is the
     kernel's coefficient table (:func:`fused_step_kernel`), checked the same
-    way; with shared parameters the entries are read as the Python floats
-    of ``forms.consts`` it was built from.  Runs on any device; returns a new
-    state tensor."""
-    _check_state(forms, state, compensated, steps_per_call, coef)
-    composition = _check_composition(composition)
-    iters_p, iters_q = _iters_pair(iters)
-    n = forms.n
-    fam = forms.make(_accessors(forms, coef), FM_TORCH)
-    increments = _make_increments(fam, n, iters_p, iters_q)
-    dt_t = torch.tensor(float(dt), dtype=state.dtype, device=state.device)
-    step_once = _build_step_once(increments, n, compensated, dt_t, dt_t * 0.5,
-                                 composition)
-    st = tuple(tuple(state[v, i] for i in range(n)) for v in range(state.shape[0]))
-    st, fac = step_once(st, None)
-    for _ in range(steps_per_call - 1):
-        st, fac = step_once(st, fac)
-    return torch.stack([torch.stack(cols) for cols in st])
+    way; with constant shared parameters the entries are read as the Python
+    floats of ``forms.consts`` it was built from.  ``dt`` is a number or a
+    0-d tensor.  Runs on any device; returns a new state tensor, and is
+    differentiable as plain PyTorch."""
+    return _reference(forms, state, dt, iters=iters, compensated=compensated,
+                      steps_per_call=steps_per_call, composition=composition,
+                      coef=coef, checkpoint=False)
 
 
 # ----------------------------------------------------------------------
@@ -844,15 +1044,22 @@ def fused_step_reference(
 #: The compiled kernels: ``(family name, n, coefficient-table length)`` →
 #: ``(source, code)``.  ``csrc/fused_step.cu`` holds the serial chain (code:
 #: its n; ``serial_chain_on`` the semiseparable forms, ``serial_chain`` the
-#: dense ones), ``csrc/family_step.cu`` the bundled model families (code: the
-#: case of its dispatch; the table length tells Bézier's degrees apart).
-#: Each is compiled in float32 and float64, compensated or not, with a shared
-#: or a per-member table (room: shared only, it has no parameters), plain or
-#: composed.  Keep in step with the two dispatch tables.
+#: dense ones), ``csrc/chain_variants.cu`` the chain's Möbius and L⁻¹ forms
+#: and the dense one at n = 4, ``csrc/family_step.cu`` the bundled model
+#: families (code: the case of each one's dispatch; the table length tells
+#: Bézier's degrees apart).  Each is compiled in float32 and float64,
+#: compensated or not, with a shared or a per-member table (room: shared
+#: only, it has no parameters), plain or composed.  Keep in step with the
+#: three dispatch tables.
 KERNEL_INSTANTIATIONS = {
     ("serial_chain_on", 20, 60): ("fused_step", 20),
     ("serial_chain_on", 5, 15): ("fused_step", 5),
     ("serial_chain", 2, 6): ("fused_step", 2),
+    ("serial_chain_mobius", 20, 100): ("chain_variants", 0),
+    ("serial_chain_mobius", 5, 25): ("chain_variants", 1),
+    ("serial_chain_linv", 20, 60): ("chain_variants", 2),
+    ("serial_chain_linv", 5, 15): ("chain_variants", 3),
+    ("serial_chain", 4, 20): ("chain_variants", 4),
     ("spherical_pendulum", 2, 2): ("family_step", 0),
     ("two_body", 2, 2): ("family_step", 1),
     ("room", 2, 0): ("family_step", 2),
@@ -921,15 +1128,15 @@ def fused_step_kernel(
     composition=(1.0,),
     coef: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Launch the Hopper kernel (``csrc/fused_step.cu`` for the serial chain,
-    ``csrc/family_step.cu`` for the bundled families) on a CUDA state:
-    ``steps_per_call`` steps of the ``(n_sv, n, B)`` state into a new tensor
-    (allocated here; the kernel allocates nothing).  ``coef`` is the
-    kernel's one coefficient table on the state's device: with shared
-    parameters (``forms.consts``) the flat ``(L,)`` table of
-    :func:`coef_table`, built here when None; with per-member parameters
-    the ``(L, B)`` table of :func:`member_table`, required.  Launches on the
-    current stream without synchronizing."""
+    """Launch the Hopper kernel (``csrc/fused_step.cu`` or
+    ``csrc/chain_variants.cu`` for the serial chain, ``csrc/family_step.cu``
+    for the bundled families) on a CUDA state: ``steps_per_call`` steps of
+    the ``(n_sv, n, B)`` state into a new tensor (allocated here; the kernel
+    allocates nothing).  ``coef`` is the kernel's one coefficient table on
+    the state's device: a shared ``(L,)`` one (:func:`coef_table`, built here
+    when None, or a run-time one from :func:`member_table`) or the per-member
+    ``(L, B)`` one of a sweep.  Launches on the current stream without
+    synchronizing.  Forward only: :func:`fused_step` differentiates."""
     _check_state(forms, state, compensated, steps_per_call, coef)
     composition = check_kernel_args(state.device, state.dtype, forms,
                                     tuple(state.shape), composition)
@@ -938,17 +1145,17 @@ def fused_step_kernel(
         raise ValueError("the fused-step kernel needs a contiguous state")
     if coef is None:
         coef = coef_table(forms, state.device, state.dtype)
+    elif coef.ndim == 1 and forms.consts is None and not forms.runtime_shared:
+        # the kernel's shared layout differs from arrays_fn's: broadcast
+        coef = coef[:, None].expand(-1, state.shape[2]).contiguous()
     out = torch.empty_like(state)
     source, code = KERNEL_INSTANTIATIONS[_kernel_key(forms)]
-    # the chain's library takes n and the semiseparable flag, the families'
-    # library the family's case
-    launch = kernels.fused_step_launch if source == "fused_step" else kernels.family_step_launch
-    launch(
+    _LAUNCH[source](
         dtype_code=_DTYPE_CODES[state.dtype],
         code=code,
         semiseparable=forms.name == "serial_chain_on",
         compensated=compensated,
-        per_member=forms.consts is None,
+        per_member=coef.ndim == 2,
         coef=coef.data_ptr(),
         state_in=state.data_ptr(),
         state_out=out.data_ptr(),
@@ -963,6 +1170,57 @@ def fused_step_kernel(
     return out
 
 
+# each source's launch function: the chain's library takes n and the
+# semiseparable flag, the others the case of their dispatch
+_LAUNCH = {
+    "fused_step": kernels.fused_step_launch,
+    "chain_variants": kernels.chain_variants_launch,
+    "family_step": kernels.family_step_launch,
+}
+
+
+def _forward(forms, state, dt, coef, kw):
+    """The kernel for a CUDA state, the plain version for a CPU state, an
+    error for anything else."""
+    if state.device.type == "cuda":
+        return fused_step_kernel(forms, state, dt, coef=coef, **kw)
+    if state.device.type == "cpu":
+        return fused_step_reference(forms, state, dt, coef=coef, **kw)
+    raise ValueError(f"no fused step for device {state.device}")
+
+
+class _FusedStep(torch.autograd.Function):
+    """The fused step with a gradient: the forward is the kernel (or the
+    plain version on the CPU); the backward replays the plain version from
+    the saved inputs, one checkpoint per step, and differentiates it (the
+    reference's ``_kernel_step_bwd``)."""
+
+    @staticmethod
+    def forward(state, dt, coef, forms, kw):
+        return _forward(forms, state, dt, coef, kw)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        state, dt, coef, forms, kw = inputs
+        ctx.forms, ctx.kw = forms, kw
+        ctx.dt = None if isinstance(dt, torch.Tensor) else dt
+        ctx.save_for_backward(state, dt if isinstance(dt, torch.Tensor) else None, coef)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        state, dt, coef = ctx.saved_tensors
+        wanted = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            leaves = [None if x is None else x.detach().requires_grad_(w)
+                      for x, w in zip((state, dt, coef), wanted)]
+            out = _reference(ctx.forms, leaves[0], ctx.dt if dt is None else leaves[1],
+                             coef=leaves[2], checkpoint=True, **ctx.kw)
+            inputs = [x for x, w in zip(leaves, wanted) if w]
+            grads = iter(torch.autograd.grad(out, inputs, grad_out, allow_unused=True))
+        return tuple(next(grads) if w else None for w in wanted) + (None, None)
+
+
 def fused_step(
     forms: FusedForms,
     state: torch.Tensor,
@@ -975,18 +1233,14 @@ def fused_step(
     coef: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``steps_per_call`` fused steps: the kernel for a CUDA state, the plain
-    version for a CPU state, and an error for anything else."""
-    if state.device.type == "cuda":
-        return fused_step_kernel(
-            forms, state, dt, iters=iters, compensated=compensated,
-            steps_per_call=steps_per_call, composition=composition, coef=coef,
-        )
-    if state.device.type == "cpu":
-        return fused_step_reference(
-            forms, state, dt, iters=iters, compensated=compensated,
-            steps_per_call=steps_per_call, composition=composition, coef=coef,
-        )
-    raise ValueError(f"no fused step for device {state.device}")
+    version for a CPU state, and an error for anything else.
+    Differentiable in ``state``, ``dt`` (a 0-d tensor) and ``coef`` when any
+    of them needs a gradient; otherwise no autograd bookkeeping at all."""
+    kw = dict(iters=iters, compensated=compensated, steps_per_call=steps_per_call,
+              composition=composition)
+    if torch.is_grad_enabled() and _needs_grad(state, dt, coef):
+        return _FusedStep.apply(state, dt, coef, forms, kw)
+    return _forward(forms, state, dt, coef, kw)
 
 
 def fused_stepper(
@@ -1004,25 +1258,22 @@ def fused_stepper(
     counts; ``iters_q=0`` selects the predictor-factor (Gauss-Seidel) mode.
     ``steps_per_call`` dt-steps run per ``step`` call (reported as
     ``.substeps``); each runs the ``composition`` substeps (order 4 for the
-    Yoshida/Suzuki weights).  Any batch size.  With shared parameters the
-    carry is the ``(n_sv, n, B)`` state tensor; with per-member parameters
-    it is ``(state, table)``: ``init`` builds the ``(L, B)`` coefficient
-    table once and it rides with the state, so a resumed run keeps it.
+    Yoshida/Suzuki weights).  Any batch size.  With constant shared
+    parameters the carry is the ``(n_sv, n, B)`` state tensor; with run-time
+    parameters (a sweep, or parameters that need a gradient) it is
+    ``(state, table)``: ``init`` builds the table once (:func:`member_table`,
+    ``(L,)`` shared or ``(L, B)``) and it rides with the state, so a resumed
+    run keeps it and a gradient reaches the parameters through it.
     ``extract`` returns ``(B, n)`` phases.
     """
     iters = _iters_pair(iters)
     composition = _check_composition(composition)
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
-    if forms.requires_grad:
-        raise NotImplementedError(
-            f"{forms.name}: gradient-carrying physical parameters (gradients "
-            f"through the fused step) are ROADMAP M9"
-        )
     if forms.consts is None and forms.arrays_fn is None:
         raise ValueError(f"{forms.name}: no shared constants and no arrays_fn")
     n = forms.n
-    per_member = forms.consts is None
+    runtime = forms.consts is None
     coef_cache = {}
 
     def init(ph: Phase):
@@ -1038,7 +1289,7 @@ def fused_stepper(
         # cold start)
         parts = (q, p, z, z, z, z) if compensated else (q, p, z, z)
         state = torch.stack(parts).contiguous()
-        if not per_member:
+        if not runtime:
             return state
         return state, member_table(forms, q.shape[1], q.dtype, q.device)
 
@@ -1046,7 +1297,7 @@ def fused_stepper(
               steps_per_call=steps_per_call, composition=composition)
 
     def step(carry, dt):
-        if per_member:
+        if runtime:
             state, table = carry
             return fused_step(forms, state, dt, coef=table, **kw), table
         coef = None
@@ -1058,7 +1309,7 @@ def fused_stepper(
         return fused_step(forms, carry, dt, coef=coef, **kw)
 
     def extract(carry) -> Phase:
-        state = carry[0] if per_member else carry
+        state = carry[0] if runtime else carry
         return Phase(state[0].T, state[1].T)
 
     order = 2 if composition == (1.0,) else 4  # symmetric compositions

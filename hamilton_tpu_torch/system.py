@@ -240,11 +240,13 @@ class System:
             if self.params is None:
                 return self.jacobian_fn(q)
             return self.jacobian_fn(q, self._member_params(params))
-        return jacfwd(self.coords_bound(params))(q)
+        # in q's dtype, as jax.jacfwd returns it: torch.func.jacfwd promotes
+        # a float32 map that divides a 0-d value by a Python float to float64
+        return jacfwd(self.coords_bound(params))(q).to(q.dtype)
 
     def hessian(self, q: torch.Tensor, params=None) -> torch.Tensor:
-        """Rank-3 ``d²f/dq²``, shape ``(m, n, n)``."""
-        return jacfwd(jacfwd(self.coords_bound(params)))(q)
+        """Rank-3 ``d²f/dq²``, shape ``(m, n, n)``, in q's dtype."""
+        return jacfwd(jacfwd(self.coords_bound(params)))(q).to(q.dtype)
 
     def potential_value(self, q: torch.Tensor, params=None) -> torch.Tensor:
         """``U(q)`` as a 0-d tensor."""

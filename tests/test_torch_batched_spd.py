@@ -165,12 +165,15 @@ def test_batch_axes_and_a_matrix_that_is_not_spd():
 
 
 def test_backward_raises_and_unported_types():
+    """What the entries refuse: bfloat16 (not ported), other dtypes, n > 32,
+    no batch axis, a device with neither kernel nor plain version.  The
+    backward no longer raises: it fills the gradients."""
     rng = np.random.default_rng(4)
     k = torch.tensor(_spd(rng, 4, 3, np.float64), requires_grad=True)
     vec = torch.tensor(rng.standard_normal((4, 3)))
     x = bs.spd_solve_batched(k, vec)
-    with pytest.raises(NotImplementedError, match="M9"):
-        x.sum().backward()
+    x.sum().backward()
+    assert k.grad is not None and bool(torch.isfinite(k.grad).all())
     with pytest.raises(NotImplementedError, match="M10"):
         bs.cholesky_batched(k.detach().to(torch.bfloat16))
     with pytest.raises(ValueError, match="float32 or float64"):
@@ -181,6 +184,137 @@ def test_backward_raises_and_unported_types():
         bs.cholesky_batched(k.detach()[0])
     with pytest.raises(ValueError, match="device meta"):
         bs.cholesky_batched(torch.empty(2, 3, 3, device="meta", dtype=torch.float64))
+
+
+# ----------------------------------------------------------------------
+# Gradients
+# ----------------------------------------------------------------------
+
+
+def _sym(a):
+    return (a + a.mT) / 2
+
+
+def _grad_operands(entry, rng, b, n, dtype):
+    """An entry's differentiable operands (float64 or float32): a symmetric
+    K seen through its lower triangle, a lower factor, or √M·J; and b."""
+    k = torch.tensor(_spd(rng, b, n, np.float64))
+    j, inertia = _jac(rng, b, n, 2 * n, np.float64)
+    vec = torch.tensor(rng.standard_normal((b, n)))
+    src = {"spd_solve_batched": k, "cholesky_batched": k,
+           "cho_solve_batched": torch.linalg.cholesky(k),
+           "spd_solve_jac": bs.jac_scaled(torch.tensor(j), torch.tensor(inertia)),
+           "cholesky_jac": bs.jac_scaled(torch.tensor(j), torch.tensor(inertia))}[entry.name]
+    args = (src, vec) if entry.solves else (src,)
+    return tuple(a.to(dtype).requires_grad_(True) for a in args)
+
+
+@pytest.mark.parametrize("entry", bs.ENTRIES, ids=[e.name for e in bs.ENTRIES])
+def test_gradcheck(entry):
+    """Each entry's backward against finite differences in float64.  The
+    entries read K's lower triangle only (the kernels' convention), so K2a
+    is checked through a symmetric K: its one-sided ``gK = −gb xᵀ`` is the
+    reference's."""
+    rng = np.random.default_rng(30)
+    args = _grad_operands(entry, rng, 3, 4, torch.float64)
+    fn = ((lambda k, b: entry.entry(_sym(k), b)) if entry.name == "spd_solve_batched"
+          else entry.entry)
+    assert torch.autograd.gradcheck(fn, args, eps=1e-6, atol=1e-7, rtol=1e-6)
+
+
+# the reference's K2 entries under jax.vjp (interpret mode), as tests/test_pallas.py
+# differentiates them, in float32: K2a-K2c at n = 4, K2d/K2e at n = 3, m = 6
+_J_VJPS = {
+    "spd_solve_batched": lambda k, b: ps.spd_solve_pallas(k, b),
+    "cholesky_batched": lambda k: ps.cholesky_pallas(k),
+    "cho_solve_batched": lambda low, b: ps.cho_solve_pallas(low, b),
+    "spd_solve_jac": lambda js, b: ps.from_vec_tiles(ps.spd_solve_jac_tiles(
+        ps._to_tiles(js, 2), ps.to_vec_tiles(b), js.shape[-1], js.shape[-2])),
+    "cholesky_jac": lambda js: ps._from_tiles(ps.cholesky_jac_tiles(
+        ps._to_tiles(js, 2), js.shape[-1], js.shape[-2]), (js.shape[-1],) * 2),
+}
+
+
+@pytest.mark.parametrize("entry", bs.ENTRIES, ids=[e.name for e in bs.ENTRIES])
+def test_vjp_matches_the_reference_entry(entry):
+    """Each entry's gradient for a random cotangent against the JAX entry's
+    custom VJP on the same float32 inputs: the same formulas (the solves'
+    ``gb = K⁻¹g`` by the entry itself, the factors' pullback through the
+    masked Cholesky), agreeing to float32 rounding through cond(K)."""
+    import jax
+
+    rng = np.random.default_rng(31)
+    n = 3 if entry.from_jac else 4
+    args = _grad_operands(entry, rng, 1024, n, torch.float32)
+    out = entry.entry(*args)
+    g = rng.standard_normal(tuple(out.shape)).astype(np.float32)
+    got = torch.autograd.grad(out, args, torch.tensor(g))
+    with pltpu.force_tpu_interpret_mode():
+        _, pullback = jax.vjp(_J_VJPS[entry.name],
+                              *[jnp.asarray(a.detach().numpy()) for a in args])
+        want = pullback(jnp.asarray(g))
+    for w, t in zip(want, got):
+        _close(w, t, rtol=2e-5)
+
+
+def test_gradients_compose_with_torch_func():
+    """The entries are ``forward`` + ``setup_context`` Functions: torch.func's
+    grad and vjp run their backwards as ``.backward()`` does."""
+    rng = np.random.default_rng(32)
+    k = torch.tensor(_spd(rng, 5, 4, np.float64))
+    vec = torch.tensor(rng.standard_normal((5, 4)))
+
+    def loss(kk, bb):
+        low = bs.cholesky_batched(kk)
+        return (bs.cho_solve_batched(low, bb) ** 2).sum() + bs.spd_solve_batched(kk, bb).sum()
+
+    gk, gb = torch.func.grad(loss, argnums=(0, 1))(k, vec)
+    kr, br = k.clone().requires_grad_(True), vec.clone().requires_grad_(True)
+    wk, wb = torch.autograd.grad(loss(kr, br), (kr, br))
+    torch.testing.assert_close(gk, wk, rtol=0, atol=1e-13)
+    torch.testing.assert_close(gb, wb, rtol=0, atol=1e-13)
+
+
+def test_masked_cholesky_matches_the_reference():
+    """The out-of-place masked Cholesky (the factors' pullback) against the
+    reference's ``_masked_cholesky``, value and VJP, float64."""
+    import jax
+
+    rng = np.random.default_rng(33)
+    k = _spd(rng, 8, 6, np.float64)
+    g = rng.standard_normal(k.shape)
+    jl, pullback = jax.vjp(_masked_cholesky, jnp.asarray(k))
+    tk = torch.tensor(k, requires_grad=True)
+    tl = bs.masked_cholesky(tk)
+    (tg,) = torch.autograd.grad(tl, tk, torch.tensor(g))
+    np.testing.assert_allclose(np.asarray(jl), tl.detach().numpy(), rtol=0, atol=1e-13)
+    np.testing.assert_allclose(np.asarray(pullback(jnp.asarray(g))[0]), tg.numpy(),
+                               rtol=0, atol=1e-11)
+
+
+@pytest.mark.parametrize("n,batched,k_rhs", [(2, True, None), (1, True, None),
+                                             (5, False, None), (5, True, 2), (33, True, None)],
+                         ids=["closed-form-2", "closed-form-1", "unbatched", "matrix-rhs",
+                              "n33"])
+def test_linalg_branches_carry_gradients(n, batched, k_rhs):
+    """``ops.linalg``'s routes that do not reach the entries (the n ≤ 2
+    closed forms and ``torch.linalg``) differentiate as plain PyTorch: their
+    gradient equals ``torch.linalg.solve``'s on a symmetric K."""
+    rng = np.random.default_rng(34 + n)
+    k = torch.tensor(_spd(rng, 3, n, np.float64))
+    k = k if batched else k[0]
+    rhs = torch.tensor(rng.standard_normal(k.shape[:-1] + ((k_rhs,) if k_rhs else ())))
+    grads = []
+    for solve in (lambda kk, bb: tlinalg.small_cho_solve(tlinalg.small_cholesky(kk), bb),
+                  lambda kk, bb: tlinalg.spd_solve(kk, bb),
+                  lambda kk, bb: torch.linalg.solve(kk, bb if k_rhs else bb[..., None])
+                  .reshape(bb.shape)):
+        kk, bb = k.clone().requires_grad_(True), rhs.clone().requires_grad_(True)
+        out = solve(_sym(kk), bb)
+        grads.append(torch.autograd.grad((out ** 2).sum(), (kk, bb)))
+    for got in grads[:2]:
+        for a, b in zip(got, grads[2]):
+            torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-12)
 
 
 def _record(monkeypatch, module, names):

@@ -293,16 +293,100 @@ def test_any_batch_size_and_layout():
 
 
 def test_requires_grad_inputs_raise():
+    """Inputs that need a gradient no longer raise: a carry that requires
+    grad differentiates, and masses that do make the table a shared
+    run-time ``(L,)`` one that rides the carry.  What still raises: a
+    run-time table that is not handed over as ``coef=``."""
     ex = tp.chain(n_links=3, fused_solver="semiseparable", device="cpu", dtype=F64)
     st = tp.make_stepper(ex.system, "leapfrog_fused", iters=(2, 0))
     carry = st.init(_phase(ex, batch=4)).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        st.step(carry, 1e-3)
+    (g,) = torch.autograd.grad(st.step(carry, 1e-3).sum(), carry)
+    assert g.shape == carry.shape and bool(torch.isfinite(g).all())
     grad_sys = ex.system.to()
     grad_sys.params = dict(grad_sys.params,
                            masses=grad_sys.params["masses"].clone().requires_grad_(True))
-    with pytest.raises(NotImplementedError, match="M9"):
-        tp.make_stepper(grad_sys, "leapfrog_fused", iters=(2, 0))
+    gst = tp.make_stepper(grad_sys, "leapfrog_fused", iters=(2, 0))
+    state, table = gst.init(_phase(ex, batch=4))
+    assert table.shape == (9,) and table.requires_grad
+    forms = grad_sys.fused_forms(grad_sys)
+    assert forms.consts is None
+    with pytest.raises(ValueError, match=r"need their \(L, B\) or \(L,\)"):
+        t_step.fused_step(forms, state, 1e-3, iters=(2, 0), compensated=False)
+
+
+def _grad_phase(n, batch=64, seed=0):
+    """The reference test's ``ph4`` at another batch size: q near 0.5, small p."""
+    rng = np.random.default_rng(seed)
+    return 0.5 + 0.01 * rng.standard_normal((batch, n)), 0.01 * rng.standard_normal((batch, n))
+
+
+def _j_library_loss(jsys, q0, p0, steps):
+    c = j_make_stepper(jsys, "leapfrog", iters=(3, 1))
+    carry = c.init(JPhase(q0, p0))
+    for _ in range(steps):
+        carry = c.step(carry, jnp.float64(1e-3))
+    ph = c.extract(carry)
+    return jnp.sum(ph.q ** 2) + jnp.sum(ph.p * ph.q)
+
+
+def test_grad_matches_library_leapfrog():
+    """The gradient through the fused step (its backward replays the plain
+    version) of a final-state loss equals the library leapfrog's, which
+    differentiates through the K2 entries, and ``jax.grad`` of the
+    reference's library leapfrog — through a 2-step call that carries the
+    factor (``tests/test_pallas_step.py``'s ``test_grad_matches_library_leapfrog``)."""
+    ex = tp.chain(n_links=4, device="cpu", dtype=F64)
+    q0, p0 = _grad_phase(4)
+    fus = tp.make_stepper(ex.system, "leapfrog_fused", iters=(3, 1), steps_per_call=2)
+    lib = tp.make_stepper(ex.system, "leapfrog", iters=(3, 1))
+
+    def loss(st, calls):
+        q, p = torch.tensor(q0, requires_grad=True), torch.tensor(p0, requires_grad=True)
+        carry = st.init(tp.Phase(q, p))
+        for _ in range(calls):
+            carry = st.step(carry, 1e-3)
+        ph = st.extract(carry)
+        return torch.autograd.grad(torch.sum(ph.q ** 2) + torch.sum(ph.p * ph.q), (q, p))
+
+    got, lib_g = loss(fus, 1), loss(lib, 2)
+    jsys = jmodels.chain(n_links=4).system
+    want = jax.grad(_j_library_loss, argnums=(1, 2))(jsys, jnp.asarray(q0), jnp.asarray(p0), 2)
+    for g, l, w in zip(got, lib_g, want):
+        np.testing.assert_allclose(g.numpy(), l.numpy(), rtol=1e-9, atol=1e-12)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-9, atol=1e-12)
+
+
+def test_grad_wrt_masses_through_fused():
+    """Masses that need a gradient ride the fused step's shared run-time
+    table; the gradient equals ``jax.grad`` of the reference's library
+    leapfrog and a central finite difference."""
+    ex = tp.chain(n_links=4, device="cpu", dtype=F64)
+    q0, p0 = _grad_phase(4, seed=1)
+
+    def loss(masses):
+        sysb = ex.system.replace_params(dict(ex.system.params, masses=masses))
+        st = tp.make_stepper(sysb, "leapfrog_fused", iters=(3, 1))
+        carry = st.step(st.init(tp.Phase(torch.tensor(q0), torch.tensor(p0))), 1e-3)
+        return torch.sum(st.extract(carry).q ** 2)
+
+    m0 = torch.ones(4, dtype=F64, requires_grad=True)
+    (g,) = torch.autograd.grad(loss(m0), m0)
+    jsys = jmodels.chain(n_links=4).system
+
+    def j_loss(masses):
+        sysb = jsys.replace_params(dict(jsys.params, masses=masses))
+        c = j_make_stepper(sysb, "leapfrog", iters=(3, 1))
+        return jnp.sum(c.extract(c.step(c.init(JPhase(jnp.asarray(q0), jnp.asarray(p0))),
+                                        jnp.float64(1e-3))).q ** 2)
+
+    want = jax.grad(j_loss)(jnp.ones(4))
+    np.testing.assert_allclose(g.numpy(), np.asarray(want), rtol=1e-9, atol=1e-15)
+    eps = 1e-5
+    e = torch.zeros(4, dtype=F64)
+    e[1] = eps
+    with torch.no_grad():
+        fd = (loss(m0 + e) - loss(m0 - e)) / (2 * eps)
+    np.testing.assert_allclose(float(g[1]), float(fd), rtol=5e-3)
 
 
 def test_kernel_argument_checks():

@@ -1,9 +1,11 @@
 """The PyTorch port never imports JAX.
 
 A fresh interpreter imports ``hamilton_tpu_torch``, builds a chain system,
-takes a fused step, runs ``evolve_ham``, counts the fused step's operations
-and takes a fused step of three model families; ``jax`` must stay out of
-``sys.modules``.
+takes a fused step, runs ``evolve_ham``, counts the fused step's operations,
+takes a fused step of three model families and of the chain's Möbius and
+L⁻¹ forms, differentiates through ``evolve_ham_fixed`` (the fused step's
+replay and the K2 entries' backwards) and runs one iteration of the
+``fit_masses`` example; ``jax`` must stay out of ``sys.modules``.
 """
 
 import os
@@ -31,6 +33,17 @@ for name in ("spherical", "room", "bezier"):
     n = fam.n
     fph = tp.Phase(fam.init_config.q.expand(3, n).contiguous(), torch.zeros(3, n, dtype=torch.float64))
     fst.extract(fst.step(fst.init(fph), 1e-3))
+for solver in ("mobius", "linv"):
+    cx = tp.chain(n_links=4, fused_solver=solver, device="cpu", dtype=torch.float64)
+    cst = tp.make_stepper(cx.system, "leapfrog_fused", iters=(2, 0))
+    cst.extract(cst.step(cst.init(ph), 1e-3))
+q = ph.q.clone().requires_grad_(True)
+for method in ("leapfrog", "leapfrog_fused"):
+    out = tp.evolve_ham_fixed(ex.system, tp.Phase(q, ph.p), 1e-3, 4, method=method,
+                              iters=(2, 1), emit_every=2, remat=True)
+    torch.autograd.grad(out.q.sum(), q)
+from hamilton_tpu_torch.examples import fit_masses
+fit_masses.main(["--device", "cpu", "--iters", "1", "--steps", "12"])
 print("jax" in sys.modules, any(m.startswith("hamilton_tpu.") or m == "hamilton_tpu"
                                 for m in sys.modules))
 """
@@ -41,7 +54,7 @@ def test_port_leaves_jax_unimported():
     out = subprocess.run([sys.executable, "-c", PROBE], capture_output=True, text=True,
                          cwd=REPO, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["False", "False"]
+    assert out.stdout.splitlines()[-1].split() == ["False", "False"]
 
 
 def test_port_sources_name_no_jax_import():

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels themselves (``hamilton_tpu_torch/csrc/
-fused_step.cu``, ``csrc/family_step.cu``, ``csrc/batched_spd.cu`` and
-``csrc/roofline_probes.cu``).
+fused_step.cu``, ``csrc/chain_variants.cu``, ``csrc/family_step.cu``,
+``csrc/batched_spd.cu`` and ``csrc/roofline_probes.cu``), and the gradients
+through them.
 
 These tests need an NVIDIA card and nvcc; elsewhere they skip.  This file
 imports no JAX, so on a machine without it run it without the suite's
@@ -145,6 +146,107 @@ def test_uninstantiated_size_raises_on_the_card(card):
                              torch.zeros(4, 7, device=card)))
     with pytest.raises(ValueError, match="instantiated"):
         st.step(carry, 1e-3)
+
+
+# ----------------------------------------------------------------------
+# The chain's other forms (csrc/chain_variants.cu)
+# ----------------------------------------------------------------------
+
+
+def _chain_state(solver, n, card, dtype, iters, compensated, swept, composition=(1.0,),
+                 batch=300, seed=6):
+    """A chain-n example with ``solver``'s forms (per-member masses, lengths
+    and gravity when ``swept``) and its stepper's initial carry."""
+    rng = np.random.default_rng(seed)
+    ex = tp.chain(n_links=n, fused_solver=solver, device=card, dtype=dtype)
+    system = ex.system
+    if swept:
+        system = system.replace_params(tp.params_from_numpy({
+            "masses": 1.0 + 0.05 * rng.standard_normal((batch, n)),
+            "lengths": 1.0 + 0.1 * rng.random((batch, n)),
+            "gravity": 5.0 + 0.1 * rng.standard_normal(batch),
+        }, device=card, dtype=dtype))
+    q = 0.5 + 0.05 * rng.standard_normal((batch, n))
+    p = 0.3 * rng.standard_normal((batch, n))
+    forms = system.fused_forms(system)
+    st = t_step.fused_stepper(forms, iters=iters, compensated=compensated,
+                              composition=composition)
+    return system, forms, st.init(tp.phase_from_numpy(q, p, device=card, dtype=dtype))
+
+
+@pytest.mark.parametrize("swept", [False, True], ids=["shared", "per_member"])
+@pytest.mark.parametrize("solver,n", [("mobius", 20), ("mobius", 5), ("linv", 20),
+                                      ("linv", 5), ("dense", 4)])
+def test_chain_variant_kernel_matches_plain_version(card, solver, n, swept):
+    """float64 (2,0) Kahan and (3,2) and a Suzuki composition, ten steps per
+    launch, a ragged batch, shared and per-member tables: the kernel (no FMA
+    contraction) agrees with its plain version to float64 rounding."""
+    for iters, comp, composition in (((2, 0), True, (1.0,)), ((3, 2), False, (1.0,)),
+                                     ((2, 0), True, t_step.SUZUKI4_COMPOSITION)):
+        _, forms, carry = _chain_state(solver, n, card, torch.float64, iters, comp, swept,
+                                       composition)
+        state, table = carry if swept else (carry, None)
+        kw = dict(iters=iters, compensated=comp, steps_per_call=10, coef=table,
+                  composition=composition)
+        before = kernels.chain_variants_launch.launches
+        got = t_step.fused_step_kernel(forms, state, 5e-4, **kw)
+        assert kernels.chain_variants_launch.launches == before + 1
+        want = t_step.fused_step_reference(forms, state, 5e-4, **kw)
+        scale = torch.ones(state.shape[0], 1, 1, dtype=torch.float64, device=card)
+        scale[-1] = 5e-4
+        assert bool(torch.isfinite(got).all())
+        assert float(((got - want) * scale).abs().max()) < 1e-11
+
+
+@pytest.mark.parametrize("solver", ["mobius", "linv"])
+def test_chain_variant_kernel_matches_library_leapfrog(card, solver):
+    """chain-5 float64 (3,2): the same fixed points as the library leapfrog."""
+    ex = tp.chain(n_links=5, fused_solver=solver, device=card, dtype=torch.float64)
+    rng = np.random.default_rng(1)
+    ph = tp.phase_from_numpy(0.5 + 0.01 * rng.standard_normal((100, 5)),
+                             0.05 * rng.standard_normal((100, 5)), device=card,
+                             dtype=torch.float64)
+    lib = tp.make_stepper(ex.system, "leapfrog", iters=(3, 2))
+    fus = tp.make_stepper(ex.system, "leapfrog_fused", iters=(3, 2), steps_per_call=2)
+    dt = torch.tensor(1e-3, dtype=torch.float64)
+    cl, cf = lib.init(ph), fus.step(fus.init(ph), dt)
+    for _ in range(2):
+        cl = lib.step(cl, dt)
+    a, b = lib.extract(cl), fus.extract(cf)
+    assert float((a.q - b.q).abs().max()) < 1e-12
+    assert float((a.p - b.p).abs().max()) < 1e-12
+
+
+def _fused_grads(device, solver, n):
+    """Gradients of a final-state loss through one 3-step fused launch with
+    respect to (q₀, p₀) and shared masses that need a gradient."""
+    rng = np.random.default_rng(8)
+    q0 = torch.tensor(0.5 + 0.05 * rng.standard_normal((64, n)), device=device,
+                      requires_grad=True)
+    p0 = torch.tensor(0.3 * rng.standard_normal((64, n)), device=device, requires_grad=True)
+    masses = torch.tensor(1.0 + 0.1 * rng.random(n), device=device, requires_grad=True)
+    ex = tp.chain(n_links=n, fused_solver=solver, device=device, dtype=torch.float64)
+    system = ex.system.replace_params(dict(ex.system.params, masses=masses))
+    st = tp.make_stepper(system, "leapfrog_fused", iters=(3, 1), steps_per_call=3)
+    ph = st.extract(st.step(st.init(tp.Phase(q0, p0)), 1e-3))
+    loss = (ph.q ** 2).sum() + (ph.p * ph.q).sum()
+    return [g.cpu() for g in torch.autograd.grad(loss, (q0, p0, masses))]
+
+
+@pytest.mark.parametrize("solver,n", [("semiseparable", 20), ("mobius", 5), ("linv", 5),
+                                      ("dense", 4)])
+def test_fused_gradient_kernel_matches_plain(card, solver, n):
+    """The kernel-backed step (its forward the kernel, in its shared mode
+    for the run-time masses) against the plain-backed one on the CPU: the
+    backward replays the same plain version, so the gradients agree to
+    float64 rounding."""
+    before = kernels.launch_counts()
+    got = _fused_grads(card, solver, n)
+    after = kernels.launch_counts()
+    assert sum(after.values()) - sum(before.values()) == 1
+    want = _fused_grads("cpu", solver, n)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-10 * float(b.abs().max())
 
 
 # ----------------------------------------------------------------------
@@ -298,12 +400,23 @@ def test_k2_member_that_is_not_spd_gives_nan_there_only(card):
         assert torch.equal(x[~nan], good[~nan])
 
 
-def test_k2_backward_raises(card):
-    k, js, b = _k2_inputs(card, 8, 4, torch.float32, seed=2)
-    for out in (bs.spd_solve_batched(k.requires_grad_(True), b),
-                bs.cholesky_jac(js.detach().requires_grad_(True))):
-        with pytest.raises(NotImplementedError, match="M9"):
-            out.sum().backward()
+@pytest.mark.parametrize("entry", bs.ENTRIES, ids=[e.name for e in bs.ENTRIES])
+def test_k2_backward_launches_its_kernel(card, entry):
+    """Each entry's gradient at n = 20 on the card: the solves' backwards
+    launch their kernel once more (gb = K⁻¹g), the factors' pull back
+    through the plain masked Cholesky; all agree with the CPU's."""
+    k, js, b = _k2_inputs(card, 300, 20, torch.float64, seed=2)
+    args = [a.detach().requires_grad_(True) for a in _k2_args(entry, k, js, b)]
+    g = torch.randn(entry.entry(*args).shape, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(3)).to(card)
+    out = entry.entry(*args)
+    before = entry.launch.launches
+    got = torch.autograd.grad(out, args, g)
+    assert entry.launch.launches == before + (1 if entry.solves else 0)
+    cpu = [a.detach().cpu().requires_grad_(True) for a in args]
+    want = torch.autograd.grad(entry.entry(*cpu), cpu, g.cpu())
+    for x, y in zip(got, want):
+        assert float((x.cpu() - y).abs().max()) <= 1e-12 * max(1.0, float(y.abs().max()))
 
 
 # ----------------------------------------------------------------------

@@ -150,6 +150,34 @@ def test_ham_eqs_and_phase_round_trip(case):
     np.testing.assert_allclose(back.p.numpy(), p, rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("name", ["double_pendulum", "spring"])
+def test_to_phase_float32_matches_reference(name):
+    """In float32 the maps that divide a 0-d value by a Python float (the
+    double pendulum's, the spring's) give float32 Jacobians and momenta, as
+    ``jax.jacfwd`` does; the values agree with the JAX package's float32 to a
+    few float32 ulps of |p|."""
+    jsys, _ = _pair(name)
+    jsys32 = jax.tree_util.tree_map(lambda a: a.astype(jnp.float32), jsys)
+    tsys32 = MODELS[name][1]().system.replace_params(params_from_numpy(
+        {k: np.asarray(v) for k, v in jsys.params.items()},
+        device="cpu", dtype=torch.float32,
+    ))
+    n = {"double_pendulum": 2, "spring": 3}[name]
+    q, v, _ = _inputs(n, seed=4)
+    q, v = q.astype(np.float32), v.astype(np.float32)
+    jph = jmech.to_phase(jsys32, jmech.Config(jnp.asarray(q), jnp.asarray(v)))
+    tph = tmech.to_phase(tsys32, tp.Config(torch.as_tensor(q), torch.as_tensor(v)))
+    assert jph.p.dtype == jnp.float32
+    assert tph.p.dtype == torch.float32 and tph.q.dtype == torch.float32
+    assert tsys32.jacobian(torch.as_tensor(q[0])).dtype == torch.float32
+    assert tsys32.hessian(torch.as_tensor(q[0])).dtype == torch.float32
+    scale = float(np.abs(np.asarray(jph.p)).max())
+    _close(jph.p, tph.p, atol=8 * np.finfo(np.float32).eps * scale)
+    st = tp.make_stepper(tsys32, "leapfrog_fused" if name == "double_pendulum"
+                         else "leapfrog", iters=(2, 1))
+    assert st.extract(st.init(tph)).p.dtype == torch.float32
+
+
 @pytest.mark.parametrize("iters,compensated", [((3, 1), False), ((2, 0), True)],
                          ids=["exact-3-1", "gauss-seidel-2-0-kahan"])
 def test_library_leapfrog_matches_reference(case, iters, compensated):
@@ -171,16 +199,19 @@ def test_library_leapfrog_matches_reference(case, iters, compensated):
 
 
 def test_system_checks():
-    """Construction-time shape checks and the unported options."""
+    """Construction-time shape checks and the unported options; every fused
+    solver of the reference is accepted, an unknown one is refused."""
     with pytest.raises(ValueError, match="coords must map|coords function"):
         tp.mk_system([1.0, 1.0], lambda q: q, lambda q: q.sum(),
                      device="cpu", dtype=F64, n=3)
     with pytest.raises(ValueError, match="inertia_fn requires params"):
         tp.System(None, lambda q: q, lambda q: q.sum(), device="cpu", dtype=F64,
                   inertia_fn=lambda p: p)
-    for solver in ("linv", "mobius"):
-        with pytest.raises(NotImplementedError, match="M9"):
-            tp.chain(n_links=3, fused_solver=solver, device="cpu", dtype=F64)
+    for solver in ("dense", "semiseparable", "linv", "mobius"):
+        ex = tp.chain(n_links=3, fused_solver=solver, device="cpu", dtype=F64)
+        assert ex.system.fused_forms(ex.system).n == 3
+    with pytest.raises(ValueError, match="fused_solver must be one of"):
+        tp.chain(n_links=3, fused_solver="qr", device="cpu", dtype=F64)
     ex = tp.chain(n_links=3, device="cpu", dtype=F64)
     with pytest.raises(NotImplementedError, match="M11"):
         tp.make_stepper(ex.system, "gauss4")

@@ -63,7 +63,21 @@ def test_fused_step_cost_matches_reference(method):
         assert t_cost["transcendentals_per_member_step"] == pytest.approx(61.2)
 
 
-@pytest.mark.parametrize("solver", ["semiseparable", "dense"])
+@pytest.mark.parametrize("solver", ["mobius", "linv"])
+def test_fused_step_cost_of_the_other_solvers_matches_reference(solver):
+    """The Möbius and L⁻¹ forms at the headline's shape: the same counts as
+    the reference's jaxpr walk, flops included (Möbius 3765.1 and L⁻¹
+    7244.88 a member-step against the semiseparable form's 3729.4)."""
+    jex = jmodels.chain(n_links=20, fused_solver=solver)
+    jsys = jax.tree_util.tree_map(lambda a: a.astype(jnp.float32), jex.system)
+    j_cost = j_roofline.fused_step_cost(jsys, iters=(2, 0), steps_per_call=50)
+    tex = tp.chain(n_links=20, fused_solver=solver, device="cpu", dtype=torch.float32)
+    t_cost = t_roofline.fused_step_cost(tex.system, iters=(2, 0), steps_per_call=50)
+    _costs_agree(j_cost, t_cost)
+    assert t_cost["flops_per_member_step"] == j_cost["flops_per_member_step"]
+
+
+@pytest.mark.parametrize("solver", ["semiseparable", "dense", "mobius", "linv"])
 def test_fused_step_cost_of_a_sweep_matches_reference(solver):
     """Per-member tables (chain-4, B = 1024, (B, n) masses and lengths and
     (B,) gravity): the table entries are read, not folded, and the table
