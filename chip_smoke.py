@@ -5,8 +5,10 @@
 
 Builds the hand-written kernels (``hamilton_tpu_torch/csrc/fused_step.cu``,
 ``csrc/chain_variants.cu``, ``csrc/family_step.cu``, ``csrc/batched_spd.cu``
-and ``csrc/roofline_probes.cu``, one nvcc each, at once), then runs these
-phases and raises as soon as one fails:
+and ``csrc/roofline_probes.cu``, one nvcc each or one a part, and
+``csrc/user_family_step.cu`` around the generated forms of the elastic
+pendulum and a 3-point Bézier, all at once), then runs these phases and
+raises as soon as one fails:
 
 1. kernel against its plain PyTorch version: one 50-step call on a ragged
    batch of 1000 members, chain-20 (semiseparable, ``(2,0)``, Kahan) and the
@@ -101,7 +103,27 @@ phases and raises as soon as one fails:
     (2,0) Kahan: the forward and backward ms of one 50-step launch and the
     peak memory; (d) ``fit_masses --fused`` on the card, cut to
     ``FIT_ITERS`` Adam iterations and gated on its loss falling tenfold,
-    and the dense n = 4 launch it runs, timed.
+    and the dense n = 4 launch it runs, timed;
+18. a user's own family on K1's generated kernel (``csrc/
+    user_family_step.cu`` around the header ``ops/fused_codegen.py`` makes
+    from the family's forms, built beside the other sources): (a) the
+    generated kernel against its plain version, bit for bit, on the
+    elastic pendulum (``hamilton_tpu_torch/examples/elastic_pendulum.py``)
+    and a 3-point Bézier at 16384 members over a 5-step launch, float32
+    and float64, compensated or not, on the float64 constant table, a
+    run-time shared table and a per-member one, plain and
+    Suzuki-composed; PyTorch's division by a Python float on the card (a
+    product with the reciprocal, which the generated code follows); (b)
+    the float64 kernel against the library leapfrog, 1024 members, 2 steps,
+    ≤ 1e-11; (c) other parameter values build nothing; (d) the example's
+    ``main(["--fused", "--sweep", "16384", "--device", "cuda"])`` at its
+    defaults (12000 steps, dt = 5e-3, float32 (2,1), per-member spring
+    constants, ``RunningExtrema`` every 10 steps, one drift sample at the
+    end): it must return 0 (the resonance peak within 25 % of k_res), with
+    exactly 12002 K1 launches (2 in its parity stage) and nothing else;
+    (e) the 3-point Bézier as a family cell (16384 members, float32 (2,0)
+    Kahan, t = 100, 50 steps a launch); (f) each one's launch timed at its
+    run's shape, with its plain version, the host's issue and its bound.
 
 Every kernel's row gives its launches on its main path, its device time
 and its plain version's, the bound (the larger of its operations over the
@@ -248,6 +270,14 @@ FD_RTOL = 1e-5
 # cut from the example's 200 Adam iterations and gated on its loss falling
 # tenfold
 FIT_ITERS = 30
+# a user's own family on the generated kernel (phase 18): the elastic
+# pendulum example at 16384 members and its defaults, and a 3-point Bézier
+# (no hand-written instantiation) as a family cell
+USER_SOURCE = "hamilton_tpu_torch/csrc/user_family_step.cu"
+BEZIER3_POINTS = ((-1.0, -1.0), (0.0, 1.0), (1.0, -1.0))
+ELASTIC_STEPS = 12000
+ELASTIC_PARITY_TOL = 1e-11
+USER_TABLES = ("float64 constant table", "run-time shared table", "per-member table")
 
 
 def log(msg: str) -> None:
@@ -299,6 +329,15 @@ def _variant_label(m):
     return (f"{'float' if t == 'f' else 'double'} {CHAIN_CODES[int(code)]}"
             f"{' kahan' if comp == '1' else ''}{' per-member' if per_member == '1' else ''}"
             f"{' composed' if composed == '1' else ''}")
+
+
+_USER_RE = re.compile(r"user_family_kernelI([fd])Li(\d)ELb([01])ELb([01])E")
+
+
+def _user_label(m):
+    t, table, comp, composed = m.groups()
+    return (f"{'float' if t == 'f' else 'double'} {USER_TABLES[int(table)]}"
+            f"{' kahan' if comp == '1' else ''}{' composed' if composed == '1' else ''}")
 
 
 def _k3_label(m):
@@ -1138,6 +1177,247 @@ def phase_gradients(dev, ph, entries, summary):
     log(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
 
 
+def user_family_headers(dev):
+    """The generated headers phase 18 runs, by label: the elastic pendulum
+    and the 3-point Bézier (one header serves every parameter value)."""
+    import torch
+    from hamilton_tpu_torch.examples import elastic_pendulum
+    from hamilton_tpu_torch.models import bezier
+    from hamilton_tpu_torch.ops import fused_codegen
+
+    systems = {"elastic_pendulum": elastic_pendulum.make_system(device=dev,
+                                                                dtype=torch.float32),
+               "bezier 3 points": bezier(BEZIER3_POINTS, device=dev,
+                                         dtype=torch.float32).system}
+    return {label: fused_codegen.generated(system.fused_forms(system)).header
+            for label, system in systems.items()}
+
+
+def phase_user_family(dev, user_builds, entries, summary):
+    """Phase 18: a user's own family (and a bundled one at a size not
+    compiled) on K1's generated kernel; appends each one's row to
+    ``entries`` and its readings to ``summary``."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from hamilton_tpu_torch import kernels
+    from hamilton_tpu_torch.convert import phase_from_numpy
+    from hamilton_tpu_torch.ensemble import evolve_ensemble_final
+    from hamilton_tpu_torch.examples import elastic_pendulum
+    from hamilton_tpu_torch.integrators.fixed import make_stepper
+    from hamilton_tpu_torch.models import bezier
+    from hamilton_tpu_torch.ops import fused_codegen
+    from hamilton_tpu_torch.ops.fused_step import (
+        KERNEL_INSTANTIATIONS, SUZUKI4_COMPOSITION, _kernel_key, fused_step_kernel,
+        fused_step_reference, fused_stepper,
+    )
+    from hamilton_tpu_torch.state import Phase
+
+    t_phase = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    for label, (key, build) in user_builds.items():
+        regs = ptxas_report(build.log, _USER_RE, _user_label)
+        if not regs:
+            raise AssertionError(f"nvcc printed no -Xptxas -v report for {label}")
+        log(f"phase 18: build of the generated kernel for {label}: {build.seconds:.1f} s "
+            f"(library {key}), {len(regs)} instantiations")
+        for kname, nreg, st, ld in regs:
+            log(f"ptxas: user_family {label}: {kname:<45} {nreg:3d} registers, spill "
+                f"stores {st} B, spill loads {ld} B")
+        summary[f"user_family_build_s {label}"] = build.seconds
+
+    # (a) the generated kernel against its plain version, bit for bit
+    def elastic(dtype):
+        return elastic_pendulum.make_system(device=dev, dtype=dtype)
+
+    def bezier3(dtype):
+        return bezier(BEZIER3_POINTS, device=dev, dtype=dtype).system
+
+    cases = (("elastic_pendulum", elastic, (0.3, 1.1)), ("bezier 3 points", bezier3, (0.5,)))
+    rng = np.random.default_rng(18)
+    checks = 0
+    for label, make, centre in cases:
+        for dtype in (f32, f64):
+            system = make(dtype)
+            modes = {
+                USER_TABLES[0]: system,
+                USER_TABLES[1]: system.replace_params(
+                    {k: v.clone().requires_grad_(True) for k, v in system.params.items()}),
+                USER_TABLES[2]: system.replace_params({
+                    k: v.expand(BATCH, *v.shape) * torch.as_tensor(
+                        1.0 + 0.01 * rng.standard_normal((BATCH,) + (1,) * v.ndim),
+                        device=dev, dtype=dtype)
+                    for k, v in system.params.items()}),
+            }
+            n = len(centre)
+            q = np.asarray(centre) + 0.01 * rng.standard_normal((BATCH, n))
+            p = 0.05 * rng.standard_normal((BATCH, n))
+            ph = phase_from_numpy(q, p, device=dev, dtype=dtype)
+            for mode, sysm in modes.items():
+                forms = sysm.fused_forms(sysm)
+                if _kernel_key(forms) in KERNEL_INSTANTIATIONS:
+                    raise AssertionError(f"{label} has a hand-written instantiation")
+                for comp in (False, True):
+                    for composition in ((1.0,), SUZUKI4_COMPOSITION):
+                        st = fused_stepper(forms, iters=(2, 1), compensated=comp,
+                                           composition=composition)
+                        carry = st.init(ph)
+                        state, table = carry if forms.consts is None else (carry, None)
+                        state = state.detach()
+                        table = None if table is None else table.detach()
+                        kw = dict(iters=(2, 1), compensated=comp, steps_per_call=5,
+                                  composition=composition, coef=table)
+                        got, counts = counted(lambda: fused_step_kernel(forms, state, 1e-3,
+                                                                        **kw))
+                        expect_counts(f"{label} {mode}", counts, user_family=1)
+                        with torch.no_grad():
+                            want = fused_step_reference(forms, state, 1e-3, **kw)
+                        torch.cuda.synchronize()
+                        err = float((got.double() - want.double()).abs().max())
+                        same = torch.equal(got, want) and all_finite(got)
+                        checks += 1
+                        if not same:
+                            raise AssertionError(
+                                f"{label} {str(dtype)[6:]} {mode}{' kahan' if comp else ''}"
+                                f"{' composed' if len(composition) > 1 else ''}: generated "
+                                f"kernel differs from its plain version by {err:.3e}")
+            log(f"phase 18 ok: {label} {str(dtype)[6:]} generated kernel vs plain, {BATCH} "
+                f"members, 5 steps: equal bit for bit in all 12 modes (3 tables x "
+                f"compensated or not x plain or composed)")
+    for dtype in (f32, f64):
+        x = torch.as_tensor(rng.standard_normal(1 << 20), device=dev, dtype=dtype)
+        for c in (0.3, 7.0):
+            recip = x * (torch.tensor(1.0, device=dev, dtype=dtype)
+                         / torch.tensor(c, device=dev, dtype=dtype))
+            full = x / torch.full_like(x, c)
+            if not torch.equal(x / c, recip):
+                raise AssertionError(f"x / {c} on the card is not x * (1/T({c})) in "
+                                     f"{dtype}: the generated code's rounding assumes it is")
+            log(f"phase 18 ok: {str(dtype)[6:]} x / {c} on the card equals x * (T(1)/T({c})) "
+                f"bit for bit; it differs from x / full_like(x, {c}) in "
+                f"{int((x / c != full).sum())} of {x.numel()} elements")
+    summary["user_family_bitwise_checks"] = checks
+
+    # (b) the float64 kernel against the library leapfrog
+    sys64 = elastic_pendulum.make_system(spring_k=3.0 * 9.8, device=dev, dtype=f64)
+    rng_b = np.random.default_rng(0)
+    qb = np.stack([0.3 + 0.02 * rng_b.standard_normal(1024),
+                   1.0 + 0.1 * rng_b.standard_normal(1024)], axis=-1)
+    ph_b = phase_from_numpy(qb, 0.05 * rng_b.standard_normal((1024, 2)), device=dev,
+                            dtype=f64)
+    lib = make_stepper(sys64, "leapfrog", iters=(3, 2))
+    fus = make_stepper(sys64, "leapfrog_fused", iters=(3, 2))
+    dt_b = torch.tensor(1e-3, dtype=f64)
+
+    def two_steps():
+        c_lib, c_fus = lib.init(ph_b), fus.init(ph_b)
+        for _ in range(2):
+            c_lib, c_fus = lib.step(c_lib, dt_b), fus.step(c_fus, dt_b)
+        return lib.extract(c_lib), fus.extract(c_fus)
+
+    (a, b), counts = counted(two_steps)
+    expect_counts("elastic pendulum parity", counts, user_family=2)
+    err = max(float((a.q - b.q).abs().max()), float((a.p - b.p).abs().max()))
+    log(f"phase 18 {'ok' if err <= ELASTIC_PARITY_TOL else 'FAILED'}: elastic pendulum float64 "
+        f"(3,2) generated kernel vs library leapfrog, 1024 members, 2 steps: {err:.2e}")
+    if not err <= ELASTIC_PARITY_TOL:
+        raise AssertionError(f"elastic pendulum kernel vs library leapfrog: {err:.3e}")
+    summary["elastic_kernel_vs_library"] = err
+
+    # (c) other parameter values build nothing
+    runs = kernels.NVCC_RUNS["count"]
+    for k, m in ((10.0, 1.0), (55.0, 0.6)):
+        other = elastic_pendulum.make_system(mass=m, spring_k=k, device=dev, dtype=f32)
+        forms = other.fused_forms(other)
+        key, _ = kernels.build_user_family(fused_codegen.generated(forms).header)
+        state = fused_stepper(forms, iters=(2, 1)).init(phase_from_numpy(
+            np.full((8, 2), [0.3, 1.1]), np.zeros((8, 2)), device=dev, dtype=f32))
+        fused_step_kernel(forms, state, 1e-3, iters=(2, 1), compensated=False)
+        if key != user_builds["elastic_pendulum"][0] or kernels.NVCC_RUNS["count"] != runs:
+            raise AssertionError(f"other parameter values rebuilt the kernel ({key}, "
+                                 f"{kernels.NVCC_RUNS['count'] - runs} nvcc runs)")
+    log("phase 18 ok: other parameter values (k = 10, 55; m = 1, 0.6) reuse library "
+        f"{user_builds['elastic_pendulum'][0]} and launch it: no nvcc run")
+
+    # (d) the example at 16384 members
+    results = {}
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc, counts = counted(lambda: elastic_pendulum.main(
+            ["--fused", "--sweep", str(BATCH), "--device", "cuda"], results=results))
+    el = time.perf_counter() - t0
+    for line in buf.getvalue().strip().splitlines():
+        log(f"phase 18: elastic_pendulum | {line}")
+    expect_counts("elastic pendulum example", counts, user_family=ELASTIC_STEPS + 2)
+    if rc != 0:
+        raise AssertionError(f"the elastic pendulum example returned {rc}")
+    if results["launches"] != {"user_family": ELASTIC_STEPS}:
+        raise AssertionError(f"the sweep's launches {results['launches']}")
+    log(f"phase 18 ok: elastic_pendulum --fused --sweep {BATCH}: {el:.1f} s in all, sweep "
+        f"{results['seconds']:.3f} s = {results['member_steps_per_sec']:.6e} member-steps/s, "
+        f"{results['launches']['user_family']} K1 launches in the sweep (+2 in the parity "
+        f"stage), max|dH/H0| {results['max_drift']:.6e}, parity {results['parity_err']:.2e}, "
+        f"resonance peak at k/k_res {results['peak_k_over_k_res']:.4f}")
+    summary.update({"elastic_member_steps_per_sec": results["member_steps_per_sec"],
+                    "elastic_sweep_seconds": results["seconds"],
+                    "elastic_max_drift": results["max_drift"],
+                    "elastic_peak_k_over_k_res": float(results["peak_k_over_k_res"]),
+                    "elastic_launches": results["launches"]["user_family"]})
+
+    # (e) the 3-point Bézier as a family cell
+    dt_bz = 2.5e-4
+    n_bz = round(FAMILY_HORIZON / dt_bz)
+    bz32 = bezier3(f32)
+    rng_e = np.random.default_rng(11)
+    ph_bz = family_phase(bezier(BEZIER3_POINTS, device=dev, dtype=f64), BATCH, 0.05, rng_e,
+                         dev)
+    t0 = time.perf_counter()
+    (fin, drift), counts = counted(lambda: evolve_ensemble_final(
+        bz32, ph_bz, dt_bz, n_bz, method="leapfrog_fused", iters=(2, 0), compensated=True,
+        drift_every=FAMILY_DRIFT_EVERY, drift_dtype=f64, steps_per_call=FAMILY_SPC))
+    el_bz = time.perf_counter() - t0
+    expect_counts("bezier 3 points", counts, user_family=n_bz // FAMILY_SPC)
+    if not all_finite(fin.q, fin.p, drift) or tuple(fin.q.shape) != (BATCH, 1):
+        raise AssertionError("bezier 3 points: output not finite or not (16384, 1)")
+    bz_rate, bz_drift = BATCH * n_bz / el_bz, float(drift.max())
+    log(f"phase 18: bezier 3 points {BATCH} x n=1 float32 (2,0) kahan dt={dt_bz}, {n_bz} steps "
+        f"(t = {FAMILY_HORIZON:g}) in {el_bz:.3f} s: {bz_rate:.6e} member-steps/s, "
+        f"max|dH/H0| {bz_drift:.6e}, launches {counts['user_family']}")
+    summary.update({"bezier3_fused_member_steps_per_sec": bz_rate,
+                    "bezier3_fused_max_drift": bz_drift})
+
+    # (f) each one's launch at its run's shape
+    k_res = 3.0 * 9.8
+    k_grid = torch.linspace(0.35 * k_res, 2.0 * k_res, BATCH, dtype=f32, device=dev)
+    sweep = elastic(f32).replace_params({
+        "mass": torch.ones(BATCH, dtype=f32, device=dev),
+        "gravity": torch.full((BATCH,), 9.8, dtype=f32, device=dev),
+        "spring_k": k_grid, "rest_length": torch.ones(BATCH, dtype=f32, device=dev)})
+    forms = sweep.fused_forms(sweep)
+    st = fused_stepper(forms, iters=(2, 1))
+    q0 = torch.stack([torch.full((BATCH,), 0.01, dtype=f32, device=dev),
+                      1.0 + 9.8 / k_grid + 0.15], dim=-1)
+    state, table = st.init(Phase(q0, torch.zeros_like(q0)))
+    row = k1_row("user_family elastic_pendulum n=2 float32 (2,1) per-member tables, 1 step a "
+                 "launch", USER_SOURCE, forms, state, 5e-3,
+                 dict(iters=(2, 1), compensated=False, steps_per_call=1, coef=table), sweep,
+                 "leapfrog_fused", results["launches"]["user_family"])
+    entries.append(row)
+    summary["elastic_k1_ms"] = row["ms"]
+    forms_bz = bz32.fused_forms(bz32)
+    st_bz = fused_stepper(forms_bz, iters=(2, 0), compensated=True, steps_per_call=FAMILY_SPC)
+    row = k1_row(f"user_family bezier 3 points n=1 float32 kahan (2,0)", USER_SOURCE, forms_bz,
+                 st_bz.init(ph_bz.astype(f32)), dt_bz,
+                 dict(iters=(2, 0), compensated=True, steps_per_call=FAMILY_SPC), bz32,
+                 "leapfrog_fused", counts["user_family"])
+    entries.append(row)
+    summary["bezier3_k1_ms"] = row["ms"]
+    log(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
+
+
 def _launch_name(entry):
     """The name an entry's launches are counted under."""
     from hamilton_tpu_torch import kernels
@@ -1179,9 +1459,19 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     # ---- build ----------------------------------------------------------
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    builds = kernels.build_all()
-    log(f"build: {time.perf_counter() - t0:.1f} s for {len(builds)} sources at once, one nvcc "
+    headers = user_family_headers(dev)
+    with ThreadPoolExecutor(max_workers=len(headers)) as pool:
+        user_futures = {label: pool.submit(kernels.build_user_family, header)
+                        for label, header in headers.items()}
+        builds = kernels.build_all()
+        user_builds = {label: f.result() for label, f in user_futures.items()}
+    log(f"build: {time.perf_counter() - t0:.1f} s for {len(builds)} sources and "
+        f"{len(user_builds)} generated families at once (generated: " + ", ".join(
+            f"{label} {b.seconds:.1f} s" for label, (_, b) in user_builds.items()) + "), "
+        f"one nvcc "
         f"a source or part (" + ", ".join(
             f"{name}.cu {b.seconds:.1f} s" + (
                 f" in {len(b.paths)} parts: " + " ".join(f"{x:.1f}" for x in b.part_seconds)
@@ -1908,6 +2198,9 @@ def main() -> int:
 
     # ---- phase 17: gradients at full width ---------------------------------------
     phase_gradients(dev, ph, entries, summary)
+
+    # ---- phase 18: a user's own family on the generated kernel ---------------------
+    phase_user_family(dev, user_builds, entries, summary)
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

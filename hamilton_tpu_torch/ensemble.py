@@ -20,13 +20,17 @@ in ``drift_dtype`` (``torch.float64`` for the f32 headline: the H100 has
 hardware f64, so the reference's double-f32 sampler ``ops/df32.py``, which
 exists because the TPU emulates f64, is not ported).
 
-Not ported yet: ``observable=`` streaming reductions (ROADMAP M12), the
-trajectory-emitting ``evolve_ensemble`` (M11) and ``evolve_ensemble_sharded``
-(M13).
+``observable=`` with ``obs_every=`` streams a user reduction through the
+loop (:mod:`hamilton_tpu_torch.utils.observables`): every ``obs_every``
+dt-steps ``observable.update(obs_state, phase, step)`` runs on the current
+phase, and a transforming observable's replacement phase re-inits the
+stepper carry.  Not ported yet: the trajectory-emitting ``evolve_ensemble``
+(M11) and ``evolve_ensemble_sharded`` (M13).
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import Optional
 
 import torch
@@ -67,21 +71,32 @@ def _drift_measure(system: System, phase0: Phase, drift_dtype):
 
 
 def _final_loop_body(stepper, dt, measure_h, h0, h_scale, drift_every,
-                     track_drift, step_offset=0):
+                     track_drift, observable=None, obs_every=None, step_offset=0):
     """The hot-loop body shared by both drivers: iteration ``i`` advances
-    ``stepper.substeps`` dt-steps and, when the global dt-step index is a
-    multiple of ``drift_every``, folds the sampled drift into the running
-    maximum.  ``state`` is ``(carry, drift)``."""
+    ``stepper.substeps`` dt-steps; when the global dt-step index is a
+    multiple of ``drift_every`` it folds the sampled drift into the running
+    maximum, and when it is a multiple of ``obs_every`` it updates the
+    observable (re-initing the carry from a transforming observable's
+    phase: the Kahan residuals and warm starts restart, as in the
+    reference).  ``state`` is ``(carry, drift, obs)``."""
     sub = stepper.substeps
+    transforms = getattr(observable, "transforms_state", False)
 
     def body(i, state):
-        carry, drift = state
+        carry, drift, obs = state
         carry = stepper.step(carry, dt)
         step = step_offset + (i + 1) * sub
         if track_drift and step % drift_every == 0:
             h = measure_h(stepper.extract(carry))
             drift = torch.maximum(drift, torch.abs(h - h0) / h_scale)
-        return carry, drift
+        if observable is not None and step % obs_every == 0:
+            ph = stepper.extract(carry)
+            if transforms:
+                obs, ph = observable.update(obs, ph, step)
+                carry = stepper.init(ph)
+            else:
+                obs = observable.update(obs, ph, step)
+        return carry, drift, obs
 
     return body
 
@@ -99,11 +114,27 @@ def _check_substeps(stepper, n_steps, drift_every, track_drift):
     return sub
 
 
-def _check_unported(observable):
-    if observable is not None:
-        raise NotImplementedError(
-            "observable= streaming reductions are not ported yet (ROADMAP M12)"
+def _check_obs_every(observable, obs_every, sub):
+    if observable is not None and (obs_every is None or obs_every % sub != 0):
+        raise ValueError(
+            f"observable needs obs_every set to a multiple of the stepper's "
+            f"substeps ({sub}); got {obs_every}"
         )
+
+
+def _callback_wants_obs(cb) -> bool:
+    """True when ``cb`` takes the ``(ci, carry, drift, obs)`` carry-callback
+    signature, False for the three-argument ``(ci, carry, drift)`` one;
+    callables that cannot be inspected get four."""
+    try:
+        sig = inspect.signature(cb)
+    except (TypeError, ValueError):
+        return True
+    try:
+        sig.bind(0, None, None, None)
+        return True
+    except TypeError:
+        return False
 
 
 def _sync(t: torch.Tensor) -> None:
@@ -143,6 +174,7 @@ def evolve_ensemble_final(
     drift_dtype=None,
     steps_per_call: int = 1,
     observable=None,
+    obs_every: Optional[int] = None,
 ):
     """Evolve a ``(B, n)`` batch to its final state without materializing
     trajectories.
@@ -151,9 +183,10 @@ def evolve_ensemble_final(
     per-member maximum of ``|H(t) − H(0)| / max(|H(0)|, 1)`` sampled every
     ``drift_every`` dt-steps, or None when ``track_drift=False`` (which
     evaluates no Hamiltonian).  See :func:`_drift_measure` for
-    ``drift_dtype``.
+    ``drift_dtype``.  With ``observable`` (and ``obs_every``, a multiple of
+    the stepper's substeps) it streams that reduction through the loop and
+    returns ``(final_phase, max_drift, obs_state)``.
     """
-    _check_unported(observable)
     if n_steps % drift_every != 0:
         raise ValueError(f"{n_steps=} not divisible by {drift_every=}")
     stepper = make_stepper(
@@ -161,17 +194,22 @@ def evolve_ensemble_final(
         steps_per_call=steps_per_call,
     )
     sub = _check_substeps(stepper, n_steps, drift_every, track_drift)
+    _check_obs_every(observable, obs_every, sub)
     dt = _dt_scalar(dt, phase0)
     measure_h, h0, h_scale, drift = _drift_setup(
         system, phase0, drift_dtype, track_drift
     )
     body = _final_loop_body(
-        stepper, dt, measure_h, h0, h_scale, drift_every, track_drift
+        stepper, dt, measure_h, h0, h_scale, drift_every, track_drift,
+        observable=observable, obs_every=obs_every,
     )
-    state = (stepper.init(phase0), drift)
+    obs = observable.init(phase0) if observable is not None else 0
+    state = (stepper.init(phase0), drift, obs)
     for i in range(n_steps // sub):
         state = body(i, state)
-    carry, drift = state
+    carry, drift, obs = state
+    if observable is not None:
+        return stepper.extract(carry), drift, obs
     return stepper.extract(carry), drift
 
 
@@ -194,6 +232,8 @@ def evolve_ensemble_chunked(
     initial_carry=None,
     initial_drift: Optional[torch.Tensor] = None,
     observable=None,
+    obs_every: Optional[int] = None,
+    initial_obs=None,
 ):
     """Like :func:`evolve_ensemble_final`, with the horizon cut into
     ``n_steps // chunk_steps`` chunks and a host hook after each.
@@ -204,15 +244,17 @@ def evolve_ensemble_chunked(
     each chunk, once the chunk's device work has finished.  ``chunk_steps``
     must divide ``n_steps`` and be a multiple of ``drift_every``.
 
-    **Exact resume:** ``carry_callback(chunk_index, carry, drift)`` receives
-    the raw carry after each chunk (for the fused stepper under per-member
-    params, ``(state, table)``); ``initial_carry``/``initial_drift``
-    restart from one, and the continuation is bitwise identical to the
-    uninterrupted run.  ``phase0`` stays the original run's initial phase
-    (it defines H₀).  The reference's fourth callback argument, the
-    streaming-observable state, arrives with ``observable=`` (ROADMAP M12).
+    **Exact resume:** ``carry_callback(chunk_index, carry, drift, obs)``
+    receives the raw carry after each chunk (for the fused stepper under
+    per-member params, ``(state, table)``) and the streaming-observable
+    state (0 without an observable; a three-argument callback gets the first
+    three); ``initial_carry``/``initial_drift``/``initial_obs`` restart from
+    one, and the continuation, the observable's accumulator included, is
+    bitwise identical to the uninterrupted run.  ``phase0`` stays the
+    original run's initial phase (it defines H₀).  ``observable`` and
+    ``obs_every`` as in :func:`evolve_ensemble_final`; ``obs_every`` must
+    divide ``chunk_steps``.
     """
-    _check_unported(observable)
     if n_steps % chunk_steps != 0:
         raise ValueError(f"{n_steps=} not divisible by {chunk_steps=}")
     if track_drift and chunk_steps % drift_every != 0:
@@ -222,25 +264,43 @@ def evolve_ensemble_chunked(
         steps_per_call=steps_per_call,
     )
     sub = _check_substeps(stepper, chunk_steps, drift_every, track_drift)
+    _check_obs_every(observable, obs_every, sub)
+    if observable is not None and chunk_steps % obs_every != 0:
+        raise ValueError(
+            f"{chunk_steps=} not divisible by {obs_every=} (observable sampling "
+            f"must stay globally aligned across chunks)"
+        )
     dt = _dt_scalar(dt, phase0)
     measure_h, h0, h_scale, drift = _drift_setup(
         system, phase0, drift_dtype, track_drift
     )
-    # chunk boundaries are multiples of chunk_steps, which drift_every
-    # divides, so one body with offset 0 samples at the global cadence
+    # chunk boundaries are multiples of chunk_steps, which drift_every and
+    # obs_every divide, so one body with offset 0 samples at the global
+    # cadence
     body = _final_loop_body(
-        stepper, dt, measure_h, h0, h_scale, drift_every, track_drift
+        stepper, dt, measure_h, h0, h_scale, drift_every, track_drift,
+        observable=observable, obs_every=obs_every,
     )
     carry = stepper.init(phase0) if initial_carry is None else initial_carry
     if track_drift and initial_drift is not None:
         drift = initial_drift
+    if initial_obs is not None:
+        obs = initial_obs
+    else:
+        obs = observable.init(phase0) if observable is not None else 0
+    wants_obs = carry_callback is not None and _callback_wants_obs(carry_callback)
     for ci in range(n_steps // chunk_steps):
         for i in range(chunk_steps // sub):
-            carry, drift = body(i, (carry, drift))
+            carry, drift, obs = body(i, (carry, drift, obs))
         if callback is not None or carry_callback is not None:
             _sync(phase0.q)
         if callback is not None:
             callback(ci, stepper.extract(carry), drift)
         if carry_callback is not None:
-            carry_callback(ci, carry, drift)
+            if wants_obs:
+                carry_callback(ci, carry, drift, obs)
+            else:
+                carry_callback(ci, carry, drift)
+    if observable is not None:
+        return stepper.extract(carry), drift, obs
     return stepper.extract(carry), drift

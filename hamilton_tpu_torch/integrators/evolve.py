@@ -23,6 +23,8 @@ PyTorch counterpart of :mod:`hamilton_tpu.integrators.evolve`:
 
 from __future__ import annotations
 
+import functools
+import types
 from typing import List, Optional, Sequence
 
 import torch
@@ -191,14 +193,87 @@ def _rebuild(like, leaves):
     return type(like)(*parts) if hasattr(like, "_fields") else tuple(parts)
 
 
+def _captured_tensors(obj, found: dict, seen: set, depth: int = 0) -> None:
+    """The tensors needing a gradient that ``obj`` reaches: itself, a
+    function's closure cells, defaults and the globals its code names, a
+    bound method's object, a partial's arguments, a container's items, a
+    module's parameters and buffers, and a :class:`System`'s functions,
+    inertia and params.  Collected into ``found`` by id, in the order met."""
+    if depth > 12 or id(obj) in seen:
+        return
+    seen.add(id(obj))
+    rec = lambda x: _captured_tensors(x, found, seen, depth + 1)  # noqa: E731
+    if isinstance(obj, torch.Tensor):
+        if obj.requires_grad:
+            found.setdefault(id(obj), obj)
+    elif isinstance(obj, System):
+        for name in ("_inertia", "params", "coords", "potential", "inertia_fn",
+                     "jacobian_fn", "mass_matrix_fn", "fused_forms"):
+            rec(getattr(obj, name, None))
+    elif isinstance(obj, (list, tuple, set, frozenset)):
+        for x in obj:
+            rec(x)
+    elif isinstance(obj, dict):
+        for x in obj.values():
+            rec(x)
+    elif isinstance(obj, torch.nn.Module):
+        for x in list(obj.parameters()) + list(obj.buffers()):
+            rec(x)
+    elif isinstance(obj, functools.partial):
+        rec(obj.func), rec(obj.args), rec(obj.keywords)
+    elif isinstance(obj, types.MethodType):
+        rec(obj.__self__), rec(obj.__func__)
+    elif isinstance(obj, types.FunctionType):
+        for cell in obj.__closure__ or ():
+            try:
+                rec(cell.cell_contents)
+            except ValueError:  # an empty cell
+                pass
+        rec(obj.__defaults__), rec(obj.__kwdefaults__)
+        codes, names = [obj.__code__], set()
+        while codes:
+            code = codes.pop()
+            names.update(code.co_names)
+            codes += [c for c in code.co_consts if isinstance(c, types.CodeType)]
+        for name in sorted(names):
+            if name in obj.__globals__ and not isinstance(obj.__globals__[name],
+                                                          types.ModuleType):
+                rec(obj.__globals__[name])
+
+
+def _unreached(outs, inputs):
+    """A tensor needing a gradient that ``outs`` depend on other than
+    through ``inputs``, or None: walks the recomputed graph back from
+    ``outs``, stopping at the inputs."""
+    stop = {x.grad_fn for x in inputs if x.grad_fn is not None}
+    leaves = {id(x) for x in inputs if x.grad_fn is None}
+    stack = [o.grad_fn for o in outs if o.grad_fn is not None]
+    visited = set()
+    while stack:
+        node = stack.pop()
+        if node in visited or node in stop:
+            continue
+        visited.add(node)
+        var = getattr(node, "variable", None)
+        if var is not None:  # a leaf's AccumulateGrad
+            if id(var) not in leaves:
+                return var
+            continue
+        stack += [f for f, _ in node.next_functions if f is not None]
+    return None
+
+
 class _Remat(torch.autograd.Function):
     """One step call that keeps no intermediates for the backward, which
     runs it again from its saved inputs and differentiates that
     (``evolve_ham_fixed(remat=True)``).  Its inputs are the carry's tensors,
-    then the parameter tensors that need a gradient: the step reads those
-    from the system, not from its arguments, so their gradients are returned
-    here.  (``torch.utils.checkpoint``'s saved-tensor hooks would refuse the
-    ``torch.func`` transforms of the library leapfrog's force.)"""
+    then every other tensor the step reads that needs a gradient (the
+    system's params and inertia, ``dt``, and the tensors its functions
+    capture: :func:`_captured_tensors`), so their gradients are returned
+    here.  The backward raises if the recomputed step depends on a tensor
+    needing a gradient that is not among them, rather than drop its
+    gradient.  (``torch.utils.checkpoint``'s saved-tensor hooks would refuse
+    the ``torch.func`` transforms of the library leapfrog's force.)"""
 
     @staticmethod
     def forward(ctx, run, n_carry, *tensors):
@@ -216,6 +291,14 @@ class _Remat(torch.autograd.Function):
             outs = ctx.run(carry)
             inputs = [x for x, w in zip(carry + list(ctx.params), wanted) if w]
             pairs = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
+            missed = _unreached([o for o, _ in pairs], inputs)
+            if missed is not None:
+                raise RuntimeError(
+                    f"evolve_ham_fixed(remat=True): the step depends on a tensor of "
+                    f"shape {tuple(missed.shape)} that needs a gradient and that the "
+                    f"recomputation cannot return one to (it is not in the system's "
+                    f"params, inertia or functions' captures); pass it in "
+                    f"System.params, or use remat=False")
             got = iter(torch.autograd.grad([o for o, _ in pairs], inputs,
                                            [g for _, g in pairs], allow_unused=True))
         return (None, None) + tuple(next(got) if w else None for w in wanted)
@@ -268,10 +351,11 @@ def evolve_ham_fixed(
         # keeps a Python float, which its launches read without a host sync
         dt = torch.as_tensor(dt, dtype=phase0.q.dtype, device=phase0.q.device)
 
-    params = [v for v in (system.params or {}).values()
-              if isinstance(v, torch.Tensor) and v.requires_grad]
-    if isinstance(dt, torch.Tensor) and dt.requires_grad:
-        params.append(dt)
+    params = []
+    if remat:
+        captured: dict = {}
+        _captured_tensors((system, dt), captured, set())
+        params = list(captured.values())
 
     def step(carry):
         if not (remat and torch.is_grad_enabled()):

@@ -9,6 +9,13 @@ starts one nvcc per source at once, or one per part of a source that
 ``nvcc``; importing this module builds nothing.  A failed build raises with
 nvcc's stderr.
 
+``csrc/user_family_step.cu`` is a template: it includes the header that
+``ops.fused_codegen`` generates from a family's forms, and
+:func:`build_user_family` compiles it at first use for each header, named
+by a hash of the header, the template, the shared headers and the flags
+(a family's parameter values are not in the header, so they rebuild
+nothing).
+
 Each launch function counts its launches in ``<function>.launches`` (a plain
 integer: :func:`reset_launches` sets them all to 0 before a run,
 :func:`launch_counts` reads them after) so that a run can show that its main
@@ -37,9 +44,11 @@ __all__ = [
     "PARTS",
     "build",
     "build_all",
+    "build_user_family",
     "fused_step_launch",
     "chain_variants_launch",
     "family_step_launch",
+    "user_family_launch",
     "fma_probe_launch",
     "sin_probe_launch",
     "add_one_launch",
@@ -74,7 +83,8 @@ NVCC_FLAGS = (
 #: would show at the scale of ``vdot_est`` itself; the chain's L⁻¹ solves go
 #: through the explicit inverse factor, whose entries grow with cond(K), so
 #: an ulp there shows at cond(K) times it.
-SOURCE_FLAGS = {"family_step": ("-fmad=false",), "chain_variants": ("-fmad=false",)}
+SOURCE_FLAGS = {"family_step": ("-fmad=false",), "chain_variants": ("-fmad=false",),
+                "user_family_step": ("-fmad=false",)}
 
 #: Sources built as several libraries at once: name → (number of parts, the
 #: part that holds a launch's ``(dtype_code, code)``).  Part ``i`` is the
@@ -145,6 +155,33 @@ def _flags(name: str, part: Optional[int]):
 _BUILT: Dict[tuple, tuple] = {}
 
 
+#: nvcc runs in this process (a reused build runs none).
+NVCC_RUNS = {"count": 0}
+
+
+def _compile(src: Path, lib: Path, log: Path, flags, what: str) -> tuple:
+    """Run nvcc on ``src`` into ``lib`` (atomically: a concurrent build
+    never loads a partial file), keep its report in ``log``;
+    ``(library, seconds, report)``.  Raises with nvcc's stderr."""
+    NVCC_RUNS["count"] += 1
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib.parent / f"{lib.stem}.{os.getpid()}.tmp.so"
+    cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}) building {what}:\n"
+            f"{' '.join(cmd)}\n{proc.stderr}"
+        )
+    report = proc.stdout + proc.stderr
+    log.write_text(report)
+    os.replace(tmp, lib)
+    return lib, seconds, report
+
+
 def _build_unit(unit: tuple) -> tuple:
     """Reuse a finished build of ``unit`` or run nvcc on it (it waits for
     nvcc, so the seconds are this unit's own); raises on nvcc failure."""
@@ -155,22 +192,7 @@ def _build_unit(unit: tuple) -> tuple:
     if lib.exists() and log.exists():
         _BUILT[unit] = (lib, 0.0, log.read_text())
         return _BUILT[unit]
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = _BUILD_DIR / f"{lib.stem}.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *_flags(name, part), "-o", str(tmp), str(src)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}) building csrc/{name}.cu:\n"
-            f"{' '.join(cmd)}\n{proc.stderr}"
-        )
-    report = proc.stdout + proc.stderr
-    log.write_text(report)
-    os.replace(tmp, lib)  # atomic: a concurrent build never loads a partial file
-    _BUILT[unit] = (lib, seconds, report)
+    _BUILT[unit] = _compile(src, lib, log, _flags(name, part), f"csrc/{name}.cu")
     return _BUILT[unit]
 
 
@@ -202,6 +224,43 @@ def build_all() -> Dict[str, KernelBuild]:
     units = [unit for name in SOURCES for unit in _units(name)]
     built = dict(zip(units, _build_units(units)))
     return {name: _merged([built[u] for u in _units(name)]) for name in SOURCES}
+
+
+#: The template of the generated families' kernel.
+USER_FAMILY_TEMPLATE = _CSRC / "user_family_step.cu"
+
+
+def _user_family_paths(header: str):
+    """The build directory of a generated header: named by a sha256 of the
+    header, the template, the shared headers and the flags."""
+    flags = NVCC_FLAGS + SOURCE_FLAGS["user_family_step"]
+    cuh = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
+    key = hashlib.sha256(header.encode() + USER_FAMILY_TEMPLATE.read_bytes() + cuh
+                         + " ".join(flags).encode()).hexdigest()[:16]
+    return key, _BUILD_DIR / f"user_family-{key}", flags
+
+
+def build_user_family(header: str) -> Tuple[str, KernelBuild]:
+    """Build (or reuse) ``csrc/user_family_step.cu`` around a generated
+    header (``ops.fused_codegen``): ``(key, build)``, the key naming the
+    library for :func:`user_family_launch`.  The header is written
+    atomically into its own directory of ``_build/``, beside the library and
+    nvcc's ``-Xptxas -v`` report.  Raises with nvcc's report on failure."""
+    key, where, flags = _user_family_paths(header)
+    unit = ("user_family", key)
+    if unit not in _BUILT:
+        lib, log = where / "libuser_family.so", where / "build.log"
+        if lib.exists() and log.exists():
+            _BUILT[unit] = (lib, 0.0, log.read_text())
+        else:
+            where.mkdir(parents=True, exist_ok=True)
+            tmp = where / f"user_family.h.{os.getpid()}.tmp"
+            tmp.write_text(header)
+            os.replace(tmp, where / "user_family.h")
+            _BUILT[unit] = _compile(USER_FAMILY_TEMPLATE, lib, log, flags + ("-I", str(where)),
+                                    f"csrc/user_family_step.cu for {where / 'user_family.h'}")
+    lib, seconds, report = _BUILT[unit]
+    return key, KernelBuild((lib,), seconds, report, (seconds,))
 
 
 _VP, _INT, _LL, _DBL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
@@ -255,10 +314,22 @@ def _library(name: str, part: Optional[int] = None) -> ctypes.CDLL:
     return lib
 
 
-def _call(name: str, fn: str, what: str, *args, part: Optional[int] = None) -> None:
-    """Call a C entry point (of one part of a source built in parts); raise
-    unless it launched (0)."""
-    lib = _library(name, part)
+@functools.lru_cache(maxsize=None)
+def _user_library(key: str) -> ctypes.CDLL:
+    """The loaded library of a generated family, built by
+    :func:`build_user_family` in this process."""
+    lib = ctypes.CDLL(str(_BUILT[("user_family", key)][0]))
+    lib.hamilton_user_family_step.argtypes = _SIGNATURES["family_step"]["hamilton_family_step"]
+    lib.hamilton_user_family_step.restype = ctypes.c_int
+    lib.hamilton_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.hamilton_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _call(name: str, fn: str, what: str, *args, part=None) -> None:
+    """Call a C entry point (of one part of a source built in parts, or of
+    the generated family ``part`` names); raise unless it launched (0)."""
+    lib = _user_library(part) if name == "user_family" else _library(name, part)
     code = getattr(lib, fn)(*args)
     if code == -1:
         raise ValueError(f"{what} kernel not instantiated for these arguments: {args}")
@@ -332,6 +403,37 @@ chain_variants_launch = _k1_launcher("chain_variants", "hamilton_chain_variant_s
 family_step_launch = _k1_launcher("family_step", "hamilton_family_step", "family-step")
 
 
+def user_family_launch(
+    *,
+    key: str,
+    dtype_code: int,
+    const_table: bool,
+    compensated: bool,
+    per_member: bool,
+    coef: int,
+    state_in: int,
+    state_out: int,
+    batch: int,
+    dt: float,
+    iters_p: int,
+    iters_q: int,
+    steps_per_call: int,
+    weights: tuple,
+    stream: int,
+) -> None:
+    """K1 for a generated family (``csrc/user_family_step.cu`` around the
+    header :func:`build_user_family` built as ``key``): as
+    :func:`fused_step_launch`, with ``const_table`` for the flat float64
+    constant table (null when the family has none), else a run-time table of
+    the state's dtype, shared or (``per_member``) ``(L, B)``.  Raises if the
+    launch fails."""
+    flags = int(compensated) << 1 | int(per_member) << 2
+    _call("user_family", "hamilton_user_family_step", "generated family step", dtype_code,
+          0 if const_table else 1, flags, coef, state_in, state_out, batch, dt, iters_p,
+          iters_q, steps_per_call, len(weights), _weights(weights), stream, part=key)
+    user_family_launch.launches += 1
+
+
 # The batched tiny-SPD entries (K2a-K2e, csrc/batched_spd.cu).  Each takes
 # member-major contiguous operands that the caller has validated
 # (ops.batched_spd): K and L (B, n, n), sqrt(M) J (B, m, n), b and x (B, n).
@@ -403,6 +505,7 @@ LAUNCHERS = {
     "fused_step": fused_step_launch,
     "chain_variants": chain_variants_launch,
     "family_step": family_step_launch,
+    "user_family": user_family_launch,
     "spd_solve": spd_solve_launch,
     "cholesky": cholesky_launch,
     "cho_solve": cho_solve_launch,

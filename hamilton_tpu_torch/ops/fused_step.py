@@ -6,12 +6,15 @@ whose physics admit *closed forms* states them once, as a
 :class:`FusedForms` contract, against entry accessors ``at`` and a math
 namespace ``fm`` (:data:`FM_TORCH`); the same family code then evaluates on
 ``(B,)`` member columns (the plain version, :func:`fused_step_reference`)
-and, for the families compiled into them, runs inside the CUDA kernels —
-``csrc/fused_step.cu`` for the serial chain, ``csrc/family_step.cu`` for the
-bundled model families (spherical pendulum, two-body, room, spring, ellipse,
-Bézier), one step template shared through ``csrc/fused_step.cuh`` — which
-compute the identical arithmetic in the same order with one thread per
-member.
+and runs inside the CUDA kernels — ``csrc/fused_step.cu`` and
+``csrc/chain_variants.cu`` for the serial chain, ``csrc/family_step.cu``
+for the bundled model families (spherical pendulum, two-body, room, spring,
+ellipse, Bézier), and for any other family (a user's own, or a bundled one
+at a size not compiled) ``csrc/user_family_step.cu`` around code generated
+from the family's forms at first use (:mod:`~hamilton_tpu_torch.ops.
+fused_codegen`), one step template shared through ``csrc/fused_step.cuh``
+— which compute the identical arithmetic in the same order with one thread
+per member.
 
 The state of a fused stepper is one contiguous tensor ``(n_sv, n, B)``
 (batch-minor, so the kernel's loads and stores coalesce): ``q, p, a_est,
@@ -29,9 +32,11 @@ for a parameter sweep: ``FusedForms.arrays_fn`` builds them, and the stepper
 carries them as one batch-minor ``(L, B)`` table beside the state.
 
 A tensor on the CPU runs the plain version; a CUDA tensor launches the
-kernel, or raises when no kernel is compiled for its family, size or
-dtype (:data:`KERNEL_INSTANTIATIONS`; a user's own family raises; user
-families on the card are ROADMAP §2a).
+kernel: the hand-written one for the families and sizes of
+:data:`KERNEL_INSTANTIATIONS`, the generated one for every other family
+(built by nvcc at first use; a build or launch that fails raises, and forms
+that cannot be generated raise ``fused_codegen.GenerationError``).  Other
+dtypes than float32/float64 raise.
 
 Gradients: :func:`fused_step` is differentiable in the state, ``dt`` and
 the coefficient table.  Its backward replays the plain version from the
@@ -48,6 +53,7 @@ from __future__ import annotations
 
 import functools
 import types
+import weakref
 from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
@@ -55,6 +61,7 @@ import torch
 
 from hamilton_tpu_torch import kernels
 from hamilton_tpu_torch.integrators.fixed import Stepper, _iters_pair, _kahan_add
+from hamilton_tpu_torch.ops import fused_codegen
 from hamilton_tpu_torch.state import Phase
 
 __all__ = [
@@ -1050,7 +1057,8 @@ def fused_step_reference(
 #: Bézier's degrees apart).  Each is compiled in float32 and float64,
 #: compensated or not, with a shared or a per-member table (room: shared
 #: only, it has no parameters), plain or composed.  Keep in step with the
-#: three dispatch tables.
+#: three dispatch tables.  Every other family runs on the generated kernel
+#: (``csrc/user_family_step.cu``, :mod:`~hamilton_tpu_torch.ops.fused_codegen`).
 KERNEL_INSTANTIATIONS = {
     ("serial_chain_on", 20, 60): ("fused_step", 20),
     ("serial_chain_on", 5, 15): ("fused_step", 5),
@@ -1078,11 +1086,14 @@ def _kernel_key(forms: FusedForms):
 
 def check_kernel_args(device, dtype, forms: FusedForms, shape,
                       composition=(1.0,)) -> Tuple[float, ...]:
-    """Raise unless the kernel is compiled for this call: a CUDA device, a
-    float32/float64 state, an instantiated (family, n, table length) and at
-    most :data:`MAX_COMPOSITION` composition weights.  Returns the weights as
-    a tuple of floats.  Takes a device (or its string) so the check is
-    testable without a card."""
+    """Raise unless a kernel takes this call: a CUDA device, a float32/
+    float64 state of shape ``(4 or 6, n, B)`` and at most
+    :data:`MAX_COMPOSITION` composition weights; a family outside
+    :data:`KERNEL_INSTANTIATIONS` must have forms the generated kernel can
+    be made from (traced here, once per forms object; raises
+    ``fused_codegen.GenerationError``).  Returns the weights as a tuple of
+    floats.  Takes a device (or its string) so the check is testable without
+    a card."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"the fused-step kernel runs on CUDA, not {device}")
@@ -1091,13 +1102,9 @@ def check_kernel_args(device, dtype, forms: FusedForms, shape,
             f"the fused-step kernel takes float32 or float64, not {dtype}"
         )
     if _kernel_key(forms) not in KERNEL_INSTANTIATIONS:
-        raise ValueError(
-            f"no fused-step kernel is compiled for family {forms.name!r} at "
-            f"n={forms.n} with a table of {sum(forms.coef_lens)}; instantiated "
-            f"(family, n, table length): {list(KERNEL_INSTANTIATIONS)}, each in "
-            f"float32 and float64 (a user's own family on the card is "
-            f"ROADMAP.md §2a; run it on the CPU or with the library leapfrog)"
-        )
+        gen = fused_codegen.generated(forms)
+        if forms.consts is not None and gen.const is None:
+            raise fused_codegen.GenerationError(gen.const_error)
     if len(shape) != 3 or shape[1] != forms.n or shape[0] not in (4, 6):
         raise ValueError(
             f"the fused-step kernel takes a (4 or 6, {forms.n}, B) state, "
@@ -1130,7 +1137,8 @@ def fused_step_kernel(
 ) -> torch.Tensor:
     """Launch the Hopper kernel (``csrc/fused_step.cu`` or
     ``csrc/chain_variants.cu`` for the serial chain, ``csrc/family_step.cu``
-    for the bundled families) on a CUDA state: ``steps_per_call`` steps of
+    for the bundled families, the generated ``csrc/user_family_step.cu`` for
+    any other family) on a CUDA state: ``steps_per_call`` steps of
     the ``(n_sv, n, B)`` state into a new tensor (allocated here; the kernel
     allocates nothing).  ``coef`` is the kernel's one coefficient table on
     the state's device: a shared ``(L,)`` one (:func:`coef_table`, built here
@@ -1143,6 +1151,9 @@ def fused_step_kernel(
     iters_p, iters_q = _iters_pair(iters)
     if not state.is_contiguous():
         raise ValueError("the fused-step kernel needs a contiguous state")
+    if _kernel_key(forms) not in KERNEL_INSTANTIATIONS:
+        return _generated_step(forms, state, dt, coef, compensated, iters_p, iters_q,
+                               steps_per_call, composition)
     if coef is None:
         coef = coef_table(forms, state.device, state.dtype)
     elif coef.ndim == 1 and forms.consts is None and not forms.runtime_shared:
@@ -1157,6 +1168,50 @@ def fused_step_kernel(
         compensated=compensated,
         per_member=coef.ndim == 2,
         coef=coef.data_ptr(),
+        state_in=state.data_ptr(),
+        state_out=out.data_ptr(),
+        batch=state.shape[2],
+        dt=float(dt),
+        iters_p=iters_p,
+        iters_q=iters_q,
+        steps_per_call=steps_per_call,
+        weights=composition,
+        stream=torch.cuda.current_stream(state.device).cuda_stream,
+    )
+    return out
+
+
+#: A generated family's library key and float64 constant tables, by forms
+#: object (weakly: a launch asks on every call).
+_USER_BUILDS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _generated_step(forms, state, dt, coef, compensated, iters_p, iters_q,
+                    steps_per_call, composition):
+    """Launch the generated kernel of ``forms``: with constant shared
+    parameters on the float64 copy of ``forms.consts`` (the plain version
+    reads those Python floats, not ``coef``), else on the run-time shared or
+    per-member table ``coef``.  Builds the kernel at first use."""
+    built = _USER_BUILDS.get(forms)
+    if built is None:
+        key, _ = kernels.build_user_family(fused_codegen.generated(forms).header)
+        built = _USER_BUILDS[forms] = (key, {})
+    key, const_tables = built
+    const = forms.consts is not None
+    if const:
+        coef = const_tables.get(state.device)
+        if coef is None:
+            flat = [float(v) for table in forms.consts for v in table]
+            coef = const_tables[state.device] = torch.tensor(
+                flat, dtype=torch.float64, device=state.device)
+    out = torch.empty_like(state)
+    kernels.user_family_launch(
+        key=key,
+        dtype_code=_DTYPE_CODES[state.dtype],
+        const_table=const,
+        compensated=compensated,
+        per_member=coef.ndim == 2,
+        coef=coef.data_ptr() if coef.numel() else 0,
         state_in=state.data_ptr(),
         state_out=out.data_ptr(),
         batch=state.shape[2],

@@ -284,13 +284,21 @@ def test_against_semiseparable_over_steps(solver):
 
 
 def test_kernel_instantiations_accepted_and_refused():
-    """The card's instantiated sizes: Möbius and L⁻¹ at n = 20 and 5, the
-    dense forms at n = 4 (``fit_masses --fused``); any other n is refused
-    before a launch."""
+    """The card's hand-written sizes: Möbius and L⁻¹ at n = 20 and 5, the
+    dense forms at n = 4 (``fit_masses --fused``); any other n is taken by
+    the kernel generated from the forms (``ops.fused_codegen``).  What is
+    refused before a launch: another dtype or a state of the wrong shape."""
     for solver, n in (("mobius", 20), ("mobius", 5), ("linv", 20), ("linv", 5),
                       ("dense", 4)):
         sysx = tp.chain(n_links=n, fused_solver=solver, device="cpu", dtype=F64).system
-        t_step.check_kernel_args("cuda", torch.float32, sysx.fused_forms(sysx), (6, n, 100))
+        forms = sysx.fused_forms(sysx)
+        assert t_step._kernel_key(forms) in t_step.KERNEL_INSTANTIATIONS
+        t_step.check_kernel_args("cuda", torch.float32, forms, (6, n, 100))
     sys7 = tp.chain(n_links=7, fused_solver="mobius", device="cpu", dtype=F64).system
-    with pytest.raises(ValueError, match="instantiated"):
-        t_step.check_kernel_args("cuda", torch.float32, sys7.fused_forms(sys7), (6, 7, 100))
+    forms7 = sys7.fused_forms(sys7)
+    assert t_step._kernel_key(forms7) not in t_step.KERNEL_INSTANTIATIONS
+    assert t_step.check_kernel_args("cuda", torch.float32, forms7, (6, 7, 100)) == (1.0,)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        t_step.check_kernel_args("cuda", torch.bfloat16, forms7, (6, 7, 100))
+    with pytest.raises(ValueError, match="state"):
+        t_step.check_kernel_args("cuda", torch.float32, forms7, (6, 5, 100))

@@ -140,7 +140,7 @@ def test_driver_argument_checks():
     ph0 = phase_from_numpy(q, p, device="cpu", dtype=F64)
     with pytest.raises(NotImplementedError, match="M7"):
         tp.evolve_ensemble_final(sys_, ph0, 1e-3, 10, drift_dtype="df32", **RUN)
-    with pytest.raises(NotImplementedError, match="M12"):
+    with pytest.raises(ValueError, match="obs_every"):
         tp.evolve_ensemble_chunked(sys_, ph0, 1e-3, 10, chunk_steps=10,
                                    observable=object(), **RUN)
     with pytest.raises(ValueError, match="not divisible"):

@@ -280,18 +280,28 @@ def test_spherical_conserves_azimuthal_momentum():
 
 def test_kernel_instantiations_accepted_and_refused(family):
     """Every bundled family is instantiated, in both dtypes, with Kahan
-    residuals or without; a 3-point Bézier and a user's own family are not,
-    and the error names the instantiated list and ROADMAP.md."""
+    residuals or without; a 3-point Bézier and a user's own family are taken
+    too, by the generated kernel.  What is refused: another dtype, a state
+    of the wrong shape, and more than five composition weights."""
     _, _, tsys = _pair(family)
     forms = tsys.fused_forms(tsys)
     for dtype in (torch.float32, torch.float64):
         for n_sv in (4, 6):
             assert t_step.check_kernel_args("cuda", dtype, forms, (n_sv, forms.n, 300)) == (1.0,)
     three = tp.bezier(THREE_POINTS, device="cpu", dtype=F64).system
-    with pytest.raises(ValueError, match=r"'bezier' at n=1 with a table of 6.*ROADMAP"):
-        t_step.check_kernel_args("cuda", torch.float32, three.fused_forms(three), (6, 1, 8))
-    user = t_step.FusedForms(n=2, n_aux=0, coef_lens=(), consts=(), make=forms.make,
-                             name="elastic_pendulum")
-    with pytest.raises(ValueError, match="instantiated"):
-        t_step.check_kernel_args("cuda", torch.float64, user, (4, 2, 8))
+    three_forms = three.fused_forms(three)
+    assert t_step._kernel_key(three_forms) not in t_step.KERNEL_INSTANTIATIONS
+    assert t_step.check_kernel_args("cuda", torch.float32, three_forms, (6, 1, 8)) == (1.0,)
+    user = t_step.FusedForms(n=forms.n, n_aux=forms.n_aux, coef_lens=forms.coef_lens,
+                             consts=forms.consts, make=forms.make, name="elastic_pendulum",
+                             arrays_fn=forms.arrays_fn)
+    assert t_step.check_kernel_args("cuda", torch.float64, user, (4, forms.n, 8)) == (1.0,)
+    for f in (forms, user):
+        with pytest.raises(ValueError, match="float32 or float64"):
+            t_step.check_kernel_args("cuda", torch.float16, f, (4, forms.n, 8))
+        with pytest.raises(ValueError, match="state"):
+            t_step.check_kernel_args("cuda", torch.float32, f, (5, forms.n, 8))
+        with pytest.raises(ValueError, match="1 to 5 weights"):
+            t_step.check_kernel_args("cuda", torch.float32, f, (4, forms.n, 8),
+                                     composition=(0.2,) * 6)
 

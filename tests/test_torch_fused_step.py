@@ -391,16 +391,18 @@ def test_grad_wrt_masses_through_fused():
 
 def test_kernel_argument_checks():
     """The kernel wrapper's validation, called with a device string so that
-    no card is needed: it names the instantiated set for any other n."""
+    no card is needed: a size no hand-written kernel has (n = 7, dense
+    n = 20) goes to the kernel generated from the forms; another dtype, a
+    bad state or the CPU is refused."""
     on20 = t_step.serial_chain_forms_on([1.0] * 20, [1.0] * 20, 5.0)
     t_step.check_kernel_args("cuda", torch.float32, on20, (6, 20, 1000))
     t_step.check_kernel_args("cuda:0", torch.float64, on20, (4, 20, 3))
     on7 = t_step.serial_chain_forms_on([1.0] * 7, [1.0] * 7, 5.0)
-    with pytest.raises(ValueError, match=r"n=7.*instantiated"):
-        t_step.check_kernel_args("cuda", torch.float32, on7, (6, 7, 1000))
     dense20 = t_step.serial_chain_forms([1.0] * 20, [1.0] * 20, 5.0)
-    with pytest.raises(ValueError, match="instantiated"):
-        t_step.check_kernel_args("cuda", torch.float32, dense20, (6, 20, 1000))
+    for forms in (on7, dense20):
+        assert t_step._kernel_key(forms) not in t_step.KERNEL_INSTANTIATIONS
+        assert t_step.check_kernel_args("cuda", torch.float32, forms,
+                                        (6, forms.n, 1000)) == (1.0,)
     with pytest.raises(ValueError, match="float32 or float64"):
         t_step.check_kernel_args("cuda", torch.float16, on20, (6, 20, 1000))
     with pytest.raises(ValueError, match="state"):

@@ -232,3 +232,79 @@ def test_evolve_ham_fixed_emission_and_refusals():
                             emit_every=4, steps_per_call=3)
     with pytest.raises(NotImplementedError, match="M11"):
         tp.evolve_ham_fixed(ex.system, ex.init_phase, 0.01, 12)
+
+
+# ----------------------------------------------------------------------
+# remat=True with tensors outside system.params
+# ----------------------------------------------------------------------
+
+_DP_Q0, _DP_P0 = np.array([1.0, 0.5]), np.array([0.3, -0.2])
+
+
+def _dp_coords(lib):
+    def coords(q):
+        t1, t2 = q[0], q[1]
+        return lib.stack([lib.sin(t1), 1.0 - lib.cos(t1), lib.sin(t1) + lib.sin(t2) / 2.0,
+                          1.0 - lib.cos(t1) - lib.cos(t2) / 2.0])
+
+    return coords
+
+
+def _t_dp_loss(inertia, gravity, remat):
+    """A double pendulum from ``mk_system_cart`` with the inertia tensor
+    given and gravity captured by the potential; float64 leapfrog (3,2),
+    dt = 1e-2, 10 steps; loss |q|² + |p|² of the final state."""
+    system = tp.mk_system_cart(inertia, _dp_coords(torch),
+                               lambda x: gravity * (x[1] + x[3]), device="cpu", dtype=F64, n=2)
+    out = tp.evolve_ham_fixed(system, tp.Phase(torch.tensor(_DP_Q0), torch.tensor(_DP_P0)),
+                              1e-2, 10, method="leapfrog", iters=(3, 2), emit_every=10,
+                              remat=remat)
+    return (out.q[-1] ** 2).sum() + (out.p[-1] ** 2).sum()
+
+
+def _j_dp_loss(inertia, gravity):
+    from hamilton_tpu import mk_system_cart as j_mk_system_cart
+
+    system = j_mk_system_cart(inertia, _dp_coords(jnp), lambda x: gravity * (x[1] + x[3]), n=2)
+    out = j_evolve_ham_fixed(system, JPhase(jnp.asarray(_DP_Q0), jnp.asarray(_DP_P0)), 1e-2, 10,
+                             method="leapfrog", iters=(3, 2), emit_every=10)
+    return (out.q[-1] ** 2).sum() + (out.p[-1] ** 2).sum()
+
+
+@pytest.mark.parametrize("wrt", ["inertia", "gravity"])
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_remat_gradient_outside_params(wrt, remat):
+    """``remat=True`` returns the gradient to tensors that are not in
+    ``system.params`` — an inertia tensor given to ``mk_system_cart`` and a
+    gravity the potential captures — equal to ``jax.grad`` of the
+    reference's, float64, to 1e-10 relative."""
+    inertia0, gravity0 = np.array([1.0, 1.0, 2.0, 2.0]), 5.0
+    inertia = torch.tensor(inertia0, requires_grad=wrt == "inertia")
+    gravity = torch.tensor(gravity0, dtype=F64, requires_grad=wrt == "gravity")
+    (got,) = torch.autograd.grad(_t_dp_loss(inertia, gravity, remat),
+                                 inertia if wrt == "inertia" else gravity)
+    want = jax.grad(_j_dp_loss, argnums=0 if wrt == "inertia" else 1)(
+        jnp.asarray(inertia0), jnp.asarray(gravity0))
+    _rel_close(want, got.numpy(), rtol=1e-10)
+
+
+def test_remat_raises_for_an_unreachable_dependency():
+    """A tensor the step reads that needs a gradient but that the
+    recomputation cannot reach (held by an object the capture walk does not
+    enter) raises instead of dropping its gradient; with remat=False the
+    gradient is there."""
+    holder = type("Holder", (), {})()
+    holder.g = torch.tensor(5.0, dtype=F64, requires_grad=True)
+    system = tp.mk_system_cart(torch.ones(4, dtype=F64), _dp_coords(torch),
+                               lambda x: holder.g * (x[1] + x[3]), device="cpu", dtype=F64, n=2)
+
+    def loss(remat):
+        out = tp.evolve_ham_fixed(system, tp.Phase(torch.tensor(_DP_Q0), torch.tensor(_DP_P0)),
+                                  1e-2, 4, method="leapfrog", iters=(3, 2), emit_every=4,
+                                  remat=remat)
+        return (out.q[-1] ** 2).sum()
+
+    (g,) = torch.autograd.grad(loss(False), holder.g)
+    assert float(g) != 0.0
+    with pytest.raises(RuntimeError, match="remat=True"):
+        torch.autograd.grad(loss(True), holder.g)

@@ -4,8 +4,11 @@ A fresh interpreter imports ``hamilton_tpu_torch``, builds a chain system,
 takes a fused step, runs ``evolve_ham``, counts the fused step's operations,
 takes a fused step of three model families and of the chain's Möbius and
 L⁻¹ forms, differentiates through ``evolve_ham_fixed`` (the fused step's
-replay and the K2 entries' backwards) and runs one iteration of the
-``fit_masses`` example; ``jax`` must stay out of ``sys.modules``.
+replay and the K2 entries' backwards), runs one iteration of the
+``fit_masses`` example, generates the elastic pendulum's kernel code, runs
+that example's ``main`` at a tiny size and streams a transforming
+observable through an ensemble driver; ``jax`` must stay out of
+``sys.modules``.
 """
 
 import os
@@ -44,6 +47,15 @@ for method in ("leapfrog", "leapfrog_fused"):
     torch.autograd.grad(out.q.sum(), q)
 from hamilton_tpu_torch.examples import fit_masses
 fit_masses.main(["--device", "cpu", "--iters", "1", "--steps", "12"])
+from hamilton_tpu_torch.examples import elastic_pendulum
+from hamilton_tpu_torch.ops import fused_codegen
+from hamilton_tpu_torch.utils import observables
+esys = elastic_pendulum.make_system()
+fused_codegen.generate(esys.fused_forms(esys))
+elastic_pendulum.main(["--device", "cpu", "--fused", "--sweep", "8", "--steps", "100"])
+pairs = observables.LyapunovPairs.pair_ensemble(tp.Phase(ph.q[:2], ph.p[:2]), 1e-6)
+tp.evolve_ensemble_final(ex.system, pairs, 1e-3, 4, method="leapfrog", iters=(2, 1),
+                         drift_every=2, observable=observables.LyapunovPairs(), obs_every=2)
 print("jax" in sys.modules, any(m.startswith("hamilton_tpu.") or m == "hamilton_tpu"
                                 for m in sys.modules))
 """

@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels themselves (``hamilton_tpu_torch/csrc/
 fused_step.cu``, ``csrc/chain_variants.cu``, ``csrc/family_step.cu``,
-``csrc/batched_spd.cu`` and ``csrc/roofline_probes.cu``), and the gradients
-through them.
+``csrc/user_family_step.cu`` around generated forms, ``csrc/batched_spd.cu``
+and ``csrc/roofline_probes.cu``), and the gradients through them.
 
 These tests need an NVIDIA card and nvcc; elsewhere they skip.  This file
 imports no JAX, so on a machine without it run it without the suite's
@@ -16,7 +16,9 @@ import torch
 
 import hamilton_tpu_torch as tp
 from hamilton_tpu_torch import kernels
+from hamilton_tpu_torch.examples import elastic_pendulum
 from hamilton_tpu_torch.ops import batched_spd as bs
+from hamilton_tpu_torch.ops import fused_codegen as cg
 from hamilton_tpu_torch.ops import fused_step as t_step
 from hamilton_tpu_torch.utils import roofline as rl
 
@@ -140,12 +142,22 @@ def test_composition_kernel_matches_plain_version(card, composition, swept):
 
 
 def test_uninstantiated_size_raises_on_the_card(card):
+    """A chain size no hand-written kernel is compiled for (n = 7) no longer
+    raises: it runs on the kernel generated from the chain's forms (its own
+    factor and solve, the float32 aux shift), equal to the plain version
+    bit for bit."""
     ex = tp.chain(n_links=7, fused_solver="semiseparable", device=card, dtype=torch.float32)
     st = tp.make_stepper(ex.system, "leapfrog_fused", iters=(2, 0))
     carry = st.init(tp.Phase(ex.init_config.q.expand(4, 7).contiguous(),
                              torch.zeros(4, 7, device=card)))
-    with pytest.raises(ValueError, match="instantiated"):
-        st.step(carry, 1e-3)
+    before = kernels.launch_counts()
+    got = st.step(carry, 1e-3)
+    after = kernels.launch_counts()
+    assert after["user_family"] == before["user_family"] + 1
+    assert after["fused_step"] == before["fused_step"]
+    forms = ex.system.fused_forms(ex.system)
+    want = t_step.fused_step_reference(forms, carry, 1e-3, iters=(2, 0), compensated=False)
+    assert torch.equal(got, want)
 
 
 # ----------------------------------------------------------------------
@@ -339,14 +351,184 @@ def test_family_kernel_matches_library_leapfrog(card):
 
 
 def test_uninstantiated_family_raises_on_the_card(card):
+    """A 3-point Bézier is not in ``family_step.cu``: it runs on the
+    generated kernel (never the family kernel), equal to the plain version
+    bit for bit; a family whose forms cannot be generated raises before any
+    launch."""
     ex = tp.bezier([(-1.0, -1.0), (0.0, 1.0), (1.0, -1.0)], device=card, dtype=torch.float32)
     st = tp.make_stepper(ex.system, "leapfrog_fused", iters=(2, 0))
     carry = st.init(tp.Phase(ex.init_config.q.expand(4, 1).contiguous(),
                              torch.zeros(4, 1, device=card)))
-    before = kernels.family_step_launch.launches
-    with pytest.raises(ValueError, match="instantiated"):
-        st.step(carry, 1e-3)
-    assert kernels.family_step_launch.launches == before
+    before = kernels.launch_counts()
+    got = st.step(carry, 1e-3)
+    after = kernels.launch_counts()
+    assert after["family_step"] == before["family_step"]
+    assert after["user_family"] == before["user_family"] + 1
+    forms = ex.system.fused_forms(ex.system)
+    assert torch.equal(got, t_step.fused_step_reference(forms, carry, 1e-3, iters=(2, 0),
+                                                        compensated=False))
+
+    def make(at, fm):
+        return t_step.FamilyFns(lambda q: (fm.sin(q[0]),),
+                                lambda a, q: lambda i, j: fm.full(at[0](0), a[0]),
+                                lambda a, q, w: [q[0] if at[0](0) > 0 else -q[0]])
+
+    branchy = t_step.FusedForms(n=1, n_aux=1, coef_lens=(1,), consts=((2.0,),), make=make,
+                                name="branchy")
+    with pytest.raises(cg.GenerationError, match="branchy"):
+        t_step.fused_step_kernel(branchy, carry, 1e-3, iters=(2, 0), compensated=False)
+    assert kernels.launch_counts() == after
+
+
+# ----------------------------------------------------------------------
+# The generated kernel (csrc/user_family_step.cu around generated forms)
+# ----------------------------------------------------------------------
+
+
+def _all_ops_forms(system):
+    """A family whose forms use every traced operation, ``x / c`` with a
+    Python float among them (PyTorch on the card multiplies by T(1)/T(c);
+    the generated code does the same)."""
+    p = system.params
+    cs = [t_step.concrete_scalar(p[k]) for k in ("m", "g", "k")]
+    consts = None if any(c is None for c in cs) else ((cs[0], cs[1] * cs[0], cs[2]),)
+
+    def arrays_fn(dtype, device):
+        m, g, k = (p[x].to(device=device, dtype=dtype) for x in ("m", "g", "k"))
+        return (torch.stack([m, g * m, k], dim=-1),)
+
+    def make(at, fm):
+        m, gm, k = (lambda: at[0](0)), (lambda: at[0](1)), (lambda: at[0](2))
+
+        def aux(q):
+            return (fm.sin(q[0]), fm.cos(q[0]), fm.exp(q[1] / 3.0),
+                    fm.sqrt(abs(q[1]) + 1.0))
+
+        def k_at(a, q):
+            s, c, _, _ = a
+
+            def at_(i, j):
+                if (i, j) == (0, 0):
+                    return m() * (2.0 + c * c)
+                if (i, j) == (1, 1):
+                    return fm.full(m() * 1.5 + k() / 7.0, s)
+                return 0.25 / (2.0 + c) * s
+
+            return at_
+
+        def dhdq(a, q, w):
+            s, _, e, r = a
+            return [gm() * s - (q[0] / 7.0) * (k() * m()) + -(w[1] * w[0]) / 3.0,
+                    (q[1] - 1.0) * k() / 2.0 + e * r / (1.0 + w[0] * w[0]) - fm.zero(s)]
+
+        return t_step.FamilyFns(aux, k_at, dhdq)
+
+    return t_step.FusedForms(n=2, n_aux=4, coef_lens=(3,), consts=consts, make=make,
+                             name="all_ops", arrays_fn=arrays_fn)
+
+
+#: name → (system factory on a device and dtype, q centre)
+GENERATED = {
+    "elastic_pendulum": (lambda dev, dtype: elastic_pendulum.make_system(device=dev,
+                                                                        dtype=dtype),
+                         [0.3, 1.1]),
+    "bezier3": (lambda dev, dtype: tp.bezier([(-1.0, -1.0), (0.0, 1.0), (1.0, -1.0)],
+                                             device=dev, dtype=dtype).system, [0.5]),
+    "all_ops": (lambda dev, dtype: tp.mk_system(
+        torch.ones(2), lambda q, p: q, lambda q, p: 0.5 * (q * q).sum(), device=dev,
+        dtype=dtype, n=2, name="all_ops", params={"m": 1.3, "g": 9.8, "k": 30.0},
+        fused_forms=_all_ops_forms), [0.2, 1.1]),
+}
+
+
+def _generated_modes(name, card, dtype, batch, rng):
+    system = GENERATED[name][0](card, dtype)
+    return {
+        "const": system,
+        "shared": system.replace_params(
+            {k: v.clone().requires_grad_(True) for k, v in system.params.items()}),
+        "member": system.replace_params({
+            k: v.expand(batch, *v.shape) * torch.as_tensor(
+                1.0 + 0.01 * rng.standard_normal((batch,) + (1,) * v.ndim), device=card,
+                dtype=dtype)
+            for k, v in system.params.items()}),
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("name", sorted(GENERATED))
+def test_generated_kernel_matches_plain_version_bitwise(card, name, dtype):
+    """The generated kernel against its plain version on the same card
+    tensors, bit for bit: 300 members (a ragged batch), five steps a
+    launch, compensated or not, the float64 constant table, a run-time
+    shared table and a per-member one, plain Verlet and Suzuki's
+    composition; one launch each."""
+    rng = np.random.default_rng(9)
+    centre = np.asarray(GENERATED[name][1])
+    for mode, system in _generated_modes(name, card, dtype, 300, rng).items():
+        forms = system.fused_forms(system)
+        assert t_step._kernel_key(forms) not in t_step.KERNEL_INSTANTIATIONS
+        for comp in (False, True):
+            for composition in ((1.0,), t_step.SUZUKI4_COMPOSITION):
+                n = forms.n
+                q = centre + 0.01 * rng.standard_normal((300, n))
+                p = 0.05 * rng.standard_normal((300, n))
+                st = t_step.fused_stepper(forms, iters=(2, 1), compensated=comp,
+                                          composition=composition)
+                carry = st.init(tp.phase_from_numpy(q, p, device=card, dtype=dtype))
+                state, table = carry if forms.consts is None else (carry, None)
+                state = state.detach()
+                table = None if table is None else table.detach()
+                kw = dict(iters=(2, 1), compensated=comp, steps_per_call=5,
+                          composition=composition, coef=table)
+                before = kernels.user_family_launch.launches
+                got = t_step.fused_step_kernel(forms, state, 1e-3, **kw)
+                assert kernels.user_family_launch.launches == before + 1
+                want = t_step.fused_step_reference(forms, state, 1e-3, **kw)
+                assert bool(torch.isfinite(got).all())
+                assert torch.equal(got, want), (mode, comp, len(composition))
+
+
+def test_generated_kernel_matches_library_leapfrog(card):
+    """The elastic pendulum, float64 (3,2), 1024 members, two steps: the
+    generated kernel and the library leapfrog within 1e-11 (the example's
+    parity bound)."""
+    system = elastic_pendulum.make_system(spring_k=29.4, device=card, dtype=torch.float64)
+    rng = np.random.default_rng(0)
+    q = np.stack([0.3 + 0.02 * rng.standard_normal(1024),
+                  1.0 + 0.1 * rng.standard_normal(1024)], axis=-1)
+    ph = tp.phase_from_numpy(q, 0.05 * rng.standard_normal((1024, 2)), device=card,
+                             dtype=torch.float64)
+    lib = tp.make_stepper(system, "leapfrog", iters=(3, 2))
+    fus = tp.make_stepper(system, "leapfrog_fused", iters=(3, 2))
+    dt = torch.tensor(1e-3, dtype=torch.float64)
+    cl, cf = lib.init(ph), fus.init(ph)
+    for _ in range(2):
+        cl, cf = lib.step(cl, dt), fus.step(cf, dt)
+    a, b = lib.extract(cl), fus.extract(cf)
+    assert float((a.q - b.q).abs().max()) < 1e-11
+    assert float((a.p - b.p).abs().max()) < 1e-11
+
+
+def test_generated_parameter_change_builds_nothing(card):
+    """Other parameter values reuse the library and launch it: one key, and
+    no nvcc run after the first."""
+    keys = set()
+    for k in (12.0, 29.4, 55.0):
+        system = elastic_pendulum.make_system(spring_k=k, mass=0.7, device=card,
+                                              dtype=torch.float32)
+        forms = system.fused_forms(system)
+        key, _ = kernels.build_user_family(cg.generated(forms).header)
+        keys.add(key)
+        runs = kernels.NVCC_RUNS["count"]
+        state = t_step.fused_stepper(forms, iters=(2, 1)).init(
+            tp.Phase(torch.tensor([[0.3, 1.1]] * 8, device=card),
+                     torch.zeros(8, 2, device=card)))
+        got = t_step.fused_step_kernel(forms, state, 1e-3, iters=(2, 1), compensated=False)
+        assert kernels.NVCC_RUNS["count"] == runs
+        assert torch.equal(got, t_step.fused_step_reference(forms, state, 1e-3, iters=(2, 1),
+                                                            compensated=False))
+    assert len(keys) == 1
 
 
 # ----------------------------------------------------------------------
