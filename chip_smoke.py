@@ -86,12 +86,15 @@ raises as soon as one fails:
     chain-variant kernel (``csrc/chain_variants.cu``), Möbius and L⁻¹ each:
     (a) the kernel against its plain version on 16384 × chain-20 over a
     5-step launch, float32 (2,0) Kahan and float64 (3,2), shared and
-    per-member (phase 13's) tables, and ``suzuki4_fused``; (b) against the
+    per-member (phase 13's) tables, and ``suzuki4_fused``, then on ragged
+    batches of 1, 7 and 16383 members: bit for bit; (b) against the
     semiseparable kernel over one 50-step launch; (c) float64 (3,2) against
     the library leapfrog on chain-20 and chain-5, 1000 members, 2 steps;
     (d) the headline's run on this form — exactly 4000 K1 and 201 K2a
     launches, ``max|ΔH/H₀| < 1e-6``; (e) the 50-step launch at n = 20 and
-    n = 5 timed, with its plain version, the host's issue and its bound;
+    n = 5 timed, with its plain version, the host's issue and its bound,
+    and for L⁻¹ its lanes a member, shared memory a block and warps an SM
+    as the library reports them, registers and spills;
 17. gradients at full width: (a) each K2 entry's gradient at 16384 × n=20
     in float32 and float64 against autograd through the plain masked
     Cholesky and triangular solves, a solve's backward launching its kernel
@@ -258,6 +261,9 @@ CHAIN_CODES = ("mobius n=20", "mobius n=5", "linv n=20", "linv n=5", "dense n=4"
 # the same fixed points through other rounding (float64 (3,2); float32
 # (2,0) Kahan)
 FORMS_TOL = {"float64": 1e-11, "float32": 1e-4}
+# batches that are not a multiple of a block's members nor, for L⁻¹, of the
+# block's threads: the last block runs part full
+RAGGED_BATCHES = (1, 7, 16383)
 # the gradient phase: each K2 entry's gradient by its kernel against autograd
 # through the plain masked Cholesky and triangular solves, relative to the
 # largest entry; the fused gradient against the library leapfrog's (the JAX
@@ -321,12 +327,16 @@ def _family_label(m):
             f"{' composed' if composed == '1' else ''}")
 
 
-_VARIANT_RE = re.compile(r"chain_variant_kernelI([fd])Li(\d+)ELb([01])ELb([01])ELb([01])E")
+# chain_variant_kernel<T, case, ...> or, for L⁻¹, linv_kernel<T, n, ...>
+_VARIANT_RE = re.compile(r"(?:chain_variant_kernelI([fd])Li(\d+)E|linv_kernelI([fd])Li(\d+)E)"
+                         r"Lb([01])ELb([01])ELb([01])E")
 
 
 def _variant_label(m):
-    t, code, comp, per_member, composed = m.groups()
-    return (f"{'float' if t == 'f' else 'double'} {CHAIN_CODES[int(code)]}"
+    t, code, lt, n, comp, per_member, composed = m.groups()
+    form = CHAIN_CODES[int(code)] if t else f"linv n={n}"
+    t = t or lt
+    return (f"{'float' if t == 'f' else 'double'} {form}"
             f"{' kahan' if comp == '1' else ''}{' per-member' if per_member == '1' else ''}"
             f"{' composed' if composed == '1' else ''}")
 
@@ -830,12 +840,14 @@ def k1_row(name, source, forms, state, dt, kw, system, method, launches, extra_e
     }
 
 
-def phase_chain_solvers(dev, ph, head_rate, entries, summary):
+def phase_chain_solvers(dev, ph, head_rate, regs, entries, summary):
     """Phase 16: the chain's Möbius and L⁻¹ forms on K1's chain-variant
     kernel (``csrc/chain_variants.cu``), at the headline's configuration;
-    appends each one's rows to ``entries`` and its readings to ``summary``."""
+    ``regs`` is its ptxas report (:func:`ptxas_report`); appends each one's
+    rows to ``entries`` and its readings to ``summary``."""
     import numpy as np
     import torch
+    from hamilton_tpu_torch import kernels
     from hamilton_tpu_torch.convert import params_from_numpy
     from hamilton_tpu_torch.ensemble import evolve_ensemble_chunked
     from hamilton_tpu_torch.integrators.fixed import make_stepper
@@ -896,11 +908,38 @@ def phase_chain_solvers(dev, ph, head_rate, entries, summary):
             torch.cuda.synchronize()
             dname = str(system.dtype)[6:]
             worst, errs, fails = compare_states(k_out, p_out, dname)
+            if not torch.equal(k_out, p_out):
+                fails.append("not equal bit for bit")
             failures += [f"{label}: {f}" for f in fails]
             if dname == "float32":
                 worst_a = max(worst_a, worst)
             log(f"phase 16 {'FAILED' if fails else 'ok'}: {solver} {label} kernel vs plain, "
                 f"B={BATCH} spc=5: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        # ragged batches, float32 (2,0) Kahan shared and float64 (3,2)
+        # per-member tables
+        for batch in RAGGED_BATCHES:
+            sub = Phase(ph.q[:batch], ph.p[:batch])
+            for dtype, iters, comp, swept in ((f32, (2, 0), True, False),
+                                              (f64, (3, 2), False, True)):
+                system = make(dtype).system
+                if swept:
+                    system = system.replace_params(params_from_numpy(
+                        {k: v[:batch] for k, v in sweep_np.items()}, device=dev, dtype=dtype))
+                forms = system.fused_forms(system)
+                carry = fused_stepper(forms, iters=iters, compensated=comp).init(
+                    sub.astype(dtype))
+                state, table = carry if swept else (carry, None)
+                kw = dict(iters=iters, compensated=comp, steps_per_call=5, coef=table)
+                k_out = fused_step_kernel(forms, state, 5e-4, **kw)
+                p_out = fused_step_reference(forms, state, 5e-4, **kw)
+                torch.cuda.synchronize()
+                label = f"B={batch} {str(dtype)[6:]} {iters}{' per-member' if swept else ''}"
+                equal = torch.equal(k_out, p_out)
+                if not equal:
+                    failures.append(f"{label}: not equal bit for bit "
+                                    f"({float((k_out - p_out).abs().max()):.3e})")
+                log(f"phase 16 {'ok' if equal else 'FAILED'}: {solver} {label} kernel vs "
+                    f"plain, spc=5: {'equal' if equal else 'differ'}")
         if failures:
             raise AssertionError(f"{solver} kernel disagrees with its plain version: "
                                  + "; ".join(failures))
@@ -976,6 +1015,20 @@ def phase_chain_solvers(dev, ph, head_rate, entries, summary):
             log(f"phase 16: {row['name']}: {row['ms']:.4f} ms a launch")
             entries.append(row)
             summary[f"{solver}_n{n}_k1_ms"] = row["ms"]
+            if solver == "linv":  # its layout as built, registers and spills
+                lanes, block, smem, blocks = kernels.linv_layout(
+                    0, CHAIN_CODES.index(f"linv n={n}"))
+                by_name = {name: (r, st, ld) for name, r, st, ld in regs}
+                r, st, ld = by_name[f"float linv n={n} kahan"]
+                log(f"phase 16: linv n={n} float32 kahan: {lanes} lanes a member, {block} "
+                    f"threads and {smem} B of shared memory a block, {blocks} blocks "
+                    f"({blocks * block // 32} warps) an SM, {r} registers, spill stores "
+                    f"{st} B, spill loads {ld} B")
+                summary[f"linv_n{n}_lanes"] = lanes
+                summary[f"linv_n{n}_shared_bytes"] = smem
+                summary[f"linv_n{n}_warps_per_sm"] = blocks * block // 32
+                summary[f"linv_n{n}_registers"] = r
+                summary[f"linv_n{n}_spills"] = [st, ld]
     log(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -1476,12 +1529,13 @@ def main() -> int:
             f"{name}.cu {b.seconds:.1f} s" + (
                 f" in {len(b.paths)} parts: " + " ".join(f"{x:.1f}" for x in b.part_seconds)
                 if len(b.paths) > 1 else "") for name, b in builds.items()) + ")")
+    ptxas = {}
     for name, pattern, label in (("fused_step", _KERNEL_RE, _k1_label),
                                  ("chain_variants", _VARIANT_RE, _variant_label),
                                  ("family_step", _FAMILY_RE, _family_label),
                                  ("batched_spd", _K2_RE, _k2_label),
                                  ("roofline_probes", _K3_RE, _k3_label)):
-        regs = ptxas_report(builds[name].log, pattern, label)
+        regs = ptxas[name] = ptxas_report(builds[name].log, pattern, label)
         if not regs:
             raise AssertionError(f"nvcc printed no -Xptxas -v report for {name}")
         for kname, nreg, st, ld in regs:
@@ -2194,7 +2248,7 @@ def main() -> int:
     phase_families(dev, entries, summary)
 
     # ---- phase 16: the chain's Möbius and L⁻¹ forms -------------------------------
-    phase_chain_solvers(dev, ph, head_rate, entries, summary)
+    phase_chain_solvers(dev, ph, head_rate, ptxas["chain_variants"], entries, summary)
 
     # ---- phase 17: gradients at full width ---------------------------------------
     phase_gradients(dev, ph, entries, summary)

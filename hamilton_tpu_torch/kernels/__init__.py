@@ -47,6 +47,7 @@ __all__ = [
     "build_user_family",
     "fused_step_launch",
     "chain_variants_launch",
+    "linv_layout",
     "family_step_launch",
     "user_family_launch",
     "fma_probe_launch",
@@ -97,7 +98,6 @@ PARTS: Dict[str, Tuple[int, Callable[[int, int], int]]] = {
     "fused_step": (6, lambda dtype_code, n: 2 * {20: 0, 5: 1, 2: 2}.get(n, 3) + dtype_code),
     "chain_variants": (10, lambda dtype_code, code: 2 * code + dtype_code),
 }
-
 
 @dataclass(frozen=True)
 class KernelBuild:
@@ -212,10 +212,16 @@ def _merged(built) -> KernelBuild:
                        "".join(b[2] for b in built), tuple(b[1] for b in built))
 
 
-def build(name: str) -> KernelBuild:
-    """Build (or reuse) ``csrc/<name>.cu``, every part at once; raises on
-    nvcc failure."""
-    return _merged(_build_units(_units(name)))
+def build(name: str, parts: Optional[Tuple[int, ...]] = None) -> KernelBuild:
+    """Build (or reuse) ``csrc/<name>.cu``, every part at once, or only
+    ``parts`` of a source that :data:`PARTS` splits; raises on nvcc
+    failure."""
+    units = _units(name)
+    if parts is not None:
+        if name not in PARTS or not set(parts) <= {part for _, part in units}:
+            raise ValueError(f"{name}: no parts {parts}")
+        units = [(name, part) for part in parts]
+    return _merged(_build_units(units))
 
 
 def build_all() -> Dict[str, KernelBuild]:
@@ -275,6 +281,7 @@ _SIGNATURES = {
     "chain_variants": {
         "hamilton_chain_variant_step": [_INT, _INT, _INT, _VP, _VP, _VP, _LL, _DBL, _INT,
                                         _INT, _INT, _INT, ctypes.POINTER(_DBL), _VP],
+        "hamilton_linv_layout": [_INT, _INT, _INT, ctypes.POINTER(_INT)],
     },
     "family_step": {
         "hamilton_family_step": [_INT, _INT, _INT, _VP, _VP, _VP, _LL, _DBL, _INT,
@@ -395,6 +402,21 @@ fused_step_launch = _k1_launcher("fused_step", "hamilton_fused_step", "fused-ste
 #: KERNEL_INSTANTIATIONS``) and ``semiseparable`` False.
 chain_variants_launch = _k1_launcher("chain_variants", "hamilton_chain_variant_step",
                                      "chain-variant step")
+
+
+def linv_layout(dtype_code: int, code: int, compensated: bool = True,
+                per_member: bool = False) -> Tuple[int, int, int, int]:
+    """The L⁻¹ kernel of ``chain_variants``' case ``code`` (2: n = 20, 3:
+    n = 5) as its library was built: ``(lanes a member, threads a block,
+    dynamic shared bytes a block, blocks an SM)``, the last the blocks of
+    its instantiation in these modes (not composed) that the card holds at
+    once by its registers and shared memory.  Builds the library's part at
+    first use; raises for another case."""
+    out = (_INT * 4)()
+    flags = int(compensated) << 1 | int(per_member) << 2
+    _call("chain_variants", "hamilton_linv_layout", "L⁻¹ layout", dtype_code, code, flags, out,
+          part=PARTS["chain_variants"][1](dtype_code, code))
+    return tuple(out)
 
 #: K1 for the bundled model families (``csrc/family_step.cu``): as
 #: :func:`fused_step_launch`, with ``code`` the family's case of the

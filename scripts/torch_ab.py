@@ -17,7 +17,9 @@ Readings, all on 16384 members:
   (chain-20 semiseparable, (2,0), Kahan, dt=5e-4), ``double_pendulum``
   (dense n=2, (2,1), dt=1e-3), and where the tree has them (n/a otherwise)
   ``sweep`` (the headline with per-member masses and gravity) and
-  ``suzuki4`` (the headline's kernel running ``suzuki4_fused``, dt=1e-3).
+  ``suzuki4`` (the headline's kernel running ``suzuki4_fused``, dt=1e-3),
+  ``mobius`` and ``linv`` (the headline on the chain's Möbius and L⁻¹
+  forms, ``csrc/chain_variants.cu``).
   Each is the device ms of one launch, from CUDA events around 100 launches
   queued behind a held stream (``utils.profiling.time_queued`` of this
   checkout, for every tree);
@@ -31,10 +33,10 @@ Readings, all on 16384 members:
   20 steps) and ``adaptive_f64`` (``evolve_ham`` in float64 over
   t ∈ [0, 0.05], the whole call).
 
-Each tree's ``-Xptxas -v`` report of the chain's fused-step kernels
-(``csrc/fused_step.cu``: registers and spill bytes per instantiation) is
-held against the first tree's, instantiation by instantiation;
-``--build-only`` stops there.
+Each tree's ``-Xptxas -v`` report of the K1 kernels (``csrc/fused_step.cu``,
+``csrc/chain_variants.cu`` and ``csrc/family_step.cu``: registers and spill
+bytes per instantiation) is held against the first tree's, instantiation by
+instantiation; ``--build-only`` stops there.
 
 Prints the card's name and power limit, each tree's build seconds and its
 ptxas comparison, a line per turn, and a last line of JSON:
@@ -52,7 +54,7 @@ from pathlib import Path
 
 BATCH, SPC, REPS = 16384, 50, 100
 LEAPFROG_STEPS = 20
-READINGS = ("headline", "double_pendulum", "sweep", "suzuki4", "headline_host",
+READINGS = ("headline", "double_pendulum", "sweep", "suzuki4", "mobius", "linv", "headline_host",
             "double_pendulum_host", "double_pendulum_wall", "library_leapfrog_step",
             "adaptive_f64")
 DP_WALL_LAUNCHES = 400
@@ -96,7 +98,9 @@ def _time_tree(tree: str) -> dict:
     # came with member_table and FUSED_COMPOSITIONS
     has = {"headline": True, "double_pendulum": True,
            "sweep": hasattr(fused_step, "member_table"),
-           "suzuki4": "suzuki4_fused" in getattr(fused_step, "FUSED_COMPOSITIONS", ())}
+           "suzuki4": "suzuki4_fused" in getattr(fused_step, "FUSED_COMPOSITIONS", ()),
+           "mobius": hasattr(fused_step, "serial_chain_forms_mobius"),
+           "linv": hasattr(fused_step, "serial_chain_forms_linv")}
 
     dev = torch.device("cuda")
     f32, f64 = torch.float32, torch.float64
@@ -110,6 +114,8 @@ def _time_tree(tree: str) -> dict:
         return Phase(torch.as_tensor(q, dtype=dtype).to(dev), p.to(dev))
 
     chain = tp.chain(n_links=20, fused_solver="semiseparable", device=dev, dtype=f32)
+    forms_of = {s: (lambda s=s: tp.chain(n_links=20, fused_solver=s, device=dev, dtype=f32))
+                for s in ("mobius", "linv")}
     dp = tp.double_pendulum(device=dev, dtype=f32)
 
     def swept():
@@ -126,6 +132,10 @@ def _time_tree(tree: str) -> dict:
         "double_pendulum": (lambda: dp.system, dp, "leapfrog_fused", (2, 1), False, 1e-3),
         "sweep": (swept, chain, "leapfrog_fused", (2, 0), True, 5e-4),
         "suzuki4": (lambda: chain.system, chain, "suzuki4_fused", (2, 0), True, 1e-3),
+        "mobius": (lambda: forms_of["mobius"]().system, chain, "leapfrog_fused", (2, 0), True,
+                   5e-4),
+        "linv": (lambda: forms_of["linv"]().system, chain, "leapfrog_fused", (2, 0), True,
+                 5e-4),
     }
     out = {}
     for name, (system_fn, ex, method, iters, comp, dt) in kernel_setups.items():
@@ -172,14 +182,18 @@ def _card() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def _ptxas_rows(log: str) -> dict:
-    """``{instantiation: (registers, spill stores, spill loads)}`` of the
-    chain's fused-step kernels in an nvcc ``-Xptxas -v`` report (parsed as
-    ``chip_smoke.py`` prints it)."""
+def _ptxas_rows(logs: dict) -> dict:
+    """``{instantiation: (registers, spill stores, spill loads)}`` of the K1
+    kernels in nvcc's ``-Xptxas -v`` reports by source (parsed as
+    ``chip_smoke.py`` prints them)."""
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-    from chip_smoke import ptxas_report
+    import chip_smoke as cs
 
-    return {name: (regs, st, ld) for name, regs, st, ld in ptxas_report(log)}
+    patterns = {"fused_step": (cs._KERNEL_RE, cs._k1_label),
+                "chain_variants": (cs._VARIANT_RE, cs._variant_label),
+                "family_step": (cs._FAMILY_RE, cs._family_label)}
+    return {f"{src}: {name}": (regs, st, ld) for src, log in logs.items()
+            for name, regs, st, ld in cs.ptxas_report(log, *patterns[src])}
 
 
 def main(argv) -> int:
@@ -200,7 +214,8 @@ def main(argv) -> int:
     build = ("import json, sys, time; sys.path.insert(0, sys.argv[1]); "
              "from hamilton_tpu_torch import kernels; t = time.perf_counter(); "
              "b = kernels.build_all(); "
-             "print(json.dumps([time.perf_counter() - t, b['fused_step'].log]))")
+             "print(json.dumps([time.perf_counter() - t, "
+             "{k: b[k].log for k in ('fused_step', 'chain_variants', 'family_step')}]))")
     procs = [subprocess.Popen([sys.executable, "-c", build, str(Path(t).resolve())],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for t in trees]
@@ -209,10 +224,9 @@ def main(argv) -> int:
         out, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"building {tree} failed:\n{err}")
-        seconds, log = json.loads(out.strip().splitlines()[-1])
-        rows = _ptxas_rows(log)
-        print(f"build {tree}: {seconds:.1f} s, {len(rows)} fused_step instantiations",
-              flush=True)
+        seconds, logs = json.loads(out.strip().splitlines()[-1])
+        rows = _ptxas_rows(logs)
+        print(f"build {tree}: {seconds:.1f} s, {len(rows)} K1 instantiations", flush=True)
         if first is None:
             first = (tree, rows)
             continue

@@ -186,17 +186,19 @@ def _chain_state(solver, n, card, dtype, iters, compensated, swept, composition=
     return system, forms, st.init(tp.phase_from_numpy(q, p, device=card, dtype=dtype))
 
 
+@pytest.mark.parametrize("batch", [300, 1, 7, 16383])
 @pytest.mark.parametrize("swept", [False, True], ids=["shared", "per_member"])
 @pytest.mark.parametrize("solver,n", [("mobius", 20), ("mobius", 5), ("linv", 20),
                                       ("linv", 5), ("dense", 4)])
-def test_chain_variant_kernel_matches_plain_version(card, solver, n, swept):
+def test_chain_variant_kernel_matches_plain_version(card, solver, n, swept, batch):
     """float64 (2,0) Kahan and (3,2) and a Suzuki composition, ten steps per
-    launch, a ragged batch, shared and per-member tables: the kernel (no FMA
-    contraction) agrees with its plain version to float64 rounding."""
+    launch, ragged batches (not a multiple of a block's members or threads),
+    shared and per-member tables: the kernel (no FMA contraction) agrees
+    with its plain version to float64 rounding; L⁻¹ bit for bit."""
     for iters, comp, composition in (((2, 0), True, (1.0,)), ((3, 2), False, (1.0,)),
                                      ((2, 0), True, t_step.SUZUKI4_COMPOSITION)):
         _, forms, carry = _chain_state(solver, n, card, torch.float64, iters, comp, swept,
-                                       composition)
+                                       composition, batch=batch)
         state, table = carry if swept else (carry, None)
         kw = dict(iters=iters, compensated=comp, steps_per_call=10, coef=table,
                   composition=composition)
@@ -208,6 +210,8 @@ def test_chain_variant_kernel_matches_plain_version(card, solver, n, swept):
         scale[-1] = 5e-4
         assert bool(torch.isfinite(got).all())
         assert float(((got - want) * scale).abs().max()) < 1e-11
+        if solver == "linv":
+            assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("solver", ["mobius", "linv"])
