@@ -4,28 +4,35 @@
 // Replaces the TPU kernel hamilton_tpu/ops/pallas_step.py::fused_stepper.kernel
 // (launched by its _call through pl.pallas_call) for the serial chain.  One
 // launch advances every ensemble member by steps_per_call dt-steps of the
-// fused leapfrog: the step template step_member in fused_step.cuh (shared
-// with the model families' kernel, family_step.cu) under one of two policies
-// of the chain's closed forms, SEMISEP (the O(n) semiseparable factorization,
-// serial_chain_forms_on) and dense (the in-register Cholesky of
-// serial_chain_forms).  In float32 the within-step aux re-evaluations rotate
-// the trig aux to first order (the reference's aux_shift); in float64 they
-// re-evaluate it.
+// fused leapfrog on the one-thread step template step_member of
+// fused_step.cuh (shared with the model families' kernel, family_step.cu)
+// under one of two policies of the chain's closed forms, SEMISEP (the O(n)
+// semiseparable factorization, serial_chain_forms_on) and dense (the
+// in-register Cholesky of serial_chain_forms).  In float32 the within-step
+// aux re-evaluations rotate the trig aux to first order (the reference's
+// aux_shift); in float64 they re-evaluate it.
 //
-// What bounds it on this card: it is latency- and register-bound.  Each
-// member reads and writes 4 or 6 vectors of n values per launch (O(100)
-// bytes in and out per member per 50 steps) against thousands of dependent
-// flops and 2n-4n transcendentals per step, and 16k members are only ~4
-// warps per SM, one per scheduler, so nothing hides instruction latency.
-// What the design does about it: one thread per member, everything over N
-// unrolled at compile time so the per-member lists live in registers (the
-// live set still exceeds 255 registers at N=20, so some of it spills to
-// L1-backed local memory), the factor and aux carried in registers across
-// the steps of a launch, and batch-minor x[i*B + b] loads and stores that
-// coalesce.  A per-member table is read where each entry is used rather
-// than held in registers (the n=20 live set already exceeds 255 registers).
-// Making it faster (fewer live values, several threads per member) is later
-// work.
+// What bounds it on this card: latency.  Each member reads and writes 4 or
+// 6 vectors of n values per launch (O(100) bytes in and out per member per
+// 50 steps) against thousands of dependent flops and 2n-4n transcendentals
+// per step, 16384 members are ~4 warps an SM, one a scheduler, and the
+// semiseparable step is a chain of O(n) sequential scans, its factor with a
+// square root and a reciprocal a link.  What the design does about it: one
+// thread a member, everything over N unrolled at compile time so the
+// per-member lists live in registers (at n = 20 the live set exceeds 255
+// registers and some of it spills to L1-backed local memory), batch-minor
+// x[i*B + b] loads and stores that coalesce, and for the semiseparable form
+// (chain_forms.cuh):
+//   - each link's sin and cos from one straight-line reduction, and the
+//     factor's square roots and reciprocals straight-line, the library's
+//     expansions without their branches to the slow paths (which serialized
+//     them), bit for bit sinf, cosf, sqrtf and 1/x (csrc/libm_check.cu);
+//   - a per-member table staged in shared memory once a launch, not read
+//     from device memory at each use.
+// On G lanes a member, as the L^-1 form runs (chain_lanes.cuh: the factor
+// in shared memory), this form measured slower than one thread a member at
+// every G from 1 to 8, because every lane repeats the O(n) scans (PERF.md
+// section 6).
 //
 // Build (no fast-math: it would reassociate the Kahan compensation away and
 // swap sinf/cosf for approximations whose error shows in the drift):
@@ -37,7 +44,7 @@
 // semiseparable n=5, 2 dense n=2) in one dtype; without it, one library
 // holds all.
 
-#include "chain_forms.cuh"
+#include "chain_lanes.cuh"
 
 namespace {
 
@@ -49,7 +56,12 @@ __global__ void __launch_bounds__(kThreads)
                       int iters_q, int steps_per_call) {
   using P = ChainPolicy<T, N, SEMISEP>;
   const long long b = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if constexpr (PM) {
+  if constexpr (PM && SEMISEP) {
+    if (b >= batch) return;
+    stage_column<T, CoefLen<N, true>::value>(coef, batch, b);
+    step_member<T, P, COMP, COMPOSED>(StagedColumn<T>{}, in, out, batch, b, subs, iters_p,
+                                      iters_q, steps_per_call);
+  } else if constexpr (PM) {
     if (b >= batch) return;
     step_member<T, P, COMP, COMPOSED>(MemberTable<T>{coef + b, batch}, in, out, batch, b,
                                       subs, iters_p, iters_q, steps_per_call);
@@ -66,9 +78,14 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int N, bool SEMISEP, bool COMP, bool PM, bool COMPOSED>
 int launch(const Args& a) {
+  unsigned bytes;  // the semiseparable form's per-member table, staged
+  const cudaError_t attr =
+      staged_prepare<T, CoefLen<N, true>::value, PM && SEMISEP,
+                     fused_step_kernel<T, N, SEMISEP, COMP, PM, COMPOSED>>(&bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   const long long blocks = (a.batch + kThreads - 1) / kThreads;
   fused_step_kernel<T, N, SEMISEP, COMP, PM, COMPOSED>
-      <<<static_cast<unsigned int>(blocks), kThreads, 0, a.stream>>>(
+      <<<static_cast<unsigned int>(blocks), kThreads, bytes, a.stream>>>(
           static_cast<const T*>(a.coef), static_cast<const T*>(a.in),
           static_cast<T*>(a.out), a.batch,
           make_substeps<T>(a.weights, a.n_weights, a.dt), a.iters_p, a.iters_q,
@@ -108,17 +125,65 @@ int launch_variant(int compensated, int per_member, const Args& a) {
     return -1;
 }
 
-// The instantiated (variant, N) set; KERNEL_INSTANTIATIONS in
-// hamilton_tpu_torch/ops/fused_step.py lists the same pairs.
-template <typename T>
-int dispatch(int n, int semiseparable, int compensated, int per_member, const Args& a) {
-  if (semiseparable && n == 20)
-    return launch_variant<T, 0, 20, true>(compensated, per_member, a);
-  if (semiseparable && n == 5)
-    return launch_variant<T, 1, 5, true>(compensated, per_member, a);
-  if (!semiseparable && n == 2)
-    return launch_variant<T, 2, 2, false>(compensated, per_member, a);
+// The layout (kernel_layout's out) of variant V's kernel in these modes, not
+// composed; 0 blocks an SM where this build does not hold it.
+template <typename T, int V, int N, bool SEMISEP>
+int layout_variant(int compensated, int per_member, int* out) {
+  constexpr bool held = in_part(V, std::is_same<T, double>::value);
+  out[0] = 1;
+  out[1] = kThreads;
+  out[2] = per_member && SEMISEP ? sizeof(T) * CoefLen<N, true>::value * kThreads : 0;
+  out[3] = 0;
+  if constexpr (held) {
+    auto one = [out](auto comp, auto pm) {
+      constexpr bool kComp = decltype(comp)::value, kPm = decltype(pm)::value;
+      constexpr auto kernel = fused_step_kernel<T, N, SEMISEP, kComp, kPm, false>;
+      unsigned bytes;
+      const cudaError_t attr =
+          staged_prepare<T, CoefLen<N, true>::value, kPm && SEMISEP, kernel>(&bytes);
+      return attr != cudaSuccess ? static_cast<int>(attr)
+                                 : kernel_layout(kernel, 1, kThreads, bytes, out);
+    };
+    using Y = std::true_type;
+    using No = std::false_type;
+    if (compensated) return per_member ? one(Y{}, Y{}) : one(Y{}, No{});
+    return per_member ? one(No{}, Y{}) : one(No{}, No{});
+  }
+  return 0;
+}
+
+template <int V, int N, bool SEMISEP>
+struct Variant {
+  static constexpr int kV = V, kN = N;
+  static constexpr bool kSemisep = SEMISEP;
+};
+
+// f(Variant<v, N, semiseparable>{}) for the instantiated (variant, N) set,
+// -1 for another; KERNEL_INSTANTIATIONS in hamilton_tpu_torch/ops/
+// fused_step.py lists the same pairs.
+template <class F>
+int dispatch(int n, int semiseparable, F&& f) {
+  if (semiseparable && n == 20) return f(Variant<0, 20, true>{});
+  if (semiseparable && n == 5) return f(Variant<1, 5, true>{});
+  if (!semiseparable && n == 2) return f(Variant<2, 2, false>{});
   return -1;
+}
+
+template <typename T>
+int launch_dispatch(int n, int semiseparable, int compensated, int per_member,
+                    const Args& a) {
+  return dispatch(n, semiseparable, [&](auto v) {
+    using V = decltype(v);
+    return launch_variant<T, V::kV, V::kN, V::kSemisep>(compensated, per_member, a);
+  });
+}
+
+template <typename T>
+int layout_dispatch(int n, int semiseparable, int compensated, int per_member, int* out) {
+  return dispatch(n, semiseparable, [&](auto v) {
+    using V = decltype(v);
+    return layout_variant<T, V::kV, V::kN, V::kSemisep>(compensated, per_member, out);
+  });
 }
 
 }  // namespace
@@ -147,9 +212,27 @@ int hamilton_fused_step(int dtype_code, int n, int flags, const void* coef,
   const int semiseparable = flags & 1, compensated = (flags >> 1) & 1,
             per_member = (flags >> 2) & 1;
   if (dtype_code == 0)
-    return dispatch<float>(n, semiseparable, compensated, per_member, a);
+    return launch_dispatch<float>(n, semiseparable, compensated, per_member, a);
   if (dtype_code == 1)
-    return dispatch<double>(n, semiseparable, compensated, per_member, a);
+    return launch_dispatch<double>(n, semiseparable, compensated, per_member, a);
+  return -1;
+}
+
+// The layout of the kernel that launches a (dtype_code, n, flags) step (flags
+// as above) into out[0..4): lanes a member (1: one thread a member),
+// threads a block, dynamic shared bytes a block, and the blocks an SM the
+// card holds at once of its instantiation in these modes, not composed
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor; 0 where this part does not
+// hold it).  Returns 0, -1 for a combination not instantiated, -2 for bad
+// flags, or a CUDA error's code.
+int hamilton_lane_layout(int dtype_code, int n, int flags, int* out) {
+  if (flags < 0 || flags > 7 || out == nullptr) return -2;
+  const int semiseparable = flags & 1, compensated = (flags >> 1) & 1,
+            per_member = (flags >> 2) & 1;
+  if (dtype_code == 0)
+    return layout_dispatch<float>(n, semiseparable, compensated, per_member, out);
+  if (dtype_code == 1)
+    return layout_dispatch<double>(n, semiseparable, compensated, per_member, out);
   return -1;
 }
 

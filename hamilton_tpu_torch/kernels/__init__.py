@@ -47,7 +47,8 @@ __all__ = [
     "build_user_family",
     "fused_step_launch",
     "chain_variants_launch",
-    "linv_layout",
+    "lane_layout",
+    "libm_mismatches",
     "family_step_launch",
     "user_family_launch",
     "fma_probe_launch",
@@ -277,11 +278,12 @@ _SIGNATURES = {
     "fused_step": {
         "hamilton_fused_step": [_INT, _INT, _INT, _VP, _VP, _VP, _LL, _DBL, _INT,
                                 _INT, _INT, _INT, ctypes.POINTER(_DBL), _VP],
+        "hamilton_lane_layout": [_INT, _INT, _INT, ctypes.POINTER(_INT)],
     },
     "chain_variants": {
         "hamilton_chain_variant_step": [_INT, _INT, _INT, _VP, _VP, _VP, _LL, _DBL, _INT,
                                         _INT, _INT, _INT, ctypes.POINTER(_DBL), _VP],
-        "hamilton_linv_layout": [_INT, _INT, _INT, ctypes.POINTER(_INT)],
+        "hamilton_lane_layout": [_INT, _INT, _INT, ctypes.POINTER(_INT)],
     },
     "family_step": {
         "hamilton_family_step": [_INT, _INT, _INT, _VP, _VP, _VP, _LL, _DBL, _INT,
@@ -291,6 +293,9 @@ _SIGNATURES = {
         "hamilton_fma_probe": [_INT, _VP, _VP, _LL, _INT, _INT, _VP],
         "hamilton_sin_probe": [_INT, _VP, _VP, _LL, _INT, _INT, _VP],
         "hamilton_add_one": [_VP, _VP, _LL, _INT, _VP],
+    },
+    "libm_check": {
+        "hamilton_libm_check": [ctypes.POINTER(ctypes.c_ulonglong)],
     },
     "batched_spd": {
         "hamilton_spd_factor": [_INT, _INT, _VP, _VP, _LL, _INT, _INT, _VP],
@@ -404,19 +409,25 @@ chain_variants_launch = _k1_launcher("chain_variants", "hamilton_chain_variant_s
                                      "chain-variant step")
 
 
-def linv_layout(dtype_code: int, code: int, compensated: bool = True,
+def lane_layout(source: str, dtype_code: int, code: int, compensated: bool = True,
                 per_member: bool = False) -> Tuple[int, int, int, int]:
-    """The L⁻¹ kernel of ``chain_variants``' case ``code`` (2: n = 20, 3:
-    n = 5) as its library was built: ``(lanes a member, threads a block,
-    dynamic shared bytes a block, blocks an SM)``, the last the blocks of
-    its instantiation in these modes (not composed) that the card holds at
-    once by its registers and shared memory.  Builds the library's part at
-    first use; raises for another case."""
+    """The kernel that launches K1's ``code`` of ``source`` (``"fused_step"``:
+    code n, the semiseparable form at 20 and 5, dense at 2;
+    ``"chain_variants"``: its case) as its library was built: ``(lanes a
+    member, threads a block, dynamic shared bytes a block, blocks an SM)``,
+    lanes 1 for a one-thread kernel, the last the blocks of its
+    instantiation in these modes (not composed) that the card holds at once
+    by its registers and shared memory.  Builds the library's part at first
+    use; raises for a code the source does not instantiate."""
+    if source not in ("fused_step", "chain_variants"):
+        raise ValueError(f"no K1 chain source {source!r}")
     out = (_INT * 4)()
-    flags = int(compensated) << 1 | int(per_member) << 2
-    _call("chain_variants", "hamilton_linv_layout", "L⁻¹ layout", dtype_code, code, flags, out,
-          part=PARTS["chain_variants"][1](dtype_code, code))
+    semiseparable = source == "fused_step" and code in (20, 5)
+    flags = int(semiseparable) | int(compensated) << 1 | int(per_member) << 2
+    _call(source, "hamilton_lane_layout", f"{source} layout", dtype_code, code, flags, out,
+          part=PARTS[source][1](dtype_code, code))
     return tuple(out)
+
 
 #: K1 for the bundled model families (``csrc/family_step.cu``): as
 #: :func:`fused_step_launch`, with ``code`` the family's case of the
@@ -454,6 +465,20 @@ def user_family_launch(
           0 if const_table else 1, flags, coef, state_in, state_out, batch, dt, iters_p,
           iters_q, steps_per_call, len(weights), _weights(weights), stream, part=key)
     user_family_launch.launches += 1
+
+
+def libm_mismatches() -> Dict[str, int]:
+    """The floats on which the chain kernels' float sin/cos, sqrt and
+    reciprocal differ from ``sinf``/``cosf``, ``sqrtf`` and ``1/x`` on this
+    card, every float in each one's range tried (``csrc/libm_check.cu``):
+    ``{"sincos": n, "sincosf": n, "sqrt": n, "rcp": n, "frcp": n}`` for the
+    straight-line ``sincos_fast`` in its range, the library's ``sincosf``
+    that takes over outside it, ``sqrt_fast`` and ``rcp_fast`` in theirs, and
+    ``__frcp_rn``; all 0 being the kernels' premise.  Synchronizes."""
+    keys = ("sincos", "sincosf", "sqrt", "rcp", "frcp")
+    out = (ctypes.c_ulonglong * len(keys))()
+    _call("libm_check", "hamilton_libm_check", "libm check", out)
+    return dict(zip(keys, out))
 
 
 # The batched tiny-SPD entries (K2a-K2e, csrc/batched_spd.cu).  Each takes

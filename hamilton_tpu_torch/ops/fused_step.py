@@ -12,9 +12,10 @@ for the bundled model families (spherical pendulum, two-body, room, spring,
 ellipse, Bézier), and for any other family (a user's own, or a bundled one
 at a size not compiled) ``csrc/user_family_step.cu`` around code generated
 from the family's forms at first use (:mod:`~hamilton_tpu_torch.ops.
-fused_codegen`), one step template shared through ``csrc/fused_step.cuh``
-— which compute the identical arithmetic in the same order with one thread
-per member.
+fused_codegen`), on the one-thread step template of
+``csrc/fused_step.cuh`` (the chain's L⁻¹ form on the lane template of
+``csrc/chain_lanes.cuh``, several threads a member) — which compute the
+identical arithmetic in the same order.
 
 The state of a fused stepper is one contiguous tensor ``(n_sv, n, B)``
 (batch-minor, so the kernel's loads and stores coalesce): ``q, p, a_est,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time several versions of the PyTorch port on one card, in turns.
 
-    python3 scripts/torch_ab.py [--rounds N | --build-only] TREE [TREE ...]
+    python3 scripts/torch_ab.py [--rounds N | --build-only | --accuracy] TREE [TREE ...]
 
 Each TREE is a directory holding a ``hamilton_tpu_torch/`` package: the root
 of a checkout, or a parent commit unpacked with ``git archive`` into the
@@ -35,12 +35,21 @@ Readings, all on 16384 members:
 
 Each tree's ``-Xptxas -v`` report of the K1 kernels (``csrc/fused_step.cu``,
 ``csrc/chain_variants.cu`` and ``csrc/family_step.cu``: registers and spill
-bytes per instantiation) is held against the first tree's, instantiation by
-instantiation; ``--build-only`` stops there.
+bytes per instantiation, named by ``chip_smoke.py``'s parsers) is held
+against the first tree's, instantiation by instantiation; ``--build-only``
+stops there.
+``--accuracy`` then runs, for each tree in turn, ``chip_smoke.py``'s phase 1
+semiseparable rows (chain-20 and chain-5, shared and per-member tables,
+plain and ``suzuki4``, 1000, 1, 7 and 16383 members, float64 and float32,
+50 steps) on that tree's K1 against that tree's plain version on the same
+inputs, under this checkout's ``chip_smoke`` limits, and the tree's check of
+its float functions (``kernels.libm_mismatches``) where it has one.
 
 Prints the card's name and power limit, each tree's build seconds and its
-ptxas comparison, a line per turn, and a last line of JSON:
-``{"card": ..., "trees": [...], "ms": {reading: [[turn ms, ...] per tree]}}``.
+ptxas comparison, a line per turn (per row with ``--accuracy``), and a last
+line of JSON: ``{"card": ..., "trees": [...], "ms": {reading: [[turn ms,
+...] per tree]}}``, or ``{"card": ..., "trees": [...], "accuracy": [{"rows":
+[...], "libm": ...} per tree]}``.
 """
 
 from __future__ import annotations
@@ -70,6 +79,54 @@ def _time_queued():
     sys.modules[spec.name] = mod  # its dataclass resolves annotations there
     spec.loader.exec_module(mod)
     return mod.time_queued
+
+
+def _chip_smoke():
+    """This checkout's ``chip_smoke.py``, loaded from its file (a tree's
+    root may hold its own)."""
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("_ab_chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _accuracy_tree(tree: str) -> dict:
+    """Phase 1's semiseparable rows on this tree's K1 against its plain
+    version (``chip_smoke.semisep_case``, ``compare_states`` under
+    ``semisep_tol``), and its ``kernels.libm_mismatches()`` (None where the
+    tree lacks it)."""
+    sys.path.insert(0, str(Path(tree).resolve()))
+    import torch
+
+    from hamilton_tpu_torch import kernels
+    from hamilton_tpu_torch.ops.fused_step import (
+        SUZUKI4_COMPOSITION, fused_step_kernel, fused_step_reference,
+    )
+
+    cs = _chip_smoke()
+    dev = torch.device("cuda")
+    rows = []
+    for n in (20, 5):
+        for batch in (1000,) + cs.RAGGED_BATCHES:
+            for swept in (False, True):
+                for comp in ((1.0,), SUZUKI4_COMPOSITION):
+                    for dtype in (torch.float64, torch.float32):
+                        forms, state, table = cs.semisep_case(dev, n, dtype, batch, swept,
+                                                              comp, 3)
+                        kw = dict(iters=(2, 0), compensated=True, composition=comp, coef=table,
+                                  steps_per_call=50)
+                        got = fused_step_kernel(forms, state, 5e-4, **kw)
+                        want = fused_step_reference(forms, state, 5e-4, **kw)
+                        dname = str(dtype).split(".")[-1]
+                        _, errs, failures = cs.compare_states(got, want, dname,
+                                                              cs.semisep_tol(n, dname))
+                        rows.append({"n": n, "batch": batch, "per_member": swept,
+                                     "suzuki4": len(comp) > 1, "dtype": dname,
+                                     "errors": errs, "failures": failures})
+    libm = kernels.libm_mismatches() if hasattr(kernels, "libm_mismatches") else None
+    return {"rows": rows, "libm": libm}
 
 
 def _wall_ms(fn):
@@ -200,11 +257,14 @@ def main(argv) -> int:
     if len(argv) >= 2 and argv[0] == "--time":
         print(json.dumps(_time_tree(argv[1])), flush=True)
         return 0
-    rounds, build_only = 1, False
+    if len(argv) >= 2 and argv[0] == "--accuracy-tree":
+        print(json.dumps(_accuracy_tree(argv[1])), flush=True)
+        return 0
+    rounds, build_only, accuracy = 1, False, False
     if len(argv) >= 2 and argv[0] == "--rounds":
         rounds, argv = int(argv[1]), argv[2:]
-    elif argv and argv[0] == "--build-only":
-        build_only, argv = True, argv[1:]
+    elif argv and argv[0] in ("--build-only", "--accuracy"):
+        build_only, accuracy, argv = argv[0] == "--build-only", argv[0] == "--accuracy", argv[1:]
     trees = argv
     if not trees or rounds < 1:
         print(__doc__, file=sys.stderr)
@@ -236,6 +296,25 @@ def main(argv) -> int:
               f"{len(first[1])} instantiations equal in registers and spills"
               + "".join(f"\n  {k}: {a} -> {b}" for k, (a, b) in differ.items()), flush=True)
     if build_only:
+        return 0
+    if accuracy:
+        results = []
+        for tree in trees:
+            res = subprocess.run([sys.executable, __file__, "--accuracy-tree", tree],
+                                 capture_output=True, text=True, timeout=900)
+            if res.returncode != 0:
+                raise RuntimeError(f"phase 1 rows of {tree} failed:\n{res.stderr}")
+            results.append(json.loads(res.stdout.strip().splitlines()[-1]))
+            for row in results[-1]["rows"]:
+                print(f"{tree}: chain-{row['n']} {row['dtype']} B={row['batch']}"
+                      f"{' per-member' if row['per_member'] else ''}"
+                      f"{' suzuki4' if row['suzuki4'] else ''}: "
+                      + ", ".join(f"{k} {v:.3e}" for k, v in row["errors"].items())
+                      + (f"; outside the limits: {'; '.join(row['failures'])}"
+                         if row["failures"] else ""), flush=True)
+            print(f"{tree}: float functions differing from sinf/cosf, sqrtf, 1/x: "
+                  f"{results[-1]['libm']}", flush=True)
+        print(json.dumps({"card": card, "trees": trees, "accuracy": results}))
         return 0
     ms = {r: [[] for _ in trees] for r in READINGS}
     order = (list(range(len(trees))) + list(reversed(range(len(trees))))) * rounds

@@ -437,6 +437,13 @@ template <class F> inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiproces
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "no error"; }
 using std::sin; using std::cos; using std::exp; using std::sqrt; using std::fabs;
+inline float __frcp_rn(float x) { return 1.0f / x; }
+inline double __drcp_rn(double x) { return 1.0 / x; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+inline int __float2int_rn(float x) { return (int)std::nearbyint(x); }
+inline unsigned __float_as_uint(float x) { unsigned u; std::memcpy(&u, &x, 4); return u; }
+inline float __int2float_rn(int x) { return (float)x; }
+inline float __int_as_float(int x) { float f; std::memcpy(&f, &x, 4); return f; }
 template <typename T> inline T __ldg(const T* p) { return *p; }
 struct HostBarrier {
   std::mutex m; std::condition_variable cv; int count = 0, waiting = 0; long gen = 0;
@@ -474,10 +481,12 @@ template <typename T> inline T __shfl_xor_sync(unsigned, T v, int d) {
 """
 
 
-def _host_chain_variants(part, where):
-    """``csrc/chain_variants.cu``'s part ``part`` as a host library (the
-    dynamic shared memory a static buffer, each launch a loop over blocks
-    of threads)."""
+def _host_kernel_source(name, part, where):
+    """``csrc/<name>.cu`` (``fused_step`` or ``chain_variants``), its part
+    ``part``, as a host library: the dynamic shared memory a static buffer,
+    each launch a loop over blocks of threads, in the source and in the
+    headers it includes (``chain_lanes.cuh`` has the one dynamic
+    shared-memory symbol and the lane kernel's launch)."""
     import shutil
     import subprocess
 
@@ -485,23 +494,41 @@ def _host_chain_variants(part, where):
         pytest.skip("needs g++ for the host build of the kernel source")
     csrc = Path(kernels.__file__).resolve().parent.parent / "csrc"
     (where / "cuda_runtime.h").write_text(HOST_SHIM)
-    for h in csrc.glob("*.cuh"):
-        (where / h.name).write_text(h.read_text())
-    src, n_shared = re.subn(r"extern __shared__ __align__\(16\) unsigned char (\w+)\[\];",
-                            r"alignas(16) static unsigned char \1[1 << 18];",
-                            (csrc / "chain_variants.cu").read_text())
-    src, n_launch = re.subn(r"(\w+<[^<>;]*>)\s*<<<(.*?),(.*?),.*?>>>\((.*?)\);",
-                            lambda m: f"HOST_LAUNCH({m.group(2)}, {m.group(3)}, "
-                                      f"{m.group(1)}({m.group(4)}));", src, flags=re.S)
+    n_shared = n_launch = 0
+    for path, target in ([(h, where / h.name) for h in csrc.glob("*.cuh")]
+                         + [(csrc / f"{name}.cu", where / f"{name}.cc")]):
+        src, shared = re.subn(r"extern __shared__ __align__\(16\) unsigned char (\w+)\[\];",
+                              r"alignas(16) static unsigned char \1[1 << 18];", path.read_text())
+        src, launch = re.subn(r"(\w+<[^<>;]*>)\s*<<<(.*?),(.*?),.*?>>>\((.*?)\);",
+                              lambda m: f"HOST_LAUNCH({m.group(2)}, {m.group(3)}, "
+                                        f"{m.group(1)}({m.group(4)}));", src, flags=re.S)
+        target.write_text(src)
+        n_shared, n_launch = n_shared + shared, n_launch + launch
+    # chain_lanes.cuh's symbol and lane_launch, and the source's one-thread
+    # launch (family_step.cu's launch is in its own source, not built here)
     assert n_shared == 1 and n_launch == 2
-    (where / "chain_variants.cc").write_text(src)
-    lib = where / "libchain_variants_host.so"
+    lib = where / f"lib{name}_host.so"
     proc = subprocess.run(["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
                            "-w", "-pthread", f"-DHAMILTON_PART={part}", "-I", str(where), "-o",
-                           str(lib), str(where / "chain_variants.cc")],
+                           str(lib), str(where / f"{name}.cc")],
                           capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr[-4000:]
     return lib
+
+
+#: The lane-split cases of K1's chain sources (L⁻¹): (code, n).
+LANE_CASES = ((2, 20), (3, 5))
+
+
+def _layout_query(lib, source):
+    query = lib.hamilton_lane_layout
+    query.argtypes = kernels._SIGNATURES[source]["hamilton_lane_layout"]
+    return query
+
+
+def _flags(source, code, compensated, per_member):
+    semiseparable = source == "fused_step" and code in (20, 5)
+    return int(semiseparable) | int(compensated) << 1 | int(per_member) << 2
 
 
 @pytest.mark.parametrize("n", [20, 5])
@@ -510,12 +537,12 @@ def test_linv_layout_of_the_kernel_source(n, tmp_path):
     (built with g++, a part that holds no kernel): lanes a member that the
     tree and schedule tests above cover, whole groups in a warp and in a
     block, shared memory within a block's 232448 bytes; no blocks an SM
-    where the part holds no kernel; -1 for another case, -2 for bad flags."""
+    where the part holds no kernel; -1 for a case the source does not
+    instantiate, -2 for bad flags."""
     import ctypes
 
-    lib = ctypes.CDLL(str(_host_chain_variants(99, tmp_path)))
-    query = lib.hamilton_linv_layout
-    query.argtypes = kernels._SIGNATURES["chain_variants"]["hamilton_linv_layout"]
+    query = _layout_query(ctypes.CDLL(str(_host_kernel_source("chain_variants", 99, tmp_path))),
+                          "chain_variants")
     out = (ctypes.c_int * 4)()
     code = 2 if n == 20 else 3
     for dtype_code in (0, 1):
@@ -526,57 +553,165 @@ def test_linv_layout_of_the_kernel_source(n, tmp_path):
         slots = n * (n + 1) // 2 + 5 * n  # at least the factor and the generators
         assert slots * (block // lanes) * (4, 8)[dtype_code] < smem <= 232448
         assert blocks == 0
-    assert query(0, 0, 2, out) == -1 and query(2, code, 2, out) == -1
+    assert query(0, 5, 2, out) == -1 and query(2, code, 2, out) == -1
     assert query(0, code, 1, out) == -2
 
 
-@pytest.mark.parametrize("n", [20, 5])
-def test_linv_kernel_source_on_the_host(n, tmp_path):
-    """The L⁻¹ kernel's source at its lanes a member, built with g++ in the
-    host emulation and run through its C entry on CPU tensors: float64, a
-    ragged batch (37 members), shared and per-member tables, (2,0) Kahan and
-    Suzuki-composed (3,1), two steps against the plain version to 1e-13
-    (vdot_est as dt·vdot_est, the velocity difference it is made from; the
-    host's libm and PyTorch's sin differ by ulps)."""
+@pytest.mark.parametrize("source", ["fused_step", "chain_variants"])
+def test_lane_layout_of_every_lane_split_case(source, tmp_path):
+    """Every case of a chain source through its layout entry (g++, a part
+    that holds no kernel), in each dtype and mode.  The lane-split cases
+    (L⁻¹): lanes a power of two that divides a warp and the members' n links
+    at most, whole groups in a block of 32 to 128 threads, shared memory
+    that holds each member's slots (at least its triangle, aux, x and
+    generators) within a block's 232448 bytes.  The semiseparable, Möbius
+    and dense forms report the one-thread kernel: 1 lane, 128 threads, and
+    the per-member table staged in shared memory (the semiseparable and
+    Möbius forms) or none."""
     import ctypes
 
-    lib = ctypes.CDLL(str(_host_chain_variants(2 * (2 if n == 20 else 3) + 1, tmp_path)))
-    entry = lib.hamilton_chain_variant_step
-    entry.argtypes = kernels._SIGNATURES["chain_variants"]["hamilton_chain_variant_step"]
+    query = _layout_query(ctypes.CDLL(str(_host_kernel_source(source, 99, tmp_path))), source)
+    out = (ctypes.c_int * 4)()
+    for code, n in LANE_CASES if source == "chain_variants" else ():
+        for dtype_code in (0, 1):
+            for comp in (False, True):
+                for swept in (False, True):
+                    assert query(dtype_code, code, _flags(source, code, comp, swept), out) == 0
+                    lanes, block, smem, blocks = out
+                    assert lanes in (2, 4, 8, 16, 32) and lanes <= n and 32 % lanes == 0
+                    assert block % 32 == 0 and 32 <= block <= 128 and block % lanes == 0
+                    slots = n * (n + 1) // 2 + 8 * n
+                    assert slots * (block // lanes) * (4, 8)[dtype_code] < smem <= 232448
+                    assert blocks == 0
+    one_thread = ([(20, 60), (5, 15), (2, 0)] if source == "fused_step"
+                  else [(0, 100), (1, 25), (4, 0)])  # (code, a staged column's entries)
+    for code, staged in one_thread:
+        for dtype_code in (0, 1):
+            for swept in (False, True):
+                assert query(dtype_code, code, _flags(source, code, True, swept), out) == 0
+                item = (4, 8)[dtype_code]
+                assert tuple(out) == (1, 128, staged * 128 * item if swept else 0, 0)
+
+
+#: The float32 limits of the kernels against their plain version
+#: (``chip_smoke.TOL``, read over 50 steps on the card): q and p absolute,
+#: the compensated sums q+cq and p+cp absolute, a_est and vdot_est relative
+#: to their largest magnitude.
+F32_TOL = {"abs": 1e-6, "kahan": 3e-7, "a_est": 2e-6, "vdot_est": 5e-2}
+
+
+def _float32_failures(got, want):
+    """``got`` against ``want`` under :data:`F32_TOL`: the failures."""
+    k, r = got.double(), want.double()
+    diff = k - r
+    errs = {"abs": torch.maximum(diff[0].abs().max(), diff[1].abs().max())}
+    if k.shape[0] == 6:
+        errs["kahan"] = torch.maximum((diff[0] + diff[2]).abs().max(),
+                                      (diff[1] + diff[3]).abs().max())
+    for name, row in (("a_est", -2), ("vdot_est", -1)):
+        errs[name] = diff[row].abs().max() / r[row].abs().max().clamp_min(1e-30)
+    return [f"{name} {float(e):.3e}" for name, e in errs.items()
+            if not float(e) <= F32_TOL[name]]
+
+
+def _host_step_matches_plain(lib, source, code, solver, n, on_lanes=True, dtype=F64):
+    """The host build's C entry against the plain version on CPU tensors: a
+    ragged batch (37 members), shared and per-member tables, (2,0) Kahan and
+    Suzuki-composed (3,1), two steps; float64 to 1e-13 (vdot_est as
+    dt·vdot_est, the velocity difference it is made from; the host's libm
+    and PyTorch's sin differ by ulps), float32 within :data:`F32_TOL`."""
+    import ctypes
+
+    dtype_code = int(dtype == F64)
+
+    entry = getattr(lib, "hamilton_fused_step" if source == "fused_step"
+                    else "hamilton_chain_variant_step")
+    entry.argtypes = kernels._SIGNATURES[source][entry.__name__]
     layout = (ctypes.c_int * 4)()
-    lib.hamilton_linv_layout.argtypes = kernels._SIGNATURES["chain_variants"][
-        "hamilton_linv_layout"]
-    assert lib.hamilton_linv_layout(1, 2 if n == 20 else 3, 2, layout) == 0
+    assert _layout_query(lib, source)(dtype_code, code, _flags(source, code, True, False),
+                                      layout) == 0
+    assert (layout[0] > 1 or layout[2] > 0) == on_lanes  # the lane kernel, or one thread
     assert layout[3] == 1  # the host emulation's blocks an SM, from the part that holds it
     rng = np.random.default_rng(17)
     batch, dt = 37, 5e-4
     for swept in (False, True):
-        system = tp.chain(n_links=n, fused_solver="linv", device="cpu", dtype=F64).system
+        system = tp.chain(n_links=n, fused_solver=solver, device="cpu", dtype=dtype).system
         if swept:
             system = system.replace_params(params_from_numpy({
                 "masses": 1.0 + 0.05 * rng.standard_normal((batch, n)),
                 "lengths": 1.0 + 0.1 * rng.random((batch, n)),
-                "gravity": 5.0 + 0.1 * rng.standard_normal(batch)}, device="cpu", dtype=F64))
+                "gravity": 5.0 + 0.1 * rng.standard_normal(batch)}, device="cpu", dtype=dtype))
         forms = system.fused_forms(system)
         for iters, comp, weights in (((2, 0), True, (1.0,)),
                                      ((3, 1), False, t_step.SUZUKI4_COMPOSITION)):
             st = t_step.fused_stepper(forms, iters=iters, compensated=comp, composition=weights)
             ph = phase_from_numpy(0.5 + 0.05 * rng.standard_normal((batch, n)),
                                   0.3 * rng.standard_normal((batch, n)), device="cpu",
-                                  dtype=F64)
+                                  dtype=dtype)
             carry = st.init(ph)
             state, table = carry if swept else (carry, None)
-            coef = table if swept else t_step.coef_table(forms, "cpu", F64)
+            coef = table if swept else t_step.coef_table(forms, "cpu", dtype)
             with torch.no_grad():
                 want = t_step.fused_step_reference(forms, state, dt, iters=iters,
                                                    compensated=comp, steps_per_call=2,
                                                    composition=weights, coef=table)
             got = torch.full_like(state, float("nan"))
-            code = entry(1, 2 if n == 20 else 3, int(comp) << 1 | int(swept) << 2,
-                         coef.data_ptr(), state.data_ptr(), got.data_ptr(), batch, dt,
-                         iters[0], iters[1], 2, len(weights),
-                         (ctypes.c_double * len(weights))(*weights), None)
-            assert code == 0
+            code_ = entry(dtype_code, code, _flags(source, code, comp, swept), coef.data_ptr(),
+                          state.data_ptr(), got.data_ptr(), batch, dt, iters[0], iters[1], 2,
+                          len(weights), (ctypes.c_double * len(weights))(*weights), None)
+            assert code_ == 0
+            if dtype == torch.float32:
+                assert not _float32_failures(got, want), (swept, iters,
+                                                          _float32_failures(got, want))
+                continue
             scale = torch.ones(state.shape[0], 1, 1, dtype=F64)
             scale[-1] = dt
             assert float(((got - want) * scale).abs().max()) <= 1e-13, (swept, iters)
+
+
+@pytest.mark.parametrize("n", [20, 5])
+def test_linv_kernel_source_on_the_host(n, tmp_path):
+    """The L⁻¹ kernel's source at its lanes a member, built with g++ in the
+    host emulation and run through its C entry on CPU tensors
+    (:func:`_host_step_matches_plain`)."""
+    import ctypes
+
+    code = 2 if n == 20 else 3
+    lib = ctypes.CDLL(str(_host_kernel_source("chain_variants", 2 * code + 1, tmp_path)))
+    _host_step_matches_plain(lib, "chain_variants", code, "linv", n)
+
+
+@pytest.mark.parametrize("solver,n", [("semiseparable", 20), ("semiseparable", 5),
+                                      ("mobius", 20), ("mobius", 5)])
+def test_one_thread_chain_kernel_source_on_the_host(solver, n, tmp_path):
+    """The semiseparable (``csrc/fused_step.cu``) and Möbius
+    (``csrc/chain_variants.cu``) forms, one thread a member, built with g++
+    in the host emulation and run through the source's C entry on CPU
+    tensors (:func:`_host_step_matches_plain`): the per-member table staged
+    in shared memory, the correctly rounded reciprocal."""
+    import ctypes
+
+    source, code = (("fused_step", n) if solver == "semiseparable"
+                    else ("chain_variants", 0 if n == 20 else 1))
+    part = kernels.PARTS[source][1](1, code)
+    lib = ctypes.CDLL(str(_host_kernel_source(source, part, tmp_path)))
+    _host_step_matches_plain(lib, source, code, solver, n, on_lanes=False)
+
+
+@pytest.mark.parametrize("solver,n", [("semiseparable", 20), ("semiseparable", 5),
+                                      ("mobius", 20), ("mobius", 5)])
+def test_float32_chain_kernel_source_on_the_host(solver, n, tmp_path):
+    """The float32 parts of the semiseparable and Möbius kernels, built with
+    g++ in the host emulation (the straight-line sin/cos, square roots and
+    reciprocals of ``csrc/chain_forms.cuh``, with the card's approximate
+    reciprocal square root and reciprocal as host divisions) and run
+    through the source's C entry on CPU tensors against the float32 plain
+    version (:func:`_host_step_matches_plain`)."""
+    import ctypes
+
+    source, code = (("fused_step", n) if solver == "semiseparable"
+                    else ("chain_variants", 0 if n == 20 else 1))
+    part = kernels.PARTS[source][1](0, code)
+    lib = ctypes.CDLL(str(_host_kernel_source(source, part, tmp_path)))
+    _host_step_matches_plain(lib, source, code, solver, n, on_lanes=False,
+                             dtype=torch.float32)

@@ -42,11 +42,13 @@ def _state(ex, iters, compensated, batch, card, seed=0):
     return forms, st.init(tp.phase_from_numpy(q, p, device=card, dtype=torch.float64))
 
 
+@pytest.mark.parametrize("batch", [300, 1, 7, 16383])
 @pytest.mark.parametrize("case", ["chain20-semiseparable-2-0-kahan", "double_pendulum-dense-2-1"])
-def test_kernel_matches_plain_version(card, case):
-    """float64, a ragged batch, ten steps per launch: the kernel's state
-    agrees with its plain version to float64 rounding (vdot_est compared as
-    dt·vdot_est, the velocity difference it is computed from)."""
+def test_kernel_matches_plain_version(card, case, batch):
+    """float64, ragged batches (not a multiple of a block's members or
+    threads), ten steps per launch: the kernel's state agrees with its plain
+    version to float64 rounding (vdot_est compared as dt·vdot_est, the
+    velocity difference it is computed from)."""
     if case.startswith("chain20"):
         ex = tp.chain(n_links=20, fused_solver="semiseparable", device=card,
                       dtype=torch.float64)
@@ -54,7 +56,7 @@ def test_kernel_matches_plain_version(card, case):
     else:
         ex = tp.double_pendulum(device=card, dtype=torch.float64)
         iters, comp, dt = (2, 1), False, 1e-3
-    forms, state = _state(ex, iters, comp, 300, card)
+    forms, state = _state(ex, iters, comp, batch, card)
     before = kernels.fused_step_launch.launches
     got = t_step.fused_step_kernel(forms, state, dt, iters=iters, compensated=comp,
                                    steps_per_call=10)
@@ -101,12 +103,13 @@ def _sweep_state(n, batch, dtype, card, iters, compensated, composition=(1.0,), 
     return forms, st.init(tp.phase_from_numpy(q, p, device=card, dtype=dtype))
 
 
+@pytest.mark.parametrize("batch", [300, 1, 7, 16383])
 @pytest.mark.parametrize("n", [5, 20])
-def test_per_member_kernel_matches_plain_version(card, n):
-    """Per-member tables, float64 (2,0) with Kahan, a ragged batch, ten
+def test_per_member_kernel_matches_plain_version(card, n, batch):
+    """Per-member tables, float64 (2,0) with Kahan, ragged batches, ten
     steps per launch: float64 rounding, as the shared-table test."""
-    forms, (state, table) = _sweep_state(n, 300, torch.float64, card, (2, 0), True)
-    assert forms.consts is None and table.shape == (3 * n, 300)
+    forms, (state, table) = _sweep_state(n, batch, torch.float64, card, (2, 0), True)
+    assert forms.consts is None and table.shape == (3 * n, batch)
     kw = dict(iters=(2, 0), compensated=True, steps_per_call=10, coef=table)
     before = kernels.fused_step_launch.launches
     got = t_step.fused_step_kernel(forms, state, 5e-4, **kw)
@@ -117,20 +120,21 @@ def test_per_member_kernel_matches_plain_version(card, n):
     assert float(((got - want) * scale).abs().max()) < 1e-11
 
 
+@pytest.mark.parametrize("batch", [300, 1, 7, 16383])
 @pytest.mark.parametrize("swept", [False, True], ids=["shared", "per_member"])
 @pytest.mark.parametrize("composition", [t_step.YOSHIDA4_COMPOSITION,
                                          t_step.SUZUKI4_COMPOSITION],
                          ids=["yoshida4", "suzuki4"])
-def test_composition_kernel_matches_plain_version(card, composition, swept):
+def test_composition_kernel_matches_plain_version(card, composition, swept, batch):
     """The composition weights by value, float64 (3,2), five steps per
-    launch, chain-5: float64 rounding."""
+    launch, chain-5, ragged batches: float64 rounding."""
     if swept:
-        forms, (state, table) = _sweep_state(5, 300, torch.float64, card, (3, 2), False,
+        forms, (state, table) = _sweep_state(5, batch, torch.float64, card, (3, 2), False,
                                              composition)
     else:
         ex = tp.chain(n_links=5, fused_solver="semiseparable", device=card,
                       dtype=torch.float64)
-        forms, state = _state(ex, (3, 2), False, 300, card)
+        forms, state = _state(ex, (3, 2), False, batch, card)
         table = None
     kw = dict(iters=(3, 2), compensated=False, steps_per_call=5, composition=composition,
               coef=table)
@@ -139,6 +143,41 @@ def test_composition_kernel_matches_plain_version(card, composition, swept):
     scale = torch.ones(state.shape[0], 1, 1, dtype=torch.float64, device=card)
     scale[-1] = 1e-3
     assert float(((got - want) * scale).abs().max()) < 1e-11
+
+
+@pytest.mark.parametrize("source,code", [("fused_step", 20), ("fused_step", 5),
+                                         ("chain_variants", 0), ("chain_variants", 1),
+                                         ("chain_variants", 2), ("chain_variants", 3)])
+def test_lane_layout_fits_the_card(card, source, code):
+    """Each chain case of K1's two chain sources as built, in both dtypes
+    and every mode: at least one block an SM (the launch would be refused
+    otherwise) within a block's 232448 bytes of shared memory.  L⁻¹ (cases 2
+    and 3) on lanes, whole groups in a block, at n = 20 in float32 16 warps
+    an SM; the semiseparable and Möbius forms one thread a member, 128
+    threads a block, with the per-member table staged in shared memory."""
+    for dtype_code in (0, 1):
+        for comp in (False, True):
+            for swept in (False, True):
+                lanes, block, smem, blocks = kernels.lane_layout(
+                    source, dtype_code, code, compensated=comp, per_member=swept)
+                assert smem <= 232448 and blocks >= 1
+                if source == "chain_variants" and code in (2, 3):
+                    assert lanes > 1 and 32 % lanes == 0 and block % lanes == 0 and smem > 0
+                    if dtype_code == 0 and code == 2:
+                        assert blocks * block // 32 == 16, (lanes, block, smem, blocks)
+                else:
+                    assert (lanes, block) == (1, 128) and (smem > 0) == swept
+
+
+def test_straight_line_libm_equals_the_library(card):
+    """The chain kernels' float sin/cos, sqrt and reciprocal
+    (``csrc/chain_forms.cuh``'s straight-line versions, and the library's
+    ``sincosf`` and ``__frcp_rn`` that take over outside their ranges)
+    against ``sinf``/``cosf``, ``sqrtf`` and ``1/x``, the functions the
+    kernels called before them, on every float in each one's range, bit for
+    bit (``csrc/libm_check.cu``)."""
+    assert kernels.libm_mismatches() == {"sincos": 0, "sincosf": 0, "sqrt": 0, "rcp": 0,
+                                         "frcp": 0}
 
 
 def test_uninstantiated_size_raises_on_the_card(card):
