@@ -36,9 +36,10 @@ raises as soon as one fails:
    must exceed the bound of phase 3 — so that bound can see a kernel that
    loses the compensation;
 7. the five batched tiny-SPD kernels (K2a-K2e) against their plain versions
-   on B=1000 and B=16384 at n = 3, 20, 32 in float32 and float64 (random SPD
-   K, and √M·J with m = 2n, from a seed), and each kernel's device time at
-   16384 × 20 beside its plain version's;
+   on B=1000, 4097 and 16384 at n = 1, 2, 3, 20, 32 in float32 and float64
+   (random SPD K, and √M·J with m = 2n, from a seed), bit for bit, and each
+   kernel's device time at 16384 × 20 (on one operand set, and on four in
+   turn) beside its plain version's and one PyTorch call's;
 8. adaptive GSL-RKF45 ``evolve_ham`` at full width (``bench.py::
    phase_adaptive``): 16384 × chain-20, one shared controller over t ∈ [0, 1],
    float64 at GSL's eps and float32 at eps 1e-6 — exactly six K2a launches
@@ -50,7 +51,8 @@ raises as soon as one fails:
 10. the library leapfrog at full width: ``evolve_ensemble_final(method=
     "leapfrog", iters=(2, 0), compensated=True)`` on 16384 × chain-20,
     float32, 2000 steps, float64 drift every 1000 — one K2b and five K2c
-    launches per step;
+    launches per step; then 50 steps under ``torch.profiler`` for the
+    card's busy share;
 11. the J route at full width: a 20-link chain given by its coordinate map
     and potential alone (no analytic Jacobian or mass matrix), 200 library
     leapfrog steps on 16384 members in float32 (K2e, K2c; K2d in its float64
@@ -209,8 +211,12 @@ K2_SOURCE = "hamilton_tpu_torch/csrc/batched_spd.cu"
 # is equality.  A nonzero difference means the kernel no longer does the
 # plain version's arithmetic.
 K2_TOL = 0.0
-K2_SIZES = (3, 20, 32)
-K2_BATCHES = (1000, BATCH)
+K2_SIZES = (1, 2, 3, 20, 32)
+# 4097: a batch that is not a multiple of any tile's members (K2b, K2c)
+K2_BATCHES = (1000, 4097, BATCH)
+# operand sets the K2 kernels are also timed on in turn, 26 MB or more each
+# at 16384 x 20: their time when the 50 MB L2 does not hold the operands
+K2_ROTATE = 4
 # The dtype each K2 entry runs in on its main path at n = 20 (the adaptive
 # float64 run and the drift samplers for K2a and K2d, the float32 library
 # leapfrogs for K2b, K2c and K2e): the kernels line reports that time.
@@ -231,6 +237,8 @@ CPU_TOL_F64 = 1e-12
 # sin/cos through chain-20's K; the reading is 6.0e-8 (one ulp of |q| ~ 0.5).
 CPU_TOL_F32 = 6e-7
 LEAPFROG_STEPS = 2000
+# steps of the library leapfrog under torch.profiler for the card's busy share
+BUSY_STEPS = 50
 J_STEPS = 200
 # the sweep and order-4 paths (bench.py:568-610 with ROADMAP's 2e5-step
 # horizon at dt=5e-4; bench.py:539, the suzuki4_fused datapoint)
@@ -316,10 +324,14 @@ def card_line() -> str:
 _KERNEL_RE = re.compile(
     r"fused_step_kernelI(?P<t>[fd])Li(?P<n>\d+)ELb(?P<semi>[01])E"
     r"Lb(?P<comp>[01])ELb(?P<pm>[01])ELb(?P<composed>[01])E")
-_K2_RE = re.compile(r"(factor_solve_kernel|factor_kernel|substitute_kernel)I([fd])(?:Lb([01])E)?")
+# factor_solve_kernel<T, from_j>, factor_kernel<T, from_j> (one thread a
+# member) or factor_lanes_kernel<T, lanes, nmax>, substitute_lanes_kernel<T,
+# lanes, nmax> (nmax: the one-thread form's largest n, 0 on lanes)
+_K2_RE = re.compile(r"(factor_solve_kernel|factor_lanes_kernel|factor_kernel"
+                    r"|substitute_lanes_kernel)I([fd])(?:Lb([01])E|Li(\d+)ELi(\d+)E)?")
 _K2_NAMES = {("factor_solve_kernel", "0"): "spd_solve (K2a)",
-             ("factor_kernel", "0"): "cholesky (K2b)",
-             ("substitute_kernel", None): "cho_solve (K2c)",
+             ("factor_lanes_kernel", None): "cholesky (K2b)",
+             ("substitute_lanes_kernel", None): "cho_solve (K2c)",
              ("factor_solve_kernel", "1"): "spd_solve_jac (K2d)",
              ("factor_kernel", "1"): "cholesky_jac (K2e)"}
 
@@ -376,8 +388,10 @@ def _k3_label(m):
 
 
 def _k2_label(m):
-    kind, t, from_j = m.groups()
-    return f"{'float' if t == 'f' else 'double'} {_K2_NAMES[(kind, from_j)]}"
+    kind, t, from_j, lanes, nmax = m.groups()
+    return (f"{'float' if t == 'f' else 'double'} {_K2_NAMES[(kind, from_j)]}"
+            + ("" if lanes is None else f", one thread, n <= {nmax}" if lanes == "1"
+               else f", {lanes} lanes"))
 
 
 def ptxas_report(log_text: str, pattern=_KERNEL_RE, label=_k1_label):
@@ -499,6 +513,21 @@ def time_call(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def reads_back(fn) -> bool:
+    """Whether ``fn`` waits for the card (reads a result back to the host):
+    called behind a spin kernel, it returns only after the spin has ended."""
+    import torch
+
+    torch.cuda.synchronize()
+    spun = torch.cuda.Event()
+    torch.cuda._sleep(10**8)
+    spun.record()
+    fn()
+    waited = spun.query()
+    torch.cuda.synchronize()
+    return waited
 
 
 def counted(fn):
@@ -1859,18 +1888,21 @@ def main() -> int:
                                              f"differs from its plain version by {err:.3e}")
                 log(f"phase 7 ok: B={batch} n={n} {dname}: " + ", ".join(row))
     # one PyTorch call computing each entry's function on its operands, the
-    # yardstick beside the kernel (the port never calls these); K2d and K2e
-    # have none (forming K is a second call)
+    # yardstick beside the kernel (the port never calls these), timed as the
+    # kernels are where it can be queued (the _ex forms: linalg.cholesky and
+    # linalg.solve check their info on the host); K2d and K2e have none
+    # (forming K is a second call)
     k2_library = {
-        "spd_solve_batched": lambda k, b: torch.linalg.solve(k, b),
-        "cholesky_batched": torch.linalg.cholesky,
+        "spd_solve_batched": lambda k, b: torch.linalg.solve_ex(k, b, check_errors=False)[0],
+        "cholesky_batched": lambda k: torch.linalg.cholesky_ex(k, check_errors=False)[0],
         "cho_solve_batched": lambda low, b: torch.cholesky_solve(b[..., None], low),
     }
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split(".")[-1]
-        k, js, b = k2_inputs(BATCH, 20, dtype, dev, 7)
+        sets = [k2_inputs(BATCH, 20, dtype, dev, 7 + s) for s in range(K2_ROTATE)]
         for e in ENTRIES:
-            args = k2_args(e, k, js, b)
+            rotating = [k2_args(e, *inputs) for inputs in sets]
+            args = rotating[0]
             e.kernel(*args)
             e.plain(*args)  # warm-up
             # in turns on one card: plain, kernel, kernel, plain
@@ -1878,17 +1910,25 @@ def main() -> int:
             k1, _ = time_queued(lambda: e.kernel(*args), 100)
             k2, _ = time_queued(lambda: e.kernel(*args), 100)
             p2, _ = time_call(lambda: e.plain(*args), 2)
+            turn = iter(range(10**9))
+            rot, _ = time_queued(lambda: e.kernel(*rotating[next(turn) % K2_ROTATE]), 100)
             lib_ms = None
             if e.name in k2_library:
                 lib = k2_library[e.name]
                 lib(*args)  # warm-up
-                l1, _ = time_call(lambda: lib(*args), 20)
-                l2, _ = time_call(lambda: lib(*args), 20)
+                # queued as the kernels are, unless the call reads back to the
+                # host itself: then CUDA events around calls back to back
+                synced = reads_back(lambda: lib(*args))
+                timer = time_call if synced else time_queued
+                l1, _ = timer(lambda: lib(*args), 20)
+                l2, _ = timer(lambda: lib(*args), 20)
                 lib_ms = (l1 + l2) / 2
             log(f"phase 7: {e.name} 16384 x n=20 {dname}: kernel {(k1 + k2) / 2:.4f} ms "
-                f"({k1:.4f}, {k2:.4f}), plain {(p1 + p2) / 2:.3f} ms ({p1:.3f}, {p2:.3f})"
+                f"({k1:.4f}, {k2:.4f}; on {K2_ROTATE} operand sets in turn {rot:.4f}), plain "
+                f"{(p1 + p2) / 2:.3f} ms ({p1:.3f}, {p2:.3f})"
                 + ("" if lib_ms is None else f", one PyTorch call {lib_ms:.4f} ms "
-                   f"({l1:.4f}, {l2:.4f})"))
+                   f"({l1:.4f}, {l2:.4f}; "
+                   f"{'it reads back to the host' if synced else 'queued'})"))
             if K2_MAIN_DTYPE[e.name] == dname:
                 k2_rows[e.name].update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, dtype=dname,
                                        library_ms=lib_ms)
@@ -1965,6 +2005,25 @@ def main() -> int:
         f"max|dH/H0| {float(lf_drift.max()):.6e}, launches {counts}")
     summary["library_leapfrog_member_steps_per_sec"] = lf_rate
     summary["library_leapfrog_max_drift"] = float(lf_drift.max())
+    # the card's busy share over BUSY_STEPS more steps: the kernels' device
+    # time (torch.profiler) over the wall time of the run
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        evolve_ensemble_final(ex20.system, ph, 5e-4, BUSY_STEPS, method="leapfrog",
+                              iters=(2, 0), compensated=True, track_drift=False,
+                              drift_every=BUSY_STEPS)
+        torch.cuda.synchronize()
+        busy_wall = time.perf_counter() - t0
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    log(f"phase 10: library leapfrog, {BUSY_STEPS} steps under torch.profiler: the card busy "
+        f"{busy_us / 1e3:.3f} ms of {busy_wall * 1e3:.3f} ms wall, "
+        f"{100 * busy_us / 1e6 / busy_wall:.2f} %")
+    summary["library_leapfrog_device_busy_share"] = busy_us / 1e6 / busy_wall
     k2_rows["cholesky_batched"]["launches"] = counts["cholesky"]
     k2_rows["cho_solve_batched"]["launches"] = counts["cho_solve"]
 

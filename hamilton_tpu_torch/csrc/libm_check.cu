@@ -1,7 +1,8 @@
-// A check of chain_forms.cuh's float sin/cos, sqrt and reciprocal (the
-// chain kernels' trig aux and factors) against the functions the plain
-// version's kernel called before them, sinf, cosf, sqrtf and 1/x, on the
-// card: every float bit pattern in each one's range, compared bit for bit.
+// A check of chain_forms.cuh's float sin/cos and libm_fast.cuh's sqrt and
+// reciprocal (the chain kernels' trig aux and factors, the batched factor
+// and solve of batched_spd.cu) against the functions the plain version's
+// kernel called before them, sinf, cosf, sqrtf and 1/x, on the card: every
+// float bit pattern in each one's range, compared bit for bit.
 // Checked are the straight-line versions (sincos_fast, sqrt_fast,
 // rcp_fast) and the library's functions that take over where an input is
 // outside their range (sincosf for the aux, __frcp_rn for the factor).

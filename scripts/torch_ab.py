@@ -31,13 +31,20 @@ Readings, all on 16384 members:
 - two host-bound library paths on chain-20, wall ms up to a synchronize:
   ``library_leapfrog_step`` (float32, (2,0), Kahan, dt=5e-4, per step over
   20 steps) and ``adaptive_f64`` (``evolve_ham`` in float64 over
-  t ∈ [0, 0.05], the whole call).
+  t ∈ [0, 0.05], the whole call);
+- the batched solves (K2, ``csrc/batched_spd.cu``) at 16384 × n=20 through
+  the tree's entries: ``cholesky`` (K2b) and ``cho_solve`` (K2c) in float32
+  and float64, ``spd_solve`` (K2a) and ``spd_solve_jac`` (K2d, m=40) in
+  float64, ``cholesky_jac`` (K2e, m=40) in float32, each the device ms of one
+  call from ``time_queued`` around 100 calls on one operand set, and
+  (``_rotating``) on four sets in turn, more than the 50 MB L2 holds.
 
 Each tree's ``-Xptxas -v`` report of the K1 kernels (``csrc/fused_step.cu``,
 ``csrc/chain_variants.cu`` and ``csrc/family_step.cu``: registers and spill
-bytes per instantiation, named by ``chip_smoke.py``'s parsers) is held
-against the first tree's, instantiation by instantiation; ``--build-only``
-stops there.
+bytes per instantiation, named by ``chip_smoke.py``'s parsers) and of the K2
+kernels (``csrc/batched_spd.cu``, named by their mangled template names) is
+held against the first tree's, instantiation by instantiation;
+``--build-only`` stops there.
 ``--accuracy`` then runs, for each tree in turn, ``chip_smoke.py``'s phase 1
 semiseparable rows (chain-20 and chain-5, shared and per-member tables,
 plain and ``suzuki4``, 1000, 1, 7 and 16383 members, float64 and float32,
@@ -56,6 +63,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import re
 import subprocess
 import sys
 import time
@@ -63,10 +71,19 @@ from pathlib import Path
 
 BATCH, SPC, REPS = 16384, 50, 100
 LEAPFROG_STEPS = 20
+# the K2 readings: (entry, dtype); each also on K2_ROTATE operand sets in turn
+K2_READINGS = (("cholesky", "float32"), ("cho_solve", "float32"), ("cholesky", "float64"),
+               ("cho_solve", "float64"), ("spd_solve", "float64"),
+               ("spd_solve_jac", "float64"), ("cholesky_jac", "float32"))
+K2_ROTATE = 4
 READINGS = ("headline", "double_pendulum", "sweep", "suzuki4", "mobius", "linv", "headline_host",
             "double_pendulum_host", "double_pendulum_wall", "library_leapfrog_step",
-            "adaptive_f64")
+            "adaptive_f64") + tuple(f"{e}_{d}{r}" for e, d in K2_READINGS
+                                    for r in ("", "_rotating"))
 DP_WALL_LAUNCHES = 400
+# the K2 kernels as each tree's report names them (the mangled template name)
+_K2_ANY_RE = re.compile(r"(?:factor_solve_kernel|factor_lanes_kernel|factor_kernel"
+                        r"|substitute_lanes_kernel|substitute_kernel)I[fd](?:L[bi]\d+E)*")
 
 
 def _time_queued():
@@ -229,6 +246,40 @@ def _time_tree(tree: str) -> dict:
     ph64 = phase(ch64, f64)
     tp.evolve_ham(ch64.system, ph64, [0.0, 0.01])  # warm-up
     out["adaptive_f64"] = _wall_ms(lambda: tp.evolve_ham(ch64.system, ph64, [0.0, 0.05]))
+    out.update(_time_k2(time_queued))
+    return out
+
+
+def _time_k2(time_queued) -> dict:
+    """The K2 readings through the tree's entries (``ops.batched_spd``), on
+    operands from this checkout's ``chip_smoke.k2_inputs``."""
+    import torch
+
+    from hamilton_tpu_torch.ops import batched_spd as bs
+
+    cs = _chip_smoke()
+    dev = torch.device("cuda")
+    calls = {"cholesky": lambda k, js, b, low: bs.cholesky_batched(k),
+             "cho_solve": lambda k, js, b, low: bs.cho_solve_batched(low, b),
+             "spd_solve": lambda k, js, b, low: bs.spd_solve_batched(k, b),
+             "spd_solve_jac": lambda k, js, b, low: bs.spd_solve_jac(js, b),
+             "cholesky_jac": lambda k, js, b, low: bs.cholesky_jac(js)}
+    out = {}
+    with torch.no_grad():
+        for dname in ("float32", "float64"):
+            sets = []
+            for s in range(K2_ROTATE):
+                k, js, b = cs.k2_inputs(BATCH, 20, getattr(torch, dname), dev, 7 + s)
+                sets.append((k, js, b, bs.cholesky_plain(k)))
+            for entry, d in K2_READINGS:
+                if d != dname:
+                    continue
+                call = calls[entry]
+                call(*sets[0])  # warm-up
+                out[f"{entry}_{d}"], _ = time_queued(lambda: call(*sets[0]), REPS)
+                turn = iter(range(10**9))
+                out[f"{entry}_{d}_rotating"], _ = time_queued(
+                    lambda: call(*sets[next(turn) % K2_ROTATE]), REPS)
     return out
 
 
@@ -241,14 +292,15 @@ def _card() -> str:
 
 def _ptxas_rows(logs: dict) -> dict:
     """``{instantiation: (registers, spill stores, spill loads)}`` of the K1
-    kernels in nvcc's ``-Xptxas -v`` reports by source (parsed as
-    ``chip_smoke.py`` prints them)."""
+    and K2 kernels in nvcc's ``-Xptxas -v`` reports by source (K1's parsed
+    as ``chip_smoke.py`` prints them, K2's by mangled name)."""
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
     import chip_smoke as cs
 
     patterns = {"fused_step": (cs._KERNEL_RE, cs._k1_label),
                 "chain_variants": (cs._VARIANT_RE, cs._variant_label),
-                "family_step": (cs._FAMILY_RE, cs._family_label)}
+                "family_step": (cs._FAMILY_RE, cs._family_label),
+                "batched_spd": (_K2_ANY_RE, lambda m: m.group(0))}
     return {f"{src}: {name}": (regs, st, ld) for src, log in logs.items()
             for name, regs, st, ld in cs.ptxas_report(log, *patterns[src])}
 
@@ -275,7 +327,8 @@ def main(argv) -> int:
              "from hamilton_tpu_torch import kernels; t = time.perf_counter(); "
              "b = kernels.build_all(); "
              "print(json.dumps([time.perf_counter() - t, "
-             "{k: b[k].log for k in ('fused_step', 'chain_variants', 'family_step')}]))")
+             "{k: b[k].log for k in ('fused_step', 'chain_variants', 'family_step', "
+             "'batched_spd')}]))")
     procs = [subprocess.Popen([sys.executable, "-c", build, str(Path(t).resolve())],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for t in trees]
@@ -286,7 +339,7 @@ def main(argv) -> int:
             raise RuntimeError(f"building {tree} failed:\n{err}")
         seconds, logs = json.loads(out.strip().splitlines()[-1])
         rows = _ptxas_rows(logs)
-        print(f"build {tree}: {seconds:.1f} s, {len(rows)} K1 instantiations", flush=True)
+        print(f"build {tree}: {seconds:.1f} s, {len(rows)} K1 and K2 instantiations", flush=True)
         if first is None:
             first = (tree, rows)
             continue

@@ -8,7 +8,18 @@ entries run their Pallas kernels in interpret mode, as ``tests/test_pallas.py``
 runs them; their padding path is taken with B=1100.  Inputs are made with
 numpy from a seed.  The J entries are held to n ∈ {3, 8}: the interpreter
 compiles the unrolled K formation of n=20, m=40 for over ten minutes.
+
+The kernel source itself (``csrc/batched_spd.cu``) is rehearsed here too:
+built with g++ in the host emulation of ``test_torch_chain_solvers.py`` and
+run through its C entries on CPU tensors against the plain versions, bit for
+bit.
 """
+
+import ctypes
+import re
+import shutil
+import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -21,9 +32,12 @@ from hamilton_tpu.ops import pallas_solve as ps
 from hamilton_tpu.ops.linalg import _masked_cho_solve, _masked_cholesky
 
 import hamilton_tpu_torch as tp
+from hamilton_tpu_torch import kernels
 from hamilton_tpu_torch import mechanics as tmech
 from hamilton_tpu_torch.ops import batched_spd as bs
 from hamilton_tpu_torch.ops import linalg as tlinalg
+
+from test_torch_chain_solvers import HOST_SHIM
 
 # float32 against the interpreted kernels: the same operations in the same
 # order, but XLA's CPU code fuses multiplies and adds (one rounding instead
@@ -379,3 +393,113 @@ def test_mechanics_take_the_reference_routes(monkeypatch):
     assert k_calls == {"spd_solve_batched": 2, "cholesky_batched": 1, "cho_solve_batched": 4}
     assert j_calls == {"spd_solve_jac": 2, "cholesky_jac": 1}
     assert formed == {"_form_k": 0}
+
+
+# ----------------------------------------------------------------------
+# The kernel source on the host
+# ----------------------------------------------------------------------
+
+#: Threads a block for each count of lanes a member that the host build is
+#: run at: a tile of several members, so that a batch of 37 on the host's
+#: four SMs ends in a tile part full.
+HOST_TILE_THREADS = {1: 64, 2: 64, 4: 64, 8: 64, 32: 128}
+
+
+def _host_spd_library(where: Path, lanes=None) -> Path:
+    """``csrc/batched_spd.cu`` as a host library: g++ through ``HOST_SHIM``,
+    the dynamic shared memory a static buffer, each launch a loop over
+    blocks of threads.  With ``lanes``, every entry of the K2b and K2c
+    tables (``kFactorShape``, ``kSubstituteShape``) set to that many lanes
+    a member and ``HOST_TILE_THREADS`` threads a block, as
+    ``scripts/k2_sweep.py`` builds its variants; else the source's own."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ for the host build of the kernel source")
+    csrc = Path(kernels.__file__).resolve().parent.parent / "csrc"
+    (where / "cuda_runtime.h").write_text(HOST_SHIM)
+    for h in csrc.glob("*.cuh"):
+        (where / h.name).write_text(h.read_text())
+    src = (csrc / "batched_spd.cu").read_text()
+    if lanes is not None:
+        shape = "{%d, %d}" % (lanes, HOST_TILE_THREADS[lanes])
+        table = "{{%s}, {%s}}" % ((", ".join([shape] * 3),) * 2)
+        src, count = re.subn(r"(k(?:Factor|Substitute)Shape\[2\]\[3\] = )\{.*?\};",
+                             lambda m: f"{m.group(1)}{table};", src, flags=re.S)
+        assert count == 2
+    src, shared = re.subn(r"extern __shared__ __align__\(16\) unsigned char (\w+)\[\];",
+                          r"alignas(16) static unsigned char \1[1 << 18];", src)
+    src, launches = re.subn(r"(\w+)<<<(.*?),(.*?),.*?>>>\((.*?)\);",
+                            lambda m: f"HOST_LAUNCH({m.group(2)}, {m.group(3)}, "
+                                      f"{m.group(1)}({m.group(4)}));", src, flags=re.S)
+    # scratch() and the two tile kernels; the one-thread and the tile launch
+    assert shared == 3 and launches == 2
+    (where / "batched_spd.cc").write_text(src)
+    lib = where / "libbatched_spd_host.so"
+    proc = subprocess.run(["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
+                           "-w", "-pthread", "-I", str(where), "-o", str(lib),
+                           str(where / "batched_spd.cc")], capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = ctypes.CDLL(str(lib))
+    for fn, argtypes in kernels._SIGNATURES["batched_spd"].items():
+        getattr(out, fn).argtypes = argtypes
+    return out
+
+
+def _offset(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a view one member into a larger tensor: its first value off a
+    16-byte boundary for most n, so the staging's unaligned ends run."""
+    big = torch.empty((t.shape[0] + 1,) + tuple(t.shape[1:]), dtype=t.dtype)
+    big[1:] = t
+    return big[1:]
+
+
+def _same(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal bit for bit, NaN where the other is NaN."""
+    return bool(((got == want) | (torch.isnan(got) & torch.isnan(want))).all())
+
+
+def _ieee_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root (numpy's) of a CPU tensor: NaN
+    below 0, as ``torch.sqrt``."""
+    with np.errstate(invalid="ignore"):
+        return torch.from_numpy(np.sqrt(x.numpy()))
+
+
+@pytest.mark.parametrize("lanes", [None, 1, 2, 4, 8, 32],
+                         ids=["shipped", "G1", "G2", "G4", "G8", "G32"])
+def test_tile_kernels_on_the_host(lanes, tmp_path, monkeypatch):
+    """K2b and K2c (``hamilton_spd_factor`` with ``from_j = 0`` and
+    ``hamilton_spd_substitute``) built with g++ in the host emulation, at
+    the source's own lanes a member and at each count the sweep tries: at
+    n = 1, 2, 3, 20 and 32, float32 and float64, on 37 members (the last
+    tile part full) lying off a 16-byte boundary, each equal to
+    ``cholesky_plain`` and ``cho_solve_plain`` bit for bit.  One member that
+    is not SPD: NaN in that member, every other member still equal.
+
+    The plain versions run here with a correctly rounded ``torch.sqrt``, as
+    on the card: PyTorch's vectorized CPU square root can be an ulp off
+    (AVX-512: sqrt(8.165938262201326) in float64 comes out one ulp low)."""
+    lib = _host_spd_library(tmp_path, lanes)
+    monkeypatch.setattr(torch, "sqrt", _ieee_sqrt)
+    rng = np.random.default_rng(40)
+    batch = 37
+    for n in (1, 2, 3, 20, 32):
+        for dtype in (torch.float32, torch.float64):
+            code = int(dtype == torch.float64)
+            k = torch.tensor(_spd(rng, batch, n, np.float64)).to(dtype)
+            vec = torch.tensor(rng.standard_normal((batch, n))).to(dtype)
+            if n == 20:
+                k[5] = -k[5]
+            k, vec = _offset(k), _offset(vec)
+            want_low = bs.cholesky_plain(k)
+            low = _offset(torch.full_like(k, float("nan")))
+            assert lib.hamilton_spd_factor(code, 0, k.data_ptr(), low.data_ptr(), batch, n, 0,
+                                           None) == 0
+            assert _same(low, want_low), (n, dtype)
+            want_x = bs.cho_solve_plain(want_low, vec)
+            x = _offset(torch.full_like(vec, float("nan")))
+            assert lib.hamilton_spd_substitute(code, want_low.data_ptr(), vec.data_ptr(),
+                                               x.data_ptr(), batch, n, None) == 0
+            assert _same(x, want_x), (n, dtype)
+            nan = torch.isnan(x).any(-1)
+            assert int(nan.sum()) == (1 if n == 20 else 0) and (n != 20 or bool(nan[5]))
+            assert int(torch.isnan(low).flatten(1).any(-1).sum()) == (1 if n == 20 else 0)

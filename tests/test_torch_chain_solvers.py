@@ -404,10 +404,13 @@ def test_linv_lane_schedule_covers_each_entry_and_term_once(n):
         assert max(sizes) - min(sizes) <= n + 1, (lanes, sizes)
 
 
-#: A host emulation of the CUDA the chain-variant kernels use: a block runs
-#: as blockDim threads; __syncthreads, __syncwarp and each shuffle are
-#: block-wide barriers (a finished thread drops out), so the lanes of a
-#: member exchange values as on the card.
+#: A host emulation of the CUDA the chain-variant kernels and the batched
+#: factor and solve (``csrc/batched_spd.cu``) use: a block runs as blockDim
+#: threads; __syncthreads, __syncwarp and each shuffle are block-wide
+#: barriers (a finished thread drops out), so the lanes of a member exchange
+#: values as on the card.  The round-to-nearest intrinsics are the host's
+#: IEEE operations (built without contraction), the 16-byte vector types
+#: plain aligned structs, and the device has four SMs.
 HOST_SHIM = r"""
 #pragma once
 #include <cmath>
@@ -445,6 +448,21 @@ inline unsigned __float_as_uint(float x) { unsigned u; std::memcpy(&u, &x, 4); r
 inline float __int2float_rn(int x) { return (float)x; }
 inline float __int_as_float(int x) { float f; std::memcpy(&f, &x, 4); return f; }
 template <typename T> inline T __ldg(const T* p) { return *p; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsqrt_rn(float x) { return std::sqrt(x); }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline double __dmul_rn(double a, double b) { return a * b; }
+inline double __dadd_rn(double a, double b) { return a + b; }
+inline double __dsqrt_rn(double x) { return std::sqrt(x); }
+inline double __ddiv_rn(double a, double b) { return a / b; }
+inline unsigned __umulhi(unsigned a, unsigned b) {
+  return (unsigned)(((unsigned long long)a * b) >> 32); }
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) double2 { double x, y; };
+enum { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = 4; return 0; }
 struct HostBarrier {
   std::mutex m; std::condition_variable cv; int count = 0, waiting = 0; long gen = 0;
   void wait() {
@@ -467,6 +485,14 @@ template <typename T> inline T __shfl_xor_sync(unsigned, T v, int d) {
   host_bar.wait();
   T r;
   std::memcpy(&r, &host_slots[threadIdx.x ^ d], sizeof(T));
+  host_bar.wait();
+  return r;
+}
+template <typename T> inline T __shfl_sync(unsigned, T v, int src, int width) {
+  std::memcpy(&host_slots[threadIdx.x], &v, sizeof(T));
+  host_bar.wait();
+  T r;
+  std::memcpy(&r, &host_slots[(threadIdx.x & ~(unsigned)(width - 1)) + src], sizeof(T));
   host_bar.wait();
   return r;
 }
