@@ -1675,17 +1675,18 @@ def main() -> int:
             phase1(label, forms, state, 5e-4, dict(iters=(2, 0), compensated=True,
                                                    composition=composition, coef=table),
                    dname, batch, 50, semisep_tol(n, dname))
-    # the chain kernels' float sin/cos, sqrt and reciprocal (straight-line,
-    # and the library's that take over outside their ranges) against sinf,
-    # cosf, sqrtf and 1/x on every float in each one's range
+    # the K1 and K2 kernels' float sin/cos, sqrt and reciprocal (straight-line,
+    # and the library's that take over outside their ranges: the chain's,
+    # the families' and the generated forms, the batched factor and solve)
+    # against sinf, cosf, sqrtf and 1/x on every float in each one's range
     # (csrc/libm_check.cu)
     t_check = time.perf_counter()
     mismatches = kernels.libm_mismatches()
-    log(f"phase 1 {'ok' if not any(mismatches.values()) else 'FAILED'}: the chain kernels' "
+    log(f"phase 1 {'ok' if not any(mismatches.values()) else 'FAILED'}: the kernels' "
         f"float sin/cos, sqrt and reciprocal vs sinf/cosf, sqrtf and 1/x on every float in "
         f"their ranges: {mismatches} differ ({time.perf_counter() - t_check:.2f} s)")
     if any(mismatches.values()):
-        phase1_failures.append(f"the chain kernels' float functions differ from sinf/cosf, "
+        phase1_failures.append(f"the kernels' float functions differ from sinf/cosf, "
                                f"sqrtf or 1/x: {mismatches}")
     # the semiseparable kernels' layout as built, registers and spills
     by_name = {name: (r, st, ld) for name, r, st, ld in ptxas["fused_step"]}

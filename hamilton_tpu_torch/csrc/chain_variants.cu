@@ -104,7 +104,7 @@ __device__ __forceinline__ bool mobius_pass(const C& cf, const T (&s)[N], const 
       yy = da * uy[a] + bfu * c[i + 1];
     }
     const T d2 = ux[a] * yx + uy[a] * yy;
-    const T inv_d = factor_rcp<STRAIGHT>(factor_sqrt<STRAIGHT>(d2, &ok), &ok);
+    const T inv_d = line_rcp<STRAIGHT>(line_sqrt<STRAIGHT>(d2, &ok), &ok);
     f.zx[a] = yx * inv_d;
     f.zy[a] = yy * inv_d;
     f.id[a] = inv_d;
@@ -115,7 +115,7 @@ __device__ __forceinline__ bool mobius_pass(const C& cf, const T (&s)[N], const 
 }
 
 // The Moebius factor: in float with the straight-line square roots and
-// reciprocals (chain_forms.cuh's factor_sqrt), again with the library's
+// reciprocals (fused_step.cuh's line_sqrt), again with the library's
 // where an input left their range.
 template <typename T, int N, class C>
 __device__ __forceinline__ void mobius_factor(const C& cf, const T (&s)[N], const T (&c)[N],

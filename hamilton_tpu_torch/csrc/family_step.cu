@@ -20,15 +20,26 @@
 // folded in double (the wrapper builds it: FusedForms.kernel_consts); its
 // per-member path multiplies T(binomial) * entry, as the forms do there.
 // exp is expf/exp without fast-math: far from a wall it overflows to inf,
-// and 1/(1+inf) = 0 stays exact.
+// and 1/(1+inf) = 0 stays exact (inf is outside rcp_fast's range, so the
+// reciprocal takes the library's path there).
 //
 // What bounds it on this card: latency.  At n <= 3 a member-step is a few
 // hundred dependent flops and 1-4 transcendentals against 16-72 bytes of
-// state per member per launch; 16384 members are ~4 warps per SM.  A launch
-// of 50 steps is short enough that the host's issue cost (~20 us) sits near
-// it.  One thread per member, everything unrolled at compile time, the
-// factor and aux in registers across the steps of a launch, batch-minor
-// loads and stores that coalesce.
+// state per member per launch; 16384 members are ~4 warps per SM, one a
+// scheduler, so a launch lasts as long as one member's chain of steps.  The
+// design shortens that chain.  One thread per member, everything unrolled at
+// compile time.  In float each aux, factor and dH/dq runs as one
+// straight-line pass (straight_or_library): the sine and cosine of an angle
+// from one range reduction, the square roots and reciprocals of the factor,
+// the walls' and two-body's 1/x, each the library's fast path without its
+// branch (csrc/libm_fast.cuh, equal bit for bit, csrc/libm_check.cu), so a
+// member's walls and pairs interleave; the pass runs again with the
+// library's functions only where an input left their range.  The table sits
+// in registers, read once a launch (RegTable); the factor and aux stay in
+// registers across the steps of a launch; loads and stores are batch-minor
+// and coalesce.  The aux stays fresh at every within-step point, as in the
+// reference: two sine-cosine pairs a step at (2,0).  A launch of 50 steps is
+// short enough that the host's issue cost (~20 us) sits near it.
 //
 // Build: as fused_step.cu (no fast-math), with -fmad=false: no FMA
 // contraction, so each product and sum rounds as in the plain version
@@ -44,9 +55,10 @@ __host__ __device__ constexpr int binomial(int n, int k) {
   return r;
 }
 
-template <typename T>
-__device__ __forceinline__ T sigma(T z) {
-  return T(1) / (T(1) + dexp(T(0) - z));
+// The logistic 1/(1 + exp(-z)) of a pass (fused_step.cuh's line_rcp).
+template <bool STRAIGHT, typename T>
+__device__ __forceinline__ T sigma(T z, bool* ok) {
+  return line_rcp<STRAIGHT>(T(1) + dexp(T(0) - z), ok);
 }
 
 // The logistic walls' constants, as Python computes them in double:
@@ -60,17 +72,19 @@ constexpr double kBezierHb = 0x1.b771e5fae54c0p+7;       // 5*beta = 219.7224577
 
 // ---- the families' closed forms --------------------------------------------
 // Each: N, NAUX, the table length L, and aux / k_at / dhdq over the
-// coefficient accessor cf (SharedTable or MemberTable), in the Python forms'
-// operation order.  k_at(i, j) is consulted for j <= i only.
+// coefficient accessor cf (RegTable), in the Python forms' operation order.
+// k_at(i, j) is consulted for j <= i only.  aux and dhdq are passes
+// (STRAIGHT, ok: fused_step.cuh's straight_or_library) where they take a
+// sine and cosine or a reciprocal.
 
 // models/spherical.py: table (m, g*m); aux (sin th, cos th); K = diag(m, m s^2).
 template <typename T>
 struct Spherical {
   static constexpr int N = 2, NAUX = 2, L = 2;
-  template <class C>
-  static __device__ __forceinline__ void aux(const C&, const T (&q)[N], T (&a)[NAUX]) {
-    a[0] = dsin(q[0]);
-    a[1] = dcos(q[0]);
+  template <bool STRAIGHT, class C>
+  static __device__ __forceinline__ void aux(const C&, const T (&q)[N], T (&a)[NAUX],
+                                             bool* ok) {
+    line_sincos<STRAIGHT>(q[0], &a[0], &a[1], ok);
   }
   template <class C>
   static __device__ __forceinline__ T k_at(const C& cf, const T (&a)[NAUX], const T (&)[N],
@@ -79,9 +93,9 @@ struct Spherical {
     if (i == 1 && j == 1) return cf[0] * (a[0] * a[0]);
     return T(0);
   }
-  template <class C>
+  template <bool STRAIGHT, class C>
   static __device__ __forceinline__ void dhdq(const C& cf, const T (&a)[NAUX], const T (&)[N],
-                                              const T (&w)[N], T (&out)[N]) {
+                                              const T (&w)[N], T (&out)[N], bool*) {
     const T s = a[0], c = a[1];
     out[0] = cf[1] * s - cf[0] * (s * c) * (w[1] * w[1]);
     out[1] = T(0);
@@ -92,9 +106,10 @@ struct Spherical {
 template <typename T>
 struct TwoBody {
   static constexpr int N = 2, NAUX = 1, L = 2;
-  template <class C>
-  static __device__ __forceinline__ void aux(const C&, const T (&q)[N], T (&a)[NAUX]) {
-    a[0] = T(1) / q[0];
+  template <bool STRAIGHT, class C>
+  static __device__ __forceinline__ void aux(const C&, const T (&q)[N], T (&a)[NAUX],
+                                             bool* ok) {
+    a[0] = line_rcp<STRAIGHT>(q[0], ok);
   }
   template <class C>
   static __device__ __forceinline__ T k_at(const C& cf, const T (&)[NAUX], const T (&q)[N],
@@ -103,9 +118,9 @@ struct TwoBody {
     if (i == 1 && j == 1) return cf[0] * (q[0] * q[0]);
     return T(0);
   }
-  template <class C>
+  template <bool STRAIGHT, class C>
   static __device__ __forceinline__ void dhdq(const C& cf, const T (&a)[NAUX], const T (&q)[N],
-                                              const T (&w)[N], T (&out)[N]) {
+                                              const T (&w)[N], T (&out)[N], bool*) {
     const T inv_r = a[0];
     out[0] = cf[1] * (inv_r * inv_r) - cf[0] * q[0] * (w[1] * w[1]);
     out[1] = T(0);
@@ -113,10 +128,10 @@ struct TwoBody {
 };
 
 // -lo'(v) + hi'(v) for a pair of logistic walls at v = -pos and v = +pos.
-template <typename T>
-__device__ __forceinline__ T wall_grad(T v, T pos, double beta, double hb_d) {
-  const T sl = sigma(T(beta) * (v + pos));
-  const T sh = sigma(T(beta) * (v - pos));
+template <bool STRAIGHT, typename T>
+__device__ __forceinline__ T wall_grad(T v, T pos, double beta, double hb_d, bool* ok) {
+  const T sl = sigma<STRAIGHT>(T(beta) * (v + pos), ok);
+  const T sh = sigma<STRAIGHT>(T(beta) * (v - pos), ok);
   const T hb = T(hb_d);
   return hb * (sh * (T(1) - sh)) - hb * (sl * (T(1) - sl));
 }
@@ -125,18 +140,19 @@ __device__ __forceinline__ T wall_grad(T v, T pos, double beta, double hb_d) {
 template <typename T>
 struct Room {
   static constexpr int N = 2, NAUX = 0, L = 0;
-  template <class C>
-  static __device__ __forceinline__ void aux(const C&, const T (&)[N], T (&)[1]) {}
+  static constexpr bool kConstantK = true;
+  template <bool STRAIGHT, class C>
+  static __device__ __forceinline__ void aux(const C&, const T (&)[N], T (&)[1], bool*) {}
   template <class C>
   static __device__ __forceinline__ T k_at(const C&, const T (&)[1], const T (&)[N], int i,
                                            int j) {
     return i == j ? T(1) : T(0);
   }
-  template <class C>
+  template <bool STRAIGHT, class C>
   static __device__ __forceinline__ void dhdq(const C&, const T (&)[1], const T (&q)[N],
-                                              const T (&)[N], T (&out)[N]) {
-    out[0] = wall_grad(q[0], T(2), kRoomBeta, kRoomHb);
-    out[1] = T(2) + wall_grad(q[1], T(1), kRoomBeta, kRoomHb);
+                                              const T (&)[N], T (&out)[N], bool* ok) {
+    out[0] = wall_grad<STRAIGHT>(q[0], T(2), kRoomBeta, kRoomHb, ok);
+    out[1] = T(2) + wall_grad<STRAIGHT>(q[1], T(1), kRoomBeta, kRoomHb, ok);
   }
 };
 
@@ -145,10 +161,10 @@ struct Room {
 template <typename T>
 struct Spring {
   static constexpr int N = 3, NAUX = 2, L = 4;
-  template <class C>
-  static __device__ __forceinline__ void aux(const C&, const T (&q)[N], T (&a)[NAUX]) {
-    a[0] = dsin(q[2]);
-    a[1] = dcos(q[2]);
+  template <bool STRAIGHT, class C>
+  static __device__ __forceinline__ void aux(const C&, const T (&q)[N], T (&a)[NAUX],
+                                             bool* ok) {
+    line_sincos<STRAIGHT>(q[2], &a[0], &a[1], ok);
   }
   template <class C>
   static __device__ __forceinline__ T k_at(const C& cf, const T (&a)[NAUX], const T (&q)[N],
@@ -162,12 +178,12 @@ struct Spring {
     if (i == 2 && j == 2) return cf[1] * (opx * opx);
     return T(0);
   }
-  template <class C>
+  template <bool STRAIGHT, class C>
   static __device__ __forceinline__ void dhdq(const C& cf, const T (&a)[NAUX], const T (&q)[N],
-                                              const T (&w)[N], T (&out)[N]) {
+                                              const T (&w)[N], T (&out)[N], bool* ok) {
     const T s = a[0], c = a[1];
     const T opx = T(1) + q[1];
-    out[0] = wall_grad(q[0], T(1.5), kSpringBeta, kSpringHb);
+    out[0] = wall_grad<STRAIGHT>(q[0], T(1.5), kSpringBeta, kSpringHb, ok);
     out[1] = cf[2] * q[1] - cf[3] * c - cf[1] * (c * (w[0] * w[2]) + opx * (w[2] * w[2]));
     out[2] = cf[3] * (opx * s) - cf[1] * (w[0] * (c * w[1] - (opx * s) * w[2]));
   }
@@ -177,10 +193,10 @@ struct Spring {
 template <typename T>
 struct Ellipse {
   static constexpr int N = 1, NAUX = 2, L = 4;
-  template <class C>
-  static __device__ __forceinline__ void aux(const C&, const T (&q)[N], T (&a)[NAUX]) {
-    a[0] = dsin(q[0]);
-    a[1] = dcos(q[0]);
+  template <bool STRAIGHT, class C>
+  static __device__ __forceinline__ void aux(const C&, const T (&q)[N], T (&a)[NAUX],
+                                             bool* ok) {
+    line_sincos<STRAIGHT>(q[0], &a[0], &a[1], ok);
   }
   template <class C>
   static __device__ __forceinline__ T k_at(const C& cf, const T (&a)[NAUX], const T (&)[N],
@@ -188,9 +204,9 @@ struct Ellipse {
     const T s = a[0], c = a[1];
     return cf[0] * (c * c) + cf[1] * (s * s);
   }
-  template <class C>
+  template <bool STRAIGHT, class C>
   static __device__ __forceinline__ void dhdq(const C& cf, const T (&a)[NAUX], const T (&)[N],
-                                              const T (&w)[N], T (&out)[N]) {
+                                              const T (&w)[N], T (&out)[N], bool*) {
     const T s = a[0], c = a[1];
     out[0] = cf[2] * s - cf[3] * ((s * c) * (w[0] * w[0]));
   }
@@ -249,8 +265,9 @@ struct Bezier {
     }
   }
 
-  template <class C>
-  static __device__ __forceinline__ void aux(const C& cf, const T (&q)[N], T (&a)[NAUX]) {
+  template <bool STRAIGHT, class C>
+  static __device__ __forceinline__ void aux(const C& cf, const T (&q)[N], T (&a)[NAUX],
+                                             bool*) {
     const T t = q[0];
     const T one_t = T(1) - t;
     bernstein<DEG - 1, 0>(cf, t, one_t, a[0], a[1]);
@@ -266,11 +283,11 @@ struct Bezier {
                                            int) {
     return a[0] * a[0] + a[1] * a[1];
   }
-  template <class C>
+  template <bool STRAIGHT, class C>
   static __device__ __forceinline__ void dhdq(const C&, const T (&a)[NAUX], const T (&q)[N],
-                                              const T (&w)[N], T (&out)[N]) {
-    const T sl = sigma(T(kBezierBeta) * q[0]);
-    const T sr = sigma(T(kBezierBeta) * (q[0] - T(1)));
+                                              const T (&w)[N], T (&out)[N], bool* ok) {
+    const T sl = sigma<STRAIGHT>(T(kBezierBeta) * q[0], ok);
+    const T sr = sigma<STRAIGHT>(T(kBezierBeta) * (q[0] - T(1)), ok);
     const T hb = T(kBezierHb);
     const T du = hb * (sr * (T(1) - sr)) - hb * (sl * (T(1) - sl));
     out[0] = du - (a[0] * a[2] + a[1] * a[3]) * (w[0] * w[0]);
@@ -278,6 +295,15 @@ struct Bezier {
 };
 
 // ---- the generic dense policy ------------------------------------------------
+
+// Whether a family declares its K constant (kConstantK: room's K = I).  Its
+// factor takes the library's functions, which fold at compile time, as the
+// straight-line ones (inline assembly) cannot.
+template <class F, class = void>
+struct ConstantK : std::false_type {};
+template <class F>
+struct ConstantK<F, std::void_t<decltype(F::kConstantK)>>
+    : std::integral_constant<bool, F::kConstantK> {};
 
 // A family's forms F for step_member: the aux re-evaluated at every point,
 // the dense Cholesky over F::k_at, the dense solve.
@@ -292,17 +318,25 @@ struct DensePolicy {
 
   template <class C>
   static __device__ __forceinline__ void aux(const C& cf, const T (&q)[N], Aux& a) {
-    F::aux(cf, q, a.v);
+    straight_or_library<T>([&](auto line, bool* ok) {
+      F::template aux<decltype(line)::value>(cf, q, a.v, ok);
+    });
   }
   template <class C>
   static __device__ __forceinline__ void aux_at(const C& cf, const T (&q_new)[N],
                                                 const T (&)[N], Aux& a) {
-    F::aux(cf, q_new, a.v);
+    aux(cf, q_new, a);
   }
   template <class C>
   static __device__ __forceinline__ void factor(const C& cf, const Aux& a, const T (&q)[N],
                                                 Factor& f) {
-    factor_entries<T, N>([&](int i, int j) { return F::k_at(cf, a.v, q, i, j); }, f);
+    const auto k_at = [&](int i, int j) { return F::k_at(cf, a.v, q, i, j); };
+    if constexpr (ConstantK<F>::value) {
+      bool ok = true;
+      dense_factor_pass<false>(k_at, f, &ok);
+    } else {
+      factor_entries<T, N>(k_at, f);
+    }
   }
   static __device__ __forceinline__ void solve(const Factor& f, const T (&b)[N], T (&x)[N]) {
     ::solve<T, N>(f, b, x);
@@ -310,7 +344,9 @@ struct DensePolicy {
   template <class C>
   static __device__ __forceinline__ void dhdq(const C& cf, const Aux& a, const T (&q)[N],
                                               const T (&w)[N], T (&out)[N]) {
-    F::dhdq(cf, a.v, q, w, out);
+    straight_or_library<T>([&](auto line, bool* ok) {
+      F::template dhdq<decltype(line)::value>(cf, a.v, q, w, out, ok);
+    });
   }
 };
 
@@ -337,19 +373,12 @@ __global__ void __launch_bounds__(kThreads)
                        int iters_q, int steps_per_call) {
   using P = FamilyPolicy<T, FAM>;
   const long long b = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if constexpr (PM) {
-    if (b >= batch) return;
-    step_member<T, P, COMP, COMPOSED>(MemberTable<T>{coef + b, batch}, in, out, batch, b,
-                                      subs, iters_p, iters_q, steps_per_call);
-  } else {
-    constexpr int L = P::L;
-    __shared__ T cf[L > 0 ? L : 1];  // room has no table (and a null coef)
-    for (int k = threadIdx.x; k < L; k += blockDim.x) cf[k] = coef[k];
-    __syncthreads();
-    if (b >= batch) return;
-    step_member<T, P, COMP, COMPOSED>(SharedTable<T>{cf}, in, out, batch, b, subs,
-                                      iters_p, iters_q, steps_per_call);
-  }
+  if (b >= batch) return;
+  // the table in registers: this member's column, or the shared entries
+  // (room has none, and a null coef)
+  const RegTable<T, P::L, PM> cf(PM ? coef + b : coef, PM ? batch : 1);
+  step_member<T, P, COMP, COMPOSED>(cf, in, out, batch, b, subs, iters_p, iters_q,
+                                    steps_per_call);
 }
 
 template <typename T, int FAM, bool COMP, bool PM, bool COMPOSED>

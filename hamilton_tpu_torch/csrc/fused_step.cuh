@@ -37,7 +37,8 @@
 // shared memory, read as broadcasts) or, for a parameter sweep, one column
 // per member of a batch-minor (L, batch) table: thread b reads entry k at
 // coef[k * batch + b], so a warp's reads coalesce, through the read-only
-// cache where each entry is used.
+// cache where each entry is used.  The families' and the generated kernels
+// hold either in registers (RegTable), read once a launch.
 //
 // One thread per member; everything over N unrolled at compile time so the
 // per-member lists live in registers; batch-minor x[i*B + b] loads and
@@ -48,6 +49,8 @@
 #include <cuda_runtime.h>
 
 #include <type_traits>
+
+#include "libm_fast.cuh"
 
 namespace {
 
@@ -62,6 +65,56 @@ __device__ __forceinline__ float dsqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double dsqrt(double x) { return sqrt(x); }
 __device__ __forceinline__ float dexp(float x) { return expf(x); }
 __device__ __forceinline__ double dexp(double x) { return exp(x); }
+
+// The square root, the reciprocal, and the sine and cosine of one value of
+// a pass over a member's forms: STRAIGHT (float only) libm_fast.cuh's
+// straight-line expansions, clearing *ok where an input is outside their
+// range; else the library's functions (in float the sine and cosine from
+// sincosf's one range reduction).
+template <bool STRAIGHT, typename T>
+__device__ __forceinline__ T line_sqrt(T x, bool* ok) {
+  if constexpr (STRAIGHT) {
+    *ok = *ok && sqrt_fast_range(x);
+    return sqrt_fast(x);
+  } else {
+    return dsqrt(x);
+  }
+}
+template <bool STRAIGHT, typename T>
+__device__ __forceinline__ T line_rcp(T x, bool* ok) {
+  if constexpr (STRAIGHT) {
+    *ok = *ok && rcp_fast_range(x);
+    return rcp_fast(x);
+  } else {
+    return drcp(x);
+  }
+}
+template <bool STRAIGHT, typename T>
+__device__ __forceinline__ void line_sincos(T x, T* s, T* c, bool* ok) {
+  if constexpr (STRAIGHT) {
+    *ok = *ok && sincos_fast_range(x);
+    sincos_fast(x, s, c);
+  } else if constexpr (std::is_same<T, float>::value) {
+    dsincos(x, s, c);
+  } else {
+    *s = dsin(x);
+    *c = dcos(x);
+  }
+}
+
+// pass(std::true_type, &ok) in float, the straight-line functions, and again
+// pass(std::false_type, &ok), the library's, where an input left their range
+// (ok false: a rare member, a NaN); in double only the latter.  One branch
+// after the pass, so a member's straight-line work interleaves.
+template <typename T, class Pass>
+__device__ __forceinline__ void straight_or_library(const Pass& pass) {
+  bool ok = true;
+  if constexpr (std::is_same<T, float>::value) {
+    pass(std::true_type{}, &ok);
+    if (ok) return;
+  }
+  pass(std::false_type{}, &ok);
+}
 
 // Entry k of the shared table (staged in shared memory).
 template <typename T>
@@ -78,6 +131,22 @@ struct MemberTable {
   const T* __restrict__ col;
   long long batch;
   __device__ __forceinline__ T operator[](int k) const { return __ldg(col + k * batch); }
+};
+
+// The table in registers, read once a launch: the L entries of the shared
+// table (every thread reads the same ones, broadcast through the read-only
+// cache; stride 1) or of this member's column of the (L, batch) per-member
+// table (stride batch).  The forms index it at compile-time constants once
+// unrolled, so no step of the launch loads an entry again.
+template <typename T, int L, bool PM>
+struct RegTable {
+  static constexpr bool kPerMember = PM;
+  T v[L > 0 ? L : 1];
+  __device__ __forceinline__ RegTable(const T* __restrict__ src, long long stride) {
+#pragma unroll
+    for (int k = 0; k < L; ++k) v[k] = __ldg(src + k * stride);
+  }
+  __device__ __forceinline__ T operator[](int k) const { return v[k]; }
 };
 
 // The step sizes of each composition substep k in T, from its weight w_k:
@@ -114,17 +183,25 @@ struct DenseFactor {
 };
 
 // The Cholesky factor of the entries k_at(i, j), j <= i, in the order of
-// the reference's pallas_solve.py::_chol_entries (and the plain version's).
-template <typename T, int N, class K>
-__device__ __forceinline__ void factor_entries(const K& k_at, DenseFactor<T, N>& f) {
+// the reference's pallas_solve.py::_chol_entries (and the plain version's),
+// with STRAIGHT's square roots and reciprocals (otherwise the library's
+// sqrt and the division 1/d).
+template <bool STRAIGHT, typename T, int N, class K>
+__device__ __forceinline__ void dense_factor_pass(const K& k_at, DenseFactor<T, N>& f,
+                                                  bool* ok) {
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     T acc = k_at(j, j);
 #pragma unroll
     for (int k = 0; k < j; ++k) acc = acc - f.low[j][k] * f.low[j][k];
-    const T d = dsqrt(acc);
+    const T d = line_sqrt<STRAIGHT>(acc, ok);
     f.low[j][j] = d;
-    const T inv_d = T(1) / d;
+    T inv_d;
+    if constexpr (STRAIGHT) {
+      inv_d = line_rcp<true>(d, ok);
+    } else {
+      inv_d = T(1) / d;
+    }
     f.id[j] = inv_d;
 #pragma unroll
     for (int i = j + 1; i < N; ++i) {
@@ -134,6 +211,16 @@ __device__ __forceinline__ void factor_entries(const K& k_at, DenseFactor<T, N>&
       f.low[i][j] = e * inv_d;
     }
   }
+}
+
+// The dense factor: in float by the straight line, again by the library's
+// functions where an input left its range (a K that is not positive
+// definite, a NaN); in double by the library's.
+template <typename T, int N, class K>
+__device__ __forceinline__ void factor_entries(const K& k_at, DenseFactor<T, N>& f) {
+  straight_or_library<T>([&](auto line, bool* ok) {
+    dense_factor_pass<decltype(line)::value>(k_at, f, ok);
+  });
 }
 
 // L L^T x = b in the order of _solve_entries.

@@ -19,23 +19,29 @@
 // and solve, as family_step.cu's DensePolicy; families with factor_solve:
 // their own factor and solve), the kernel, its launches and the C entry.
 //
-// Tables, one of three:
+// Tables, one of three, each held in registers:
 //   - the float64 constant table (CONST_TABLE): the shared parameters as
-//     the plain version's Python floats, staged in shared memory as double;
+//     the plain version's Python floats, as double;
 //     the forms fold constant-only subexpressions in double, as Python folds
 //     them, and round to T where a constant meets a member value, so the
 //     one build serves any parameter values;
 //   - a run-time shared table of T entries (parameters that need a
-//     gradient), staged in shared memory;
-//   - a per-member (L, batch) table of a sweep, read through the read-only
-//     cache.
+//     gradient);
+//   - a per-member (L, batch) table of a sweep, this member's column.
 // A family without a table (L = 0) has the constant mode only, with a null
 // coef.  aux_shift is the float32 path's within-step re-evaluation, as in
 // the plain version; float64 re-evaluates aux.
 //
 // What bounds it on this card: latency, as family_step.cu: one thread a
 // member, everything unrolled, a few hundred dependent flops a member-step
-// at n <= 3.  A simple kernel that is right; speed is later work.
+// at n <= 3, so the launch lasts one member's chain.  The design shortens
+// it as family_step.cu's does: in float each generated form runs as one
+// straight-line pass (the sine and cosine of one value from one range
+// reduction, 1/x and sqrt as the library's fast paths without their
+// branches, bit for bit: csrc/libm_fast.cuh), again with the library's
+// functions only where an input left their range; the dense factor is
+// factor_entries'; the table (any of the three) sits in registers, read
+// once a launch (RegTable).
 //
 // Build: as family_step.cu, with -fmad=false: no FMA contraction, so each
 // product and sum rounds as in the plain version (kernels.SOURCE_FLAGS).
@@ -62,15 +68,18 @@ struct UserPolicy {
   struct Aux {
     T v[SA];
   };
-  // A family's own factor carries the table accessor for its solve.
+  // A family's own factor points to the table for its solve.
   struct OwnFactor {
     T v[SF];
-    C cf;
+    const C* cf;
   };
   using Factor = typename std::conditional<F::kDense, DenseFactor<T, N>, OwnFactor>::type;
 
+  // Each form runs as a pass (fused_step.cuh's straight_or_library).
   static __device__ __forceinline__ void aux(const C& cf, const T (&q)[N], Aux& a) {
-    F::aux(cf, q, a.v);
+    straight_or_library<T>([&](auto line, bool* ok) {
+      F::template aux<decltype(line)::value>(cf, q, a.v, ok);
+    });
   }
   static __device__ __forceinline__ void aux_at(const C& cf, const T (&q_new)[N],
                                                 const T (&q_base)[N], Aux& a) {
@@ -78,34 +87,44 @@ struct UserPolicy {
       T dq[N], out[SA];
 #pragma unroll
       for (int i = 0; i < N; ++i) dq[i] = q_new[i] - q_base[i];
-      F::aux_shift(cf, a.v, dq, out);
+      straight_or_library<T>([&](auto line, bool* ok) {
+        F::template aux_shift<decltype(line)::value>(cf, a.v, dq, out, ok);
+      });
 #pragma unroll
       for (int k = 0; k < SA; ++k) a.v[k] = out[k];
     } else {
-      F::aux(cf, q_new, a.v);
+      aux(cf, q_new, a);
     }
   }
   static __device__ __forceinline__ void factor(const C& cf, const Aux& a, const T (&q)[N],
                                                 Factor& f) {
     if constexpr (F::kDense) {
       T k[N * (N + 1) / 2];
-      F::kmat(cf, a.v, q, k);
+      straight_or_library<T>([&](auto line, bool* ok) {
+        F::template kmat<decltype(line)::value>(cf, a.v, q, k, ok);
+      });
       factor_entries<T, N>([&](int i, int j) { return k[i * (i + 1) / 2 + j]; }, f);
     } else {
-      F::factor(cf, a.v, q, f.v);
-      f.cf = cf;
+      straight_or_library<T>([&](auto line, bool* ok) {
+        F::template factor<decltype(line)::value>(cf, a.v, q, f.v, ok);
+      });
+      f.cf = &cf;
     }
   }
   static __device__ __forceinline__ void solve(const Factor& f, const T (&b)[N], T (&x)[N]) {
     if constexpr (F::kDense) {
       ::solve<T, N>(f, b, x);
     } else {
-      F::solve(f.cf, f.v, b, x);
+      straight_or_library<T>([&](auto line, bool* ok) {
+        F::template solve<decltype(line)::value>(*f.cf, f.v, b, x, ok);
+      });
     }
   }
   static __device__ __forceinline__ void dhdq(const C& cf, const Aux& a, const T (&q)[N],
                                               const T (&w)[N], T (&out)[N]) {
-    F::dhdq(cf, a.v, q, w, out);
+    straight_or_library<T>([&](auto line, bool* ok) {
+      F::template dhdq<decltype(line)::value>(cf, a.v, q, w, out, ok);
+    });
   }
 };
 
@@ -117,24 +136,16 @@ __global__ void __launch_bounds__(kThreads)
                        const __grid_constant__ Substeps<T> subs, int iters_p, int iters_q,
                        int steps_per_call) {
   using F = UserForms<T, TABLE == 0>;
-  constexpr int L = F::L;
+  using E = typename std::conditional<TABLE == 0, double, T>::type;
+  using C = RegTable<E, F::L, TABLE == 2>;
   const long long b = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if constexpr (TABLE == 2) {
-    if (b >= batch) return;
-    using C = MemberTable<T>;
-    step_member<T, UserPolicy<T, F, C>, COMP, COMPOSED>(
-        C{static_cast<const T*>(coef) + b, batch}, in, out, batch, b, subs, iters_p, iters_q,
-        steps_per_call);
-  } else {
-    using E = typename std::conditional<TABLE == 0, double, T>::type;
-    __shared__ E cf[L > 0 ? L : 1];  // no table: a null coef
-    for (int k = threadIdx.x; k < L; k += blockDim.x) cf[k] = static_cast<const E*>(coef)[k];
-    __syncthreads();
-    if (b >= batch) return;
-    using C = SharedTable<E>;
-    step_member<T, UserPolicy<T, F, C>, COMP, COMPOSED>(C{cf}, in, out, batch, b, subs,
-                                                        iters_p, iters_q, steps_per_call);
-  }
+  if (b >= batch) return;
+  // the table in registers: this member's column, or the shared entries (no
+  // table: a null coef)
+  const E* col = static_cast<const E*>(coef);
+  const C cf(TABLE == 2 ? col + b : col, TABLE == 2 ? batch : 1);
+  step_member<T, UserPolicy<T, F, C>, COMP, COMPOSED>(cf, in, out, batch, b, subs, iters_p,
+                                                      iters_q, steps_per_call);
 }
 
 template <typename T, int TABLE, bool COMP, bool COMPOSED>

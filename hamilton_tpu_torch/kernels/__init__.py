@@ -468,8 +468,9 @@ def user_family_launch(
 
 
 def libm_mismatches() -> Dict[str, int]:
-    """The floats on which the chain kernels' float sin/cos, sqrt and
-    reciprocal differ from ``sinf``/``cosf``, ``sqrtf`` and ``1/x`` on this
+    """The floats on which the kernels' float sin/cos, sqrt and reciprocal
+    (``csrc/libm_fast.cuh``: K1's chain, family and generated forms, K2b
+    and K2c) differ from ``sinf``/``cosf``, ``sqrtf`` and ``1/x`` on this
     card, every float in each one's range tried (``csrc/libm_check.cu``):
     ``{"sincos": n, "sincosf": n, "sqrt": n, "rcp": n, "frcp": n}`` for the
     straight-line ``sincos_fast`` in its range, the library's ``sincosf``

@@ -26,11 +26,19 @@ fused_step_reference``) rounds it on the card:
   member value — so one build serves any parameter values, and only the
   forms' structure (and the literals they contain) keys the library;
 * ``c / x`` with a Python-float ``c`` is ``x.reciprocal() * c`` in PyTorch
-  (``Tensor.__rtruediv__``): the code emits ``(T(1) / x) * T(c)``;
+  (``Tensor.__rtruediv__``): the code emits the correctly rounded
+  reciprocal times ``T(c)``;
 * ``x / c``: PyTorch on CUDA multiplies by the reciprocal ``T(1) / T(c)``
   (ATen's ``div_true_kernel_cuda``, for a scalar divisor); on the CPU it
   divides.  The code follows the card, and records the operation as its
-  own (``divs``);
+  own (``divs``); for a literal ``c`` the reciprocal folds at compile time;
+* the sine and cosine of one value come from one range reduction;
+* each form is a pass (``csrc/fused_step.cuh``'s ``straight_or_library``):
+  in float the sine-cosine, the square root and the reciprocal are the
+  straight-line versions of ``csrc/libm_fast.cuh`` (``line_sincos``,
+  ``line_sqrt``, ``line_rcp``), bit for bit the library's ``sinf``,
+  ``cosf``, ``sqrtf`` and ``1/x`` (``csrc/libm_check.cu``), and the form
+  runs again with the library's where an input left their range;
 * ``fm.full(c, like)`` rounds ``c`` to T once, ``fm.zero`` is ``T(0)``.
 
 A form that branches on a traced value (``if mass() > 0``, ``bool(x)``),
@@ -488,14 +496,33 @@ def generated(forms) -> GeneratedFamily:
 # ----------------------------------------------------------------------
 
 _CXX_BINARY = {"add": "+", "sub": "-", "mul": "*", "div": "/"}
-_CXX_UNARY = {"sin": "dsin", "cos": "dcos", "exp": "dexp", "sqrt": "dsqrt", "abs": "dabs"}
+# a pass's functions (csrc/fused_step.cuh); sin and cos go through one
+# line_sincos, 1/x through line_rcp
+_CXX_UNARY = {"exp": "dexp(v{})", "sqrt": "line_sqrt<STRAIGHT>(v{}, ok)", "abs": "dabs(v{})"}
+
+
+def _is_one(program: Program, i: int) -> bool:
+    """Whether value ``i`` is the literal 1 rounded to T (the numerator the
+    recording gives ``c / x``)."""
+    _, op, args = program.ops[i]
+    return op == "cvt" and program.ops[args[0]][1:] == ("lit", (1.0,))
 
 
 def _cxx_body(program: Program, out: str) -> List[str]:
-    lines = []
+    """The program as C++ statements of a pass, one an operation, in its
+    order.  The sine and cosine of one value come from one ``line_sincos``,
+    made where the first of them is; ``1 / x`` is ``line_rcp(x)``."""
+    lines, pairs = [], set()
     for i, (kind, op, args) in enumerate(program.ops):
         ty = "T" if kind == "T" else "double"
-        if op == "in":
+        if op in ("sin", "cos"):
+            x = args[0]
+            if x not in pairs:
+                pairs.add(x)
+                lines.append(f"    T sin_v{x}, cos_v{x};")
+                lines.append(f"    line_sincos<STRAIGHT>(v{x}, &sin_v{x}, &cos_v{x}, ok);")
+            expr = f"{op}_v{x}"
+        elif op == "in":
             expr = f"{args[0]}[{args[1]}]"
         elif op == "tab":
             expr = f"cf[{args[0]}]"
@@ -508,9 +535,13 @@ def _cxx_body(program: Program, out: str) -> List[str]:
         elif op == "neg":
             expr = f"-v{args[0]}"
         elif op in _CXX_UNARY:
-            expr = f"{_CXX_UNARY[op]}(v{args[0]})"
-        elif op == "divs":  # x / c on the card: x * (T(1) / T(c))
-            expr = f"v{args[0]} * (T(1) / static_cast<T>(v{args[1]}))"
+            expr = _CXX_UNARY[op].format(args[0])
+        elif op == "divs":  # x / c on the card: x * (T(1) / T(c)), folded for a literal
+            inv = (f"(T(1) / static_cast<T>(v{args[1]}))" if program.ops[args[1]][1] == "lit"
+                   else f"line_rcp<STRAIGHT>(static_cast<T>(v{args[1]}), ok)")
+            expr = f"v{args[0]} * {inv}"
+        elif op == "div" and kind == "T" and _is_one(program, args[0]):
+            expr = f"line_rcp<STRAIGHT>(v{args[1]}, ok)"
         else:
             expr = f"v{args[0]} {_CXX_BINARY[op]} v{args[1]}"
         lines.append(f"    const {ty} v{i} = {expr};")
@@ -534,8 +565,8 @@ def _cxx_forms(programs: Dict[str, Program], n: int, n_aux: int, n_factor: int) 
     for form in ("aux", "kmat", "factor", "solve", "dhdq", "aux_shift"):
         if form not in programs:
             continue
-        lines.append("  template <class C>")
-        lines.append(f"  static __device__ __forceinline__ void {form}({sig[form]}) {{")
+        lines.append("  template <bool STRAIGHT, class C>")
+        lines.append(f"  static __device__ __forceinline__ void {form}({sig[form]}, bool* ok) {{")
         if not programs[form].reads_table():
             lines.append("    (void)cf;")
         lines += _cxx_body(programs[form], "out")

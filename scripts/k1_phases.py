@@ -1,19 +1,37 @@
 #!/usr/bin/env python3
-"""Where a K1 chain launch spends its cycles, by phase of the step, on one
-card.
+"""Where a K1 launch spends its cycles, by phase of the step, on one card.
 
-    python3 scripts/k1_phases.py [FORM ...]
+    python3 scripts/k1_phases.py [--tree DIR] [--sass] [FORM ...]
 
-FORM is ``semiseparable`` (default; ``csrc/fused_step.cu``) or ``mobius``
-(``csrc/chain_variants.cu``), run as the sources ship them on the one-thread
-template ``step_member`` (``csrc/fused_step.cuh``).  The script copies the
-package to ``hamilton_tpu_torch/_build/k1_phases/``, wraps each of
-``step_member``'s calls of the policy's ``aux``, ``aux_at``, ``factor``,
-``solve`` and ``dhdq`` in the copy with ``clock64()`` reads (lane 0 of each
-warp adds the cycles to a device counter) and the whole step likewise, builds
-the form's float32 n = 20 part, and runs one 50-step launch of the headline
-configuration (16384 members, Kahan (2,0), dt = 5e-4, shared table).  The
-package itself is not touched.
+FORM is a chain form, ``semiseparable`` (default; ``csrc/fused_step.cu``) or
+``mobius`` (``csrc/chain_variants.cu``); a family of ``csrc/family_step.cu``,
+``spherical``, ``two_body``, ``room``, ``spring``, ``ellipse``, ``bezier5`` or
+``bezier2``; or a family on the generated kernel (``csrc/user_family_step.cu``
+around the header ``ops/fused_codegen.py`` prints), ``bezier3`` or
+``elastic``.  All run on the one-thread template ``step_member``
+(``csrc/fused_step.cuh``).  The script copies DIR's package (default: this
+checkout's; DIR may be a parent unpacked with ``git archive`` into
+``_archive/parent``) to ``hamilton_tpu_torch/_build/k1_phases/<DIR's
+name>/``, wraps each of ``step_member``'s calls of the policy's ``aux``,
+``aux_at``, ``factor``, ``solve`` and ``dhdq`` in the copy with
+``clock64()`` reads summed in registers, and the whole of ``step_member``
+likewise (lane 0 of each warp adds its sums to device counters once, as
+``step_member`` ends: an atomic at every phase call serializes the warps of
+a short step), builds the form's float32 kernel and runs one launch:
+
+- the chain forms: the headline configuration (16384 members, Kahan (2,0),
+  dt = 5e-4, 50 steps, shared table, n = 20);
+- the families and ``bezier3``: ``chip_smoke.py`` phase 15 (e)'s and phase
+  18 (e)'s row, 16384 members, Kahan (2,0), 50 steps, each family's dt;
+- ``elastic``: phase 18 (f)'s row, the example's sweep of 16384 members
+  with per-member tables, (2,1), one step a launch, dt = 5e-3.
+
+The package itself is not touched.  ``--sass`` also builds DIR's own
+(unprobed) ``family_step.cu`` and writes ``cuobjdump -sass`` of each family
+FORM's float32 Kahan shared-table and per-member instantiations to
+``chiprun_out/k1_sass_<FORM>.txt``, printing how many shared (``LDS``),
+global (``LDG``) and local (``LDL``) loads, calls, branches and ``MUFU``
+operations each holds.
 
 Prints the card's name and power limit and, per form, the cycles a warp
 spends a step in each phase, their shares of the step, and the probed
@@ -35,7 +53,15 @@ ROOT = Path(__file__).resolve().parent.parent
 WORK = ROOT / "hamilton_tpu_torch" / "_build" / "k1_phases"
 PHASES = ("aux", "aux_at", "factor", "solve", "dhdq")
 BATCH, SPC = 16384, 50
-SOURCES = {"semiseparable": ("fused_step", 20), "mobius": ("chain_variants", 0)}
+CHAINS = {"semiseparable": ("fused_step", 20), "mobius": ("chain_variants", 0)}
+# the families of csrc/family_step.cu: (family code, chip_smoke.py phase 15's
+# jitter scale, dt)
+FAMILIES = {"spherical": (0, 0.05, 2.5e-4), "two_body": (1, 0.02, 2.5e-4),
+            "room": (2, 0.05, 2.5e-4), "spring": (3, 0.02, 1e-3),
+            "ellipse": (4, 0.05, 2.5e-4), "bezier5": (5, 0.05, 2.5e-4),
+            "bezier2": (6, 0.05, 2.5e-4)}
+GENERATED = ("bezier3", "elastic")
+SOURCES = ("fused_step", "chain_variants", "family_step", "user_family_step")
 
 PROBE = """
 __device__ unsigned long long g_phase_cycles[8];
@@ -46,14 +72,24 @@ __device__ __forceinline__ long long phase_clock() {
   return 0;
 #endif
 }
-struct PhaseClock {
-  int k;
+// A thread's cycles by phase (5: the whole of step_member), in registers;
+// lane 0 of each warp adds them to the device counters once, as
+// step_member ends.
+struct PhaseCycles {
+  long long c[6] = {0, 0, 0, 0, 0, 0};
   long long t0;
-  __device__ explicit PhaseClock(int k_) : k(k_) { t0 = phase_clock(); }
-  __device__ ~PhaseClock() {
-    const long long t1 = phase_clock();
-    if ((threadIdx.x & 31) == 0) atomicAdd(&g_phase_cycles[k], (unsigned long long)(t1 - t0));
+  __device__ PhaseCycles() { t0 = phase_clock(); }
+  __device__ ~PhaseCycles() {
+    c[5] = phase_clock() - t0;
+    if ((threadIdx.x & 31) == 0)
+      for (int k = 0; k < 6; ++k) atomicAdd(&g_phase_cycles[k], (unsigned long long)c[k]);
   }
+};
+struct PhaseClock {
+  long long& acc;
+  long long t0;
+  __device__ explicit PhaseClock(long long& a) : acc(a) { t0 = phase_clock(); }
+  __device__ ~PhaseClock() { acc += phase_clock() - t0; }
 };
 """
 ENTRIES = """
@@ -65,81 +101,184 @@ extern "C" int hamilton_phase_cycles(unsigned long long* out, int zero) {
   return (int)cudaMemcpyFromSymbol(out, g_phase_cycles, sizeof(unsigned long long) * 8);
 }
 """
+# the SASS opcodes --sass counts in an instantiation
+SASS_OPS = ("LDS", "LDG", "LDL", "CALL", "BRA", "MUFU")
 
 
-def _copy() -> Path:
-    pkg = WORK / "hamilton_tpu_torch"
+def _copy(tree: Path) -> Path:
+    where = WORK / tree.resolve().name
+    pkg = where / "hamilton_tpu_torch"
     if pkg.exists():
         shutil.rmtree(pkg)
-    shutil.copytree(ROOT / "hamilton_tpu_torch", pkg,
+    shutil.copytree(tree / "hamilton_tpu_torch", pkg,
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     header = pkg / "csrc" / "fused_step.cuh"
     text = header.read_text().replace("namespace {\n", "namespace {\n" + PROBE, 1)
     count = 0
     for k, phase in enumerate(PHASES):
-        text, n = re.subn(rf"(P::{phase}\([^;]*\);)", rf"{{ PhaseClock clock_({k}); \1 }}", text)
+        text, n = re.subn(rf"(P::{phase}\([^;]*\);)",
+                          rf"{{ PhaseClock clock_(phase_cycles_.c[{k}]); \1 }}", text)
         count += n
-    text, n = re.subn(r"(  typename P::Aux ax;[^\n]*\n)", r"\1  PhaseClock step_clock_(5);\n", text)
+    text, n = re.subn(r"(  typename P::Aux ax;[^\n]*\n)", r"\1  PhaseCycles phase_cycles_;\n",
+                      text)
     if count < 10 or n != 1:
         raise RuntimeError(f"{header}: {count} phase calls and {n} step clocks wrapped")
     header.write_text(text)
-    for source, _ in SOURCES.values():
+    for source in SOURCES:
         src = pkg / "csrc" / f"{source}.cu"
         src.write_text(src.read_text() + ENTRIES)
-    return WORK
+    return where
+
+
+def _launch(form, dev):
+    """``(library path, a launch of the form's row, steps a launch)``,
+    building what the form needs."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    import hamilton_tpu_torch as tp
+    from hamilton_tpu_torch import kernels
+    from hamilton_tpu_torch.ops import fused_codegen
+    from hamilton_tpu_torch.ops.fused_step import coef_table, fused_step_kernel, fused_stepper
+
+    f32, f64 = torch.float32, torch.float64
+    rng = np.random.default_rng(16)
+    if form in CHAINS:
+        source, code = CHAINS[form]
+        lib = kernels.build(source, parts=(kernels.PARTS[source][1](0, code),)).paths[0]
+        ex = tp.chain(n_links=20, fused_solver=form, device=dev, dtype=f32)
+        forms = ex.system.fused_forms(ex.system)
+        q = ex.init_phase.q.cpu().numpy() + 0.01 * rng.standard_normal((BATCH, 20))
+        ph = tp.Phase(torch.tensor(q, dtype=f32, device=dev),
+                      ex.init_phase.p.to(f32).expand(BATCH, 20).contiguous())
+        state = fused_stepper(forms, iters=(2, 0), compensated=True).init(ph)
+        kw = dict(iters=(2, 0), compensated=True, steps_per_call=SPC,
+                  coef=coef_table(forms, dev, f32))
+        return lib, lambda: fused_step_kernel(forms, state, 5e-4, **kw), SPC
+    if form == "elastic":
+        from hamilton_tpu_torch.examples import elastic_pendulum
+
+        k_res = 3.0 * 9.8
+        k_grid = torch.linspace(0.35 * k_res, 2.0 * k_res, BATCH, dtype=f32, device=dev)
+        system = elastic_pendulum.make_system(device=dev, dtype=f32).replace_params({
+            "mass": torch.ones(BATCH, dtype=f32, device=dev),
+            "gravity": torch.full((BATCH,), 9.8, dtype=f32, device=dev),
+            "spring_k": k_grid, "rest_length": torch.ones(BATCH, dtype=f32, device=dev)})
+        forms = system.fused_forms(system)
+        q0 = torch.stack([torch.full((BATCH,), 0.01, dtype=f32, device=dev),
+                          1.0 + 9.8 / k_grid + 0.15], dim=-1)
+        state, table = fused_stepper(forms, iters=(2, 1)).init(tp.Phase(q0, torch.zeros_like(q0)))
+        lib = kernels.build_user_family(fused_codegen.generated(forms).header)[1].paths[0]
+        kw = dict(iters=(2, 1), compensated=False, steps_per_call=1, coef=table)
+        return lib, lambda: fused_step_kernel(forms, state, 5e-3, **kw), 1
+    make = {"spherical": tp.spherical_pendulum, "two_body": tp.two_body, "room": tp.room,
+            "spring": tp.spring, "ellipse": tp.ellipse, "bezier5": tp.bezier,
+            "bezier2": lambda **k: tp.bezier(cs.BEZIER2_POINTS, **k),
+            "bezier3": lambda **k: tp.bezier(cs.BEZIER3_POINTS, **k)}[form]
+    _, scale, dt = FAMILIES.get(form, (None, 0.05, 2.5e-4))  # bezier3: phase 18 (e)'s
+    system = make(device=dev, dtype=f32).system
+    forms = system.fused_forms(system)
+    state = fused_stepper(forms, iters=(2, 0), compensated=True, steps_per_call=SPC).init(
+        cs.family_phase(make(device=dev, dtype=f64), BATCH, scale, rng, dev))
+    kw = dict(iters=(2, 0), compensated=True, steps_per_call=SPC)
+    if form == "bezier3":
+        lib = kernels.build_user_family(fused_codegen.generated(forms).header)[1].paths[0]
+    else:
+        lib = kernels.build("family_step").paths[0]
+        kw["coef"] = coef_table(forms, dev, f32)
+    return lib, lambda: fused_step_kernel(forms, state, dt, **kw), SPC
+
+
+def _sass(tree: Path, forms) -> dict:
+    """``cuobjdump -sass`` of ``tree``'s own family_step.cu: each family
+    form's float32 Kahan instantiations (shared and per-member table, one
+    substep) into ``chiprun_out/k1_sass_<form>.txt``; the counts of
+    :data:`SASS_OPS` in each."""
+    build = ("import sys; sys.path.insert(0, sys.argv[1]); "
+             "from hamilton_tpu_torch import kernels; "
+             "print(kernels.build('family_step').paths[0])")
+    lib = subprocess.run([sys.executable, "-c", build, str(tree.resolve())], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[-1]
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    blocks = re.split(r"\n\s*Function : ", sass)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    counts = {}
+    for form in forms:
+        if form not in FAMILIES:
+            continue
+        code = FAMILIES[form][0]
+        text = []
+        for pm in (0, 1):
+            name = f"family_step_kernelIfLi{code}ELb1ELb{pm}ELb0E"
+            block = next((b for b in blocks if name in b.split("\n", 1)[0]), None)
+            if block is None:
+                continue
+            ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", block)
+            counts[f"{form} {'per-member' if pm else 'shared'}"] = {
+                op: sum(1 for o in ops if o == op) for op in SASS_OPS} | {"instructions": len(ops)}
+            text.append(f"Function : {block}")
+        (out_dir / f"k1_sass_{form}.txt").write_text("\n".join(text))
+    return counts
 
 
 def main(argv) -> int:
+    tree, sass = ROOT, False
+    while argv and argv[0].startswith("--"):
+        if argv[0] == "--tree":
+            tree, argv = Path(argv[1]), argv[2:]
+        elif argv[0] == "--sass":
+            sass, argv = True, argv[1:]
+        else:
+            print(__doc__, file=sys.stderr)
+            return 2
     forms = argv or ["semiseparable"]
+    unknown = [f for f in forms if f not in CHAINS and f not in FAMILIES and f not in GENERATED]
+    if unknown:
+        print(f"unknown forms {unknown}\n{__doc__}", file=sys.stderr)
+        return 2
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    where = _copy()
+    sass_counts = _sass(tree, forms) if sass else None
+    for form, c in (sass_counts or {}).items():
+        print(f"sass {tree} {form}: " + ", ".join(f"{k} {v}" for k, v in c.items()), flush=True)
+    where = _copy(tree)
     sys.path[:0] = [str(where), str(ROOT)]
-    import numpy as np
     import torch
 
     from hamilton_tpu_torch import kernels
 
     if not Path(kernels.__file__).is_relative_to(where):
         raise RuntimeError(f"imported {kernels.__file__}, not the copy in {where}")
-    import hamilton_tpu_torch as tp
-    from hamilton_tpu_torch.ops.fused_step import coef_table, fused_step_kernel, fused_stepper
     from hamilton_tpu_torch.utils.profiling import time_queued
 
     dev = torch.device("cuda")
+    runs = {form: _launch(form, dev) for form in forms}
     rows = {}
-    for form in forms:
-        source, code = SOURCES[form]
-        part = kernels.PARTS[source][1](0, code)
-        lib = ctypes.CDLL(str(kernels.build(source, parts=(part,)).paths[0]))
-        ex = tp.chain(n_links=20, fused_solver=form, device=dev, dtype=torch.float32)
-        forms_ = ex.system.fused_forms(ex.system)
-        rng = np.random.default_rng(0)
-        q = ex.init_phase.q.cpu().numpy() + 0.01 * rng.standard_normal((BATCH, 20))
-        ph = tp.Phase(torch.tensor(q, dtype=torch.float32, device=dev),
-                      ex.init_phase.p.to(torch.float32).expand(BATCH, 20).contiguous())
-        state = fused_stepper(forms_, iters=(2, 0), compensated=True).init(ph)
-        kw = dict(iters=(2, 0), compensated=True, steps_per_call=SPC,
-                  coef=coef_table(forms_, dev, torch.float32))
-        fused_step_kernel(forms_, state, 5e-4, **kw)
+    for form, (lib_path, launch, spc) in runs.items():
+        lib = ctypes.CDLL(str(lib_path))
+        launch()
         torch.cuda.synchronize()
         out = (ctypes.c_ulonglong * 8)()
         lib.hamilton_phase_cycles(out, 1)
-        fused_step_kernel(forms_, state, 5e-4, **kw)
+        launch()
         torch.cuda.synchronize()
         if lib.hamilton_phase_cycles(out, 0) != 0:
             raise RuntimeError("reading the phase counters failed")
-        warp_steps = BATCH // 32 * SPC
+        warp_steps = BATCH // 32 * spc
         cycles = {name: out[k] / warp_steps for k, name in enumerate(PHASES)}
         cycles["step"] = out[5] / warp_steps
-        ms, _ = time_queued(lambda: fused_step_kernel(forms_, state, 5e-4, **kw), 20)
+        ms, _ = time_queued(launch, 20)
         rows[form] = {"cycles_per_warp_step": cycles, "probed_ms": ms}
-        print(f"{form}: a warp's step {cycles['step']:.0f} cycles: " + ", ".join(
+        print(f"{tree} {form}: a warp's step {cycles['step']:.0f} cycles: " + ", ".join(
             f"{k} {v:.0f} ({v / cycles['step']:.3f})" for k, v in cycles.items() if k != "step")
             + f"; probed launch {ms:.4f} ms", flush=True)
-    print(json.dumps({"card": card, "rows": rows}))
+    print(json.dumps({"card": card, "tree": str(tree), "rows": rows, "sass": sass_counts}))
     return 0
 
 

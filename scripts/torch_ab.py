@@ -23,6 +23,12 @@ Readings, all on 16384 members:
   Each is the device ms of one launch, from CUDA events around 100 launches
   queued behind a held stream (``utils.profiling.time_queued`` of this
   checkout, for every tree);
+- the families' K1 (``csrc/family_step.cu``) on ``chip_smoke.py`` phase 15
+  (e)'s rows (``family_<name>``: f32 Kahan (2,0), 50 steps a launch, each
+  family's dt, the shared table, the same inputs), and the generated K1
+  (``csrc/user_family_step.cu``) on phase 18's: ``generated_bezier3`` (e)
+  and ``generated_elastic`` (f), the example's sweep (per-member tables,
+  (2,1), one step a launch), device ms as above;
 - the host's ms to issue one such launch through ``Stepper.step``
   (``headline_host``, ``double_pendulum_host``: the wall time of queuing
   those 100), and ``double_pendulum_wall``, the wall ms per launch of 400
@@ -40,7 +46,8 @@ Readings, all on 16384 members:
   (``_rotating``) on four sets in turn, more than the 50 MB L2 holds.
 
 Each tree's ``-Xptxas -v`` report of the K1 kernels (``csrc/fused_step.cu``,
-``csrc/chain_variants.cu`` and ``csrc/family_step.cu``: registers and spill
+``csrc/chain_variants.cu``, ``csrc/family_step.cu`` and the generated
+kernels of phase 18, ``user_family_step: <family>``: registers and spill
 bytes per instantiation, named by ``chip_smoke.py``'s parsers) and of the K2
 kernels (``csrc/batched_spd.cu``, named by their mangled template names) is
 held against the first tree's, instantiation by instantiation;
@@ -76,10 +83,14 @@ K2_READINGS = (("cholesky", "float32"), ("cho_solve", "float32"), ("cholesky", "
                ("cho_solve", "float64"), ("spd_solve", "float64"),
                ("spd_solve_jac", "float64"), ("cholesky_jac", "float32"))
 K2_ROTATE = 4
+# the families of chip_smoke.py phase 15, in its order (its generator is
+# drawn across them in turn)
+FAMILY_READINGS = ("spherical", "twobody", "spring", "room", "ellipse", "bezier", "bezier2")
 READINGS = ("headline", "double_pendulum", "sweep", "suzuki4", "mobius", "linv", "headline_host",
             "double_pendulum_host", "double_pendulum_wall", "library_leapfrog_step",
-            "adaptive_f64") + tuple(f"{e}_{d}{r}" for e, d in K2_READINGS
-                                    for r in ("", "_rotating"))
+            "adaptive_f64") + tuple(f"family_{f}" for f in FAMILY_READINGS) + (
+                "generated_bezier3", "generated_elastic") + tuple(
+                    f"{e}_{d}{r}" for e, d in K2_READINGS for r in ("", "_rotating"))
 DP_WALL_LAUNCHES = 400
 # the K2 kernels as each tree's report names them (the mangled template name)
 _K2_ANY_RE = re.compile(r"(?:factor_solve_kernel|factor_lanes_kernel|factor_kernel"
@@ -246,7 +257,77 @@ def _time_tree(tree: str) -> dict:
     ph64 = phase(ch64, f64)
     tp.evolve_ham(ch64.system, ph64, [0.0, 0.01])  # warm-up
     out["adaptive_f64"] = _wall_ms(lambda: tp.evolve_ham(ch64.system, ph64, [0.0, 0.05]))
+    out.update(_time_families(time_queued))
     out.update(_time_k2(time_queued))
+    return out
+
+
+def _family_launches(dev):
+    """``{reading: a launch}`` of the families' and the generated K1 at
+    ``chip_smoke.py`` phase 15 (e)'s and phase 18 (e)/(f)'s shapes and
+    inputs, through the tree's package."""
+    import numpy as np
+    import torch
+
+    import hamilton_tpu_torch as tp
+    from hamilton_tpu_torch.examples import elastic_pendulum
+    from hamilton_tpu_torch.ops.fused_step import coef_table, fused_step_kernel, fused_stepper
+
+    cs = _chip_smoke()
+    f32, f64 = torch.float32, torch.float64
+    makes = {"spherical": (tp.spherical_pendulum, 0.05, 2.5e-4),
+             "twobody": (tp.two_body, 0.02, 2.5e-4), "spring": (tp.spring, 0.02, 1e-3),
+             "room": (tp.room, 0.05, 2.5e-4), "ellipse": (tp.ellipse, 0.05, 2.5e-4),
+             "bezier": (tp.bezier, 0.05, 2.5e-4),
+             "bezier2": (lambda **k: tp.bezier(cs.BEZIER2_POINTS, **k), 0.05, 2.5e-4)}
+    kw = dict(iters=(2, 0), compensated=True, steps_per_call=cs.FAMILY_SPC)
+    out = {}
+    rng = np.random.default_rng(16)
+    for name in FAMILY_READINGS:
+        make, scale, dt = makes[name]
+        system = make(device=dev, dtype=f32).system
+        forms = system.fused_forms(system)
+        state = fused_stepper(forms, **kw).init(
+            cs.family_phase(make(device=dev, dtype=f64), BATCH, scale, rng, dev))
+        coef = coef_table(forms, dev, f32)
+        out[f"family_{name}"] = (lambda f=forms, s=state, d=dt, c=coef:
+                                 fused_step_kernel(f, s, d, coef=c, **kw))
+    bz = tp.bezier(cs.BEZIER3_POINTS, device=dev, dtype=f32).system
+    forms = bz.fused_forms(bz)
+    state = fused_stepper(forms, **kw).init(cs.family_phase(
+        tp.bezier(cs.BEZIER3_POINTS, device=dev, dtype=f64), BATCH, 0.05,
+        np.random.default_rng(11), dev))
+    out["generated_bezier3"] = lambda: fused_step_kernel(forms, state, 2.5e-4, **kw)
+    k_grid = torch.linspace(0.35 * 3.0 * 9.8, 2.0 * 3.0 * 9.8, BATCH, dtype=f32, device=dev)
+    sweep = elastic_pendulum.make_system(device=dev, dtype=f32).replace_params({
+        "mass": torch.ones(BATCH, dtype=f32, device=dev),
+        "gravity": torch.full((BATCH,), 9.8, dtype=f32, device=dev),
+        "spring_k": k_grid, "rest_length": torch.ones(BATCH, dtype=f32, device=dev)})
+    el_forms = sweep.fused_forms(sweep)
+    q0 = torch.stack([torch.full((BATCH,), 0.01, dtype=f32, device=dev),
+                      1.0 + 9.8 / k_grid + 0.15], dim=-1)
+    el_state, el_table = fused_stepper(el_forms, iters=(2, 1)).init(
+        tp.Phase(q0, torch.zeros_like(q0)))
+    out["generated_elastic"] = lambda: fused_step_kernel(
+        el_forms, el_state, 5e-3, iters=(2, 1), compensated=False, steps_per_call=1,
+        coef=el_table)
+    return out
+
+
+def _time_families(time_queued) -> dict:
+    """The family and generated K1 readings (none where the tree lacks the
+    generated kernel)."""
+    import torch
+
+    from hamilton_tpu_torch import kernels
+
+    if not hasattr(kernels, "build_user_family"):
+        return {}
+    out = {}
+    with torch.no_grad():
+        for name, launch in _family_launches(torch.device("cuda")).items():
+            launch()  # warm-up (a generated kernel's build, done by --build-tree)
+            out[name], _ = time_queued(launch, REPS)
     return out
 
 
@@ -293,21 +374,42 @@ def _card() -> str:
 def _ptxas_rows(logs: dict) -> dict:
     """``{instantiation: (registers, spill stores, spill loads)}`` of the K1
     and K2 kernels in nvcc's ``-Xptxas -v`` reports by source (K1's parsed
-    as ``chip_smoke.py`` prints them, K2's by mangled name)."""
-    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-    import chip_smoke as cs
-
+    as ``chip_smoke.py`` prints them, K2's by mangled name; a generated
+    kernel's under ``user_family_step: <family>``)."""
+    cs = _chip_smoke()
     patterns = {"fused_step": (cs._KERNEL_RE, cs._k1_label),
                 "chain_variants": (cs._VARIANT_RE, cs._variant_label),
                 "family_step": (cs._FAMILY_RE, cs._family_label),
                 "batched_spd": (_K2_ANY_RE, lambda m: m.group(0))}
     return {f"{src}: {name}": (regs, st, ld) for src, log in logs.items()
-            for name, regs, st, ld in cs.ptxas_report(log, *patterns[src])}
+            for name, regs, st, ld in cs.ptxas_report(
+                log, *patterns.get(src, (cs._USER_RE, cs._user_label)))}
+
+
+def _build_tree(tree: str) -> list:
+    """Build the tree's kernels (every source at once, then the generated
+    kernels of phase 18): ``[seconds, {source: nvcc report}]``."""
+    sys.path.insert(0, str(Path(tree).resolve()))
+    import torch
+
+    from hamilton_tpu_torch import kernels
+
+    t = time.perf_counter()
+    built = kernels.build_all()
+    logs = {k: built[k].log for k in ("fused_step", "chain_variants", "family_step",
+                                      "batched_spd")}
+    if hasattr(kernels, "build_user_family"):
+        for label, header in _chip_smoke().user_family_headers(torch.device("cpu")).items():
+            logs[f"user_family_step: {label}"] = kernels.build_user_family(header)[1].log
+    return [time.perf_counter() - t, logs]
 
 
 def main(argv) -> int:
     if len(argv) >= 2 and argv[0] == "--time":
         print(json.dumps(_time_tree(argv[1])), flush=True)
+        return 0
+    if len(argv) >= 2 and argv[0] == "--build-tree":
+        print(json.dumps(_build_tree(argv[1])), flush=True)
         return 0
     if len(argv) >= 2 and argv[0] == "--accuracy-tree":
         print(json.dumps(_accuracy_tree(argv[1])), flush=True)
@@ -323,13 +425,7 @@ def main(argv) -> int:
         return 2
     card = _card()
     print(card, flush=True)
-    build = ("import json, sys, time; sys.path.insert(0, sys.argv[1]); "
-             "from hamilton_tpu_torch import kernels; t = time.perf_counter(); "
-             "b = kernels.build_all(); "
-             "print(json.dumps([time.perf_counter() - t, "
-             "{k: b[k].log for k in ('fused_step', 'chain_variants', 'family_step', "
-             "'batched_spd')}]))")
-    procs = [subprocess.Popen([sys.executable, "-c", build, str(Path(t).resolve())],
+    procs = [subprocess.Popen([sys.executable, __file__, "--build-tree", t],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for t in trees]
     first = None
@@ -379,7 +475,7 @@ def main(argv) -> int:
             raise RuntimeError(f"timing {trees[i]} failed:\n{res.stderr}")
         row = json.loads(res.stdout.strip().splitlines()[-1])
         for r in READINGS:
-            ms[r][i].append(row[r])
+            ms[r][i].append(row.get(r))  # None: not in this tree
         print(f"turn {trees[i]} ({time.perf_counter() - t0:.1f} s): "
               + ", ".join(f"{r} {'n/a' if v is None else f'{v:.5f} ms'}"
                           for r, v in row.items()), flush=True)

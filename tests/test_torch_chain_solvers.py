@@ -507,18 +507,76 @@ template <typename T> inline T __shfl_sync(unsigned, T v, int src, int width) {
 """
 
 
-def _host_kernel_source(name, part, where):
-    """``csrc/<name>.cu`` (``fused_step`` or ``chain_variants``), its part
-    ``part``, as a host library: the dynamic shared memory a static buffer,
-    each launch a loop over blocks of threads, in the source and in the
-    headers it includes (``chain_lanes.cuh`` has the one dynamic
-    shared-memory symbol and the lane kernel's launch)."""
+#: Appended to the host build of a K1 source that includes
+#: ``fused_step.cuh`` (``family_step.cu``, ``user_family_step.cu``): the
+#: elementary functions the kernel takes, as a pass over one value (0 sin
+#: and 1 cos through ``line_sincos``, 2 exp, 3 the square root
+#: ``line_sqrt``: the straight-line version in float where the value is in
+#: its range, else the library's), for the plain version to run on.  On the
+#: card they are the library's (``csrc/libm_check.cu`` holds the
+#: straight-line versions against it on every float); on the host the
+#: straight-line versions and the host's libm differ by ulps, and PyTorch's
+#: CPU sin, cos and exp from both.
+HOST_ELEMENTARY = r"""
+template <bool STRAIGHT, typename T>
+T host_value(int fn, T x, bool* ok) {
+  T s, c;
+  if (fn == 2) return dexp(x);
+  if (fn == 3) return line_sqrt<STRAIGHT>(x, ok);
+  line_sincos<STRAIGHT>(x, &s, &c, ok);
+  return fn == 0 ? s : c;
+}
+template <typename T>
+void host_elementary(int fn, const T* in, T* out, long long n) {
+  for (long long i = 0; i < n; ++i)
+    straight_or_library<T>([&](auto line, bool* ok) {
+      out[i] = host_value<decltype(line)::value>(fn, in[i], ok);
+    });
+}
+extern "C" void hamilton_host_elementary(int fn, int dtype_code, const void* in, void* out,
+                                         long long n) {
+  if (dtype_code == 0)
+    host_elementary(fn, static_cast<const float*>(in), static_cast<float*>(out), n);
+  else
+    host_elementary(fn, static_cast<const double*>(in), static_cast<double*>(out), n);
+}
+"""
+
+
+def host_fm(lib, monkeypatch):
+    """Point the plain version's ``fm.sin``, ``cos``, ``exp`` and ``sqrt``
+    (the forms' and the dense factor's) at the host build's
+    :data:`HOST_ELEMENTARY` in ``lib``."""
+    import ctypes
+
+    def fn(code):
+        def apply(x):
+            x = torch.as_tensor(x).contiguous()
+            out = torch.empty_like(x)
+            lib.hamilton_host_elementary(code, int(x.dtype == torch.float64), ctypes.c_void_p(x.data_ptr()),
+                                         ctypes.c_void_p(out.data_ptr()),
+                                         ctypes.c_longlong(x.numel()))
+            return out
+
+        return apply
+
+    for code, name in enumerate(("sin", "cos", "exp", "sqrt")):
+        monkeypatch.setattr(t_step.FM_TORCH, name, fn(code))
+
+
+def _host_kernel_source(name, part, where, csrc=None):
+    """``csrc/<name>.cu`` (``fused_step``, ``chain_variants`` or
+    ``family_step``), its part ``part``, as a host library: the dynamic
+    shared memory a static buffer, each launch a loop over blocks of
+    threads, in the source and in the headers it includes
+    (``chain_lanes.cuh`` has the one dynamic shared-memory symbol and the
+    lane kernel's launch).  ``csrc``: another directory of sources."""
     import shutil
     import subprocess
 
     if shutil.which("g++") is None:
         pytest.skip("needs g++ for the host build of the kernel source")
-    csrc = Path(kernels.__file__).resolve().parent.parent / "csrc"
+    csrc = csrc or Path(kernels.__file__).resolve().parent.parent / "csrc"
     (where / "cuda_runtime.h").write_text(HOST_SHIM)
     n_shared = n_launch = 0
     for path, target in ([(h, where / h.name) for h in csrc.glob("*.cuh")]
@@ -531,7 +589,7 @@ def _host_kernel_source(name, part, where):
         target.write_text(src)
         n_shared, n_launch = n_shared + shared, n_launch + launch
     # chain_lanes.cuh's symbol and lane_launch, and the source's one-thread
-    # launch (family_step.cu's launch is in its own source, not built here)
+    # launch
     assert n_shared == 1 and n_launch == 2
     lib = where / f"lib{name}_host.so"
     proc = subprocess.run(["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",

@@ -11,6 +11,7 @@ plain fused step against the reference's fused kernel in interpret mode as
 """
 
 from math import comb
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -31,6 +32,7 @@ from hamilton_tpu_torch import mechanics as tmech
 from hamilton_tpu_torch.convert import params_from_numpy, phase_from_numpy
 from hamilton_tpu_torch.ops import fused_step as t_step
 
+from test_torch_chain_solvers import HOST_ELEMENTARY, _host_kernel_source, host_fm
 from test_torch_fused_step import FUSED_TOL, TILE, _tiles_to_members
 
 F64 = torch.float64
@@ -305,3 +307,94 @@ def test_kernel_instantiations_accepted_and_refused(family):
             t_step.check_kernel_args("cuda", torch.float32, f, (4, forms.n, 8),
                                      composition=(0.2,) * 6)
 
+
+
+# ----------------------------------------------------------------------
+# The kernel source, built with g++ in a host emulation
+# ----------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def family_library(tmp_path_factory):
+    """``csrc/family_step.cu`` built with g++ in the chain tests' host
+    emulation (a block of 128 threads), with ``HOST_ELEMENTARY``."""
+    import ctypes
+
+    from hamilton_tpu_torch import kernels
+
+    where = tmp_path_factory.mktemp("family_step")
+    csrc = Path(kernels.__file__).resolve().parent.parent / "csrc"
+    src = where / "src"
+    src.mkdir()
+    for path in csrc.glob("*.cuh"):
+        (src / path.name).write_text(path.read_text())
+    (src / "family_step.cu").write_text((csrc / "family_step.cu").read_text() + HOST_ELEMENTARY)
+    lib = ctypes.CDLL(str(_host_kernel_source("family_step", 0, where, csrc=src)))
+    lib.hamilton_family_step.argtypes = kernels._SIGNATURES["family_step"]["hamilton_family_step"]
+    return lib
+
+
+#: Members placed at an edge of the kernel's functions, by family: the
+#: angle beyond ``sincos_fast``'s range (|x| ≥ 105615: the library's
+#: ``sincosf``), a wall far enough that ``exp`` overflows (1/(1+inf) = 0
+#: through the library's reciprocal), a diagonal entry of K below float32's
+#: normal range (the dense factor again by the library's sqrt and 1/d).
+EDGE_MEMBERS = {
+    "spherical": {3: {"q": (2.0e5, 0.3)}, 5: {"q": (1e-20, 0.3), "p": (0.1, 0.0)}},
+    "spring": {3: {"q": (0.2, 0.1, -1.5e5)}, 4: {"q": (-40.0, 0.1, 0.3)}},
+    "ellipse": {3: {"q": (3.0e5,)}},
+    "room": {4: {"q": (-40.0, 0.25)}, 5: {"q": (-1.0, 40.0)}},
+    "bezier": {4: {"q": (-20.0,)}},
+    "bezier2": {4: {"q": (-20.0,)}},
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_family_kernel_source_on_the_host(family_library, family, dtype, monkeypatch):
+    """``csrc/family_step.cu`` through its C entry on CPU tensors, equal bit
+    for bit to the plain version run on the host build's elementary
+    functions (``host_fm``; its reciprocals are the IEEE division on
+    both sides): 37 members with :data:`EDGE_MEMBERS`, a shared and a
+    per-member table (room: shared only), (2,0) Kahan and Suzuki-composed
+    (3,1), three steps."""
+    import ctypes
+
+    host_fm(family_library, monkeypatch)
+    entry = family_library.hamilton_family_step
+    rng = np.random.default_rng(21)
+    batch, dt = 37, 1e-3
+    _, _, system = _pair(family, dtype)
+    modes = {"shared": system}
+    if system.params is not None:
+        modes["per-member"] = system.replace_params({
+            k: (v.expand(batch, *v.shape) * torch.as_tensor(
+                1.0 + 0.01 * rng.standard_normal((batch,) + (1,) * v.ndim), dtype=dtype)
+                ).contiguous()
+            for k, v in system.params.items()})
+    for mode, sysm in modes.items():
+        forms = sysm.fused_forms(sysm)
+        source, code = t_step.KERNEL_INSTANTIATIONS[t_step._kernel_key(forms)]
+        assert source == "family_step"
+        for iters, comp, weights in (((2, 0), True, (1.0,)),
+                                     ((3, 1), False, t_step.SUZUKI4_COMPOSITION)):
+            q = _q(family, batch, seed=22, spread=0.05)
+            p = 0.05 * rng.standard_normal(q.shape)
+            for b, edge in EDGE_MEMBERS.get(family, {}).items():
+                q[b] = edge["q"]
+                p[b] = edge.get("p", p[b])
+            st = t_step.fused_stepper(forms, iters=iters, compensated=comp,
+                                      composition=weights)
+            carry = st.init(phase_from_numpy(q, p, device="cpu", dtype=dtype))
+            state, table = carry if forms.consts is None else (carry, None)
+            coef = table if table is not None else t_step.coef_table(forms, "cpu", dtype)
+            with torch.no_grad():
+                want = t_step.fused_step_reference(forms, state, dt, iters=iters,
+                                                   compensated=comp, steps_per_call=3,
+                                                   composition=weights, coef=table)
+            got = torch.full_like(state, float("nan"))
+            flags = int(comp) << 1 | int(table is not None) << 2
+            assert entry(int(dtype == F64), code, flags,
+                         coef.data_ptr() if coef.numel() else None, state.data_ptr(),
+                         got.data_ptr(), batch, dt, iters[0], iters[1], 3, len(weights),
+                         (ctypes.c_double * len(weights))(*weights), None) == 0
+            assert torch.isfinite(want).all(), (mode, iters)
+            assert torch.equal(got, want), (mode, iters, float((got - want).abs().max()))

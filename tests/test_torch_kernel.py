@@ -170,8 +170,8 @@ def test_lane_layout_fits_the_card(card, source, code):
 
 
 def test_straight_line_libm_equals_the_library(card):
-    """The chain kernels' float sin/cos, sqrt and reciprocal
-    (``csrc/chain_forms.cuh``'s straight-line versions, and the library's
+    """K1's and K2's float sin/cos, sqrt and reciprocal
+    (``csrc/libm_fast.cuh``'s straight-line versions, and the library's
     ``sincosf`` and ``__frcp_rn`` that take over outside their ranges)
     against ``sinf``/``cosf``, ``sqrtf`` and ``1/x``, the functions the
     kernels called before them, on every float in each one's range, bit for
@@ -362,6 +362,42 @@ def test_family_kernel_matches_plain_version(card, name, swept):
         scale[-1] = 1e-3
         assert bool(torch.isfinite(got).all())
         assert float(((got - want) * scale).abs().max()) < 1e-11
+
+
+#: Members at an edge of the kernel's float functions, by family: an angle
+#: beyond the straight-line sine-cosine's range, a wall far enough that
+#: ``exp`` overflows, a diagonal entry of K below float32's normal range.
+FAMILY_EDGES = {
+    "spherical": {3: (2.0e5, 0.3), 5: (1e-20, 0.3)},
+    "spring": {3: (0.2, 0.1, -1.5e5), 4: (-40.0, 0.1, 0.3)},
+    "ellipse": {3: (3.0e5,)},
+    "room": {4: (-40.0, 0.25), 5: (-1.0, 40.0)},
+    "bezier": {4: (-20.0,)},
+    "bezier2": {4: (-20.0,)},
+}
+
+
+@pytest.mark.parametrize("name,swept", [(name, swept) for name in sorted(FAMILIES)
+                                         for swept in (False, True)
+                                         if not (swept and name == "room")])
+def test_family_float32_kernel_equals_plain_version(card, name, swept):
+    """float32 (2,0) Kahan, ten steps a launch, 300 members with
+    :data:`FAMILY_EDGES`, shared and per-member tables: the family kernel
+    (its straight-line sine-cosine, square root and reciprocal where their
+    inputs are in range, the library's elsewhere) equals its plain version
+    bit for bit."""
+    forms, carry = _family_state(name, card, torch.float32, (2, 0), True, swept)
+    state, table = carry if swept else (carry, None)
+    state = state.clone()
+    for b, q in FAMILY_EDGES.get(name, {}).items():
+        state[0, :, b] = torch.as_tensor(q, device=card, dtype=torch.float32)
+        if name == "spherical" and b == 5:
+            state[1, 1, b] = 0.0  # no azimuthal momentum where sin(theta) ~ 1e-20
+    kw = dict(iters=(2, 0), compensated=True, steps_per_call=10, coef=table)
+    got = t_step.fused_step_kernel(forms, state, 1e-3, **kw)
+    want = t_step.fused_step_reference(forms, state, 1e-3, **kw)
+    assert bool(torch.isfinite(want).all())
+    assert torch.equal(got, want), float((got - want).abs().max())
 
 
 def test_family_composition_kernel_matches_plain_version(card):

@@ -50,6 +50,7 @@ from hamilton_tpu_torch.ops import fused_codegen as cg
 from hamilton_tpu_torch.ops import fused_step as t_step
 from hamilton_tpu_torch.utils import roofline as t_roofline
 
+from test_torch_chain_solvers import HOST_ELEMENTARY, host_fm
 from test_torch_roofline import _costs_agree
 
 REPO = Path(__file__).resolve().parent.parent
@@ -117,6 +118,54 @@ def all_ops_system(dtype=F64):
                         params={"m": 1.3, "g": 9.8, "k": 30.0}, fused_forms=all_ops_forms)
 
 
+def sincos_recip_forms(system):
+    """A family whose aux takes the sine and the cosine of one value, a
+    reciprocal ``1 / x`` and a square root: the generated code's one
+    ``line_sincos``, its ``line_rcp`` and its ``line_sqrt``."""
+    p = system.params
+    cs = [t_step.concrete_scalar(p[k]) for k in ("m", "g")]
+    consts = None if any(c is None for c in cs) else ((cs[0], cs[1] * cs[0]),)
+
+    def arrays_fn(dtype, device):
+        m, g = (p[x].to(device=device, dtype=dtype) for x in ("m", "g"))
+        return (torch.stack([m, g * m], dim=-1),)
+
+    def make(at, fm):
+        m, gm = (lambda: at[0](0)), (lambda: at[0](1))
+
+        def aux(q):
+            u = 1.0 + q[1] * q[1]
+            return fm.sin(q[0]), fm.cos(q[0]), 1.0 / u, fm.sqrt(u)
+
+        def k_at(a, q):
+            s, c, r, _ = a
+
+            def at_(i, j):
+                if (i, j) == (0, 0):
+                    return m() * (1.0 + r)
+                if (i, j) == (1, 1):
+                    return fm.full(m(), s)
+                return m() * (0.25 * (s * c))
+
+            return at_
+
+        def dhdq(a, q, w):
+            s, c, r, h = a
+            return [gm() * s - m() * (0.25 * (c * c - s * s)) * (w[0] * w[1]),
+                    q[1] * (r * h) - m() * (q[1] * (r * r)) * (w[0] * w[0])]
+
+        return t_step.FamilyFns(aux, k_at, dhdq)
+
+    return t_step.FusedForms(n=2, n_aux=4, coef_lens=(2,), consts=consts, make=make,
+                             name="sincos_recip", arrays_fn=arrays_fn)
+
+
+def sincos_recip_system(dtype=F64):
+    return tp.mk_system(torch.ones(2), lambda q, p: q, lambda q, p: 0.5 * (q * q).sum(),
+                        device="cpu", dtype=dtype, n=2, name="sincos_recip",
+                        params={"m": 1.3, "g": 9.8}, fused_forms=sincos_recip_forms)
+
+
 def _registry_system(name, dtype):
     kw = {"n_links": 4} if name == "chain" else {}
     return tp.REGISTRY[name](device="cpu", dtype=dtype, **kw).system
@@ -133,6 +182,7 @@ FAMILIES = {
                 [0.5]),
     "elastic_pendulum": (lambda dtype: t_example.make_system(dtype=dtype), [0.3, 1.1]),
     "all_ops": (all_ops_system, [0.2, 1.1]),
+    "sincos_recip": (sincos_recip_system, [0.4, 0.7]),
 }
 
 
@@ -496,6 +546,7 @@ def test_a_parameter_change_keeps_the_library_key():
 HOST_SHIM = r"""
 #pragma once
 #include <cmath>
+#include <cstring>
 #define __device__
 #define __host__
 #define __global__
@@ -512,6 +563,19 @@ template <typename T> inline T __ldg(const T* p) { return *p; }
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "no error"; }
 using std::sin; using std::cos; using std::exp; using std::sqrt; using std::fabs;
+// the round-to-nearest intrinsics as the host's IEEE operations (built
+// without contraction)
+inline float __frcp_rn(float x) { return 1.0f / x; }
+inline double __drcp_rn(double x) { return 1.0 / x; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline double __ddiv_rn(double a, double b) { return a / b; }
+inline float __fsqrt_rn(float x) { return std::sqrt(x); }
+inline double __dsqrt_rn(double x) { return std::sqrt(x); }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+inline int __float2int_rn(float x) { return (int)std::nearbyint(x); }
+inline float __int2float_rn(int x) { return (float)x; }
+inline unsigned __float_as_uint(float x) { unsigned u; std::memcpy(&u, &x, 4); return u; }
+inline float __int_as_float(int x) { float f; std::memcpy(&f, &x, 4); return f; }
 // a launch as a loop over one-thread blocks
 #define HOST_LAUNCH(batch, ...) \
   for (long long hb = 0; hb < (batch); ++hb) { \
@@ -519,8 +583,9 @@ using std::sin; using std::cos; using std::exp; using std::sqrt; using std::fabs
 """
 
 
-def _host_library(header: str, where: Path) -> Path:
-    """``csrc/user_family_step.cu`` around ``header`` as a host library."""
+def _host_library(header: str, where: Path, extra: str = "") -> Path:
+    """``csrc/user_family_step.cu`` around ``header`` as a host library,
+    with ``extra`` appended to the source."""
     csrc = REPO / "hamilton_tpu_torch" / "csrc"
     where.mkdir(parents=True, exist_ok=True)
     (where / "cuda_runtime.h").write_text(HOST_SHIM)
@@ -531,7 +596,7 @@ def _host_library(header: str, where: Path) -> Path:
                      lambda m: f"HOST_LAUNCH(a.batch, {m.group(1)}({m.group(2)}));",
                      (csrc / "user_family_step.cu").read_text(), flags=re.S)
     assert n == 1
-    (where / "user_family_step.cc").write_text(src)
+    (where / "user_family_step.cc").write_text(src + extra)
     lib = where / "libuser_family_host.so"
     proc = subprocess.run(["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
                            "-w", "-I", str(where), "-o", str(lib),
@@ -548,7 +613,7 @@ def gxx():
 
 
 @pytest.mark.parametrize("name", ["elastic_pendulum", "bezier3", "chain3-semiseparable",
-                                  "all_ops", "room"])
+                                  "all_ops", "room", "sincos_recip"])
 def test_generated_source_built_on_the_host(gxx, name, tmp_path):
     """The generated header in ``csrc/user_family_step.cu``, compiled by g++
     in the host emulation and run through its C entry on CPU tensors:
@@ -591,3 +656,59 @@ def test_generated_source_built_on_the_host(gxx, name, tmp_path):
             scale = torch.ones(state.shape[0], 1, 1, dtype=F64)
             scale[-1] = 1e-3
             assert float(((got - want) * scale).abs().max()) <= 1e-13, (mode, kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("name", ["sincos_recip", "elastic_pendulum", "bezier3"])
+def test_generated_source_equals_plain_on_the_host(gxx, name, dtype, tmp_path, monkeypatch):
+    """The generated header in ``csrc/user_family_step.cu``, built with g++
+    in the host emulation, equal bit for bit to the plain version run on the
+    host build's elementary functions (``host_fm``: the sine and cosine of
+    a value, ``exp`` and the square root; the reciprocals are the IEEE division
+    on both sides): float32 and float64, every table mode, (2,0) Kahan and
+    Suzuki-composed (3,1), three steps, 12 members, one with an angle beyond
+    ``sincos_fast``'s range (sincos_recip) or beyond a wall, where ``exp``
+    overflows (bezier3)."""
+    import ctypes
+
+    rng = np.random.default_rng(5)
+    system = FAMILIES[name][0](dtype)
+    centre = _centre(name, system)
+    edge = {"sincos_recip": (2.0e5, 0.7), "bezier3": (-20.0,)}.get(name)
+    libs = {}
+    for mode, sysm in _modes(system, 12, rng).items():
+        header = cg.generate(sysm.fused_forms(sysm)).header
+        if header not in libs:
+            libs[header] = ctypes.CDLL(str(_host_library(header, tmp_path / f"b{len(libs)}",
+                                                         HOST_ELEMENTARY)))
+        lib = libs[header]
+        host_fm(lib, monkeypatch)
+        entry = lib.hamilton_user_family_step
+        entry.argtypes = kernels._SIGNATURES["family_step"]["hamilton_family_step"]
+        for kw in (dict(iters=(2, 0), compensated=True, composition=(1.0,)),
+                   dict(iters=(3, 1), compensated=False,
+                        composition=t_step.SUZUKI4_COMPOSITION)):
+            forms = sysm.fused_forms(sysm)
+            q = torch.as_tensor(centre + 0.01 * rng.standard_normal((12, forms.n)), dtype=dtype)
+            if edge is not None:
+                q[5] = torch.as_tensor(edge, dtype=dtype)
+            p = torch.as_tensor(0.05 * rng.standard_normal((12, forms.n)), dtype=dtype)
+            carry = t_step.fused_stepper(forms, **kw).init(tp.Phase(q, p))
+            state, table = carry if forms.consts is None else (carry, None)
+            with torch.no_grad():
+                want = t_step.fused_step_reference(forms, state, 1e-3, steps_per_call=3,
+                                                   coef=table, **kw)
+            if forms.consts is not None:
+                coef = torch.tensor([v for t in forms.consts for v in t], dtype=F64)
+            else:
+                coef = table
+            got = torch.full_like(state, float("nan"))
+            w = kw["composition"]
+            flags = int(kw["compensated"]) << 1 | int(coef.ndim == 2) << 2
+            code = entry(int(dtype == F64), 0 if forms.consts is not None else 1, flags,
+                         coef.data_ptr() if coef.numel() else None, state.data_ptr(),
+                         got.data_ptr(), 12, 1e-3, kw["iters"][0], kw["iters"][1], 3, len(w),
+                         (ctypes.c_double * len(w))(*w), None)
+            assert code == 0
+            assert torch.isfinite(want).all(), (mode, kw)
+            assert torch.equal(got, want), (mode, kw, float((got - want).abs().max()))
