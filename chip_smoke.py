@@ -37,9 +37,10 @@ raises as soon as one fails:
    loses the compensation;
 7. the five batched tiny-SPD kernels (K2a-K2e) against their plain versions
    on B=1000, 4097 and 16384 at n = 1, 2, 3, 20, 32 in float32 and float64
-   (random SPD K, and √M·J with m = 2n, from a seed), bit for bit, and each
-   kernel's device time at 16384 × 20 (on one operand set, and on four in
-   turn) beside its plain version's and one PyTorch call's;
+   (random SPD K, and √M·J with m = 2n and m = n, from a seed), bit for
+   bit, and each kernel's device time at 16384 × 20 (m = 40; on one operand
+   set, and on four in turn) beside its plain version's and one PyTorch
+   call's, and K2d's at 16384 × n = m = 3 in float64 (spring's shape);
 8. adaptive GSL-RKF45 ``evolve_ham`` at full width (``bench.py::
    phase_adaptive``): 16384 × chain-20, one shared controller over t ∈ [0, 1],
    float64 at GSL's eps and float32 at eps 1e-6 — exactly six K2a launches
@@ -56,7 +57,8 @@ raises as soon as one fails:
 11. the J route at full width: a 20-link chain given by its coordinate map
     and potential alone (no analytic Jacobian or mass matrix), 200 library
     leapfrog steps on 16384 members in float32 (K2e, K2c; K2d in its float64
-    drift samples), and ``evolve_ham`` of 16384 springs in float64 over 10
+    drift samples), then 50 steps under ``torch.profiler`` for the card's
+    busy share, and ``evolve_ham`` of 16384 springs in float64 over 10
     output intervals (K2d); each against the CPU on a 1000-member slice;
 12. the roofline path (``bench.py::phase_roofline``): the probe kernels
     K3a-K3c against their plain versions on small random inputs at every
@@ -217,12 +219,14 @@ K2_BATCHES = (1000, 4097, BATCH)
 # operand sets the K2 kernels are also timed on in turn, 26 MB or more each
 # at 16384 x 20: their time when the 50 MB L2 does not hold the operands
 K2_ROTATE = 4
-# The dtype each K2 entry runs in on its main path at n = 20 (the adaptive
-# float64 run and the drift samplers for K2a and K2d, the float32 library
-# leapfrogs for K2b, K2c and K2e): the kernels line reports that time.
-K2_MAIN_DTYPE = {"spd_solve_batched": "float64", "cholesky_batched": "float32",
-                 "cho_solve_batched": "float32", "spd_solve_jac": "float64",
-                 "cholesky_jac": "float32"}
+# The kernels line's K2 rows, (entry, n, m, dtype), each at a shape and
+# dtype its main path runs: n = 20, the adaptive float64 run and the
+# headline's drift sampler (K2a), the float32 library leapfrog (K2b, K2c),
+# the J-route leapfrog (K2e, m = 40) and its float64 drift sampler (K2d);
+# n = m = 3, spring's float64 evolve_ham (K2d).
+K2_ROWS = (("spd_solve_batched", 20, 0, "float64"), ("cholesky_batched", 20, 0, "float32"),
+           ("cho_solve_batched", 20, 0, "float32"), ("spd_solve_jac", 20, 40, "float64"),
+           ("spd_solve_jac", 3, 3, "float64"), ("cholesky_jac", 20, 40, "float32"))
 # Adaptive float64 at GSL's eps: the JAX package's CPU run of the same
 # configuration at 64 members read max|ΔH/H₀| = 8.22e-9 (75 attempts);
 # the bound allows 12x that for the max over 16384 members.
@@ -324,16 +328,17 @@ def card_line() -> str:
 _KERNEL_RE = re.compile(
     r"fused_step_kernelI(?P<t>[fd])Li(?P<n>\d+)ELb(?P<semi>[01])E"
     r"Lb(?P<comp>[01])ELb(?P<pm>[01])ELb(?P<composed>[01])E")
-# factor_solve_kernel<T, from_j>, factor_kernel<T, from_j> (one thread a
-# member) or factor_lanes_kernel<T, lanes, nmax>, substitute_lanes_kernel<T,
-# lanes, nmax> (nmax: the one-thread form's largest n, 0 on lanes)
-_K2_RE = re.compile(r"(factor_solve_kernel|factor_lanes_kernel|factor_kernel"
-                    r"|substitute_lanes_kernel)I([fd])(?:Lb([01])E|Li(\d+)ELi(\d+)E)?")
-_K2_NAMES = {("factor_solve_kernel", "0"): "spd_solve (K2a)",
+# solve_tile_kernel<T, lanes, nmax> (K2a), factor_lanes_kernel<T, lanes, nmax>
+# (K2b), substitute_lanes_kernel<T, lanes, nmax> (K2c) (nmax: the one-thread
+# form's largest n, 0 on lanes) and jac_tile_kernel<T, lanes, factor lanes,
+# nmax, solve> (K2d, K2e)
+_K2_RE = re.compile(r"(solve_tile_kernel|factor_lanes_kernel|substitute_lanes_kernel"
+                    r"|jac_tile_kernel)I([fd])Li(\d+)E(?:Li(\d+)E)?Li(\d+)E(?:Lb([01])E)?")
+_K2_NAMES = {("solve_tile_kernel", None): "spd_solve (K2a)",
              ("factor_lanes_kernel", None): "cholesky (K2b)",
              ("substitute_lanes_kernel", None): "cho_solve (K2c)",
-             ("factor_solve_kernel", "1"): "spd_solve_jac (K2d)",
-             ("factor_kernel", "1"): "cholesky_jac (K2e)"}
+             ("jac_tile_kernel", "1"): "spd_solve_jac (K2d)",
+             ("jac_tile_kernel", "0"): "cholesky_jac (K2e)"}
 
 
 _FAMILY_RE = re.compile(r"family_step_kernelI([fd])Li(\d+)ELb([01])ELb([01])ELb([01])E")
@@ -388,10 +393,13 @@ def _k3_label(m):
 
 
 def _k2_label(m):
-    kind, t, from_j, lanes, nmax = m.groups()
-    return (f"{'float' if t == 'f' else 'double'} {_K2_NAMES[(kind, from_j)]}"
-            + ("" if lanes is None else f", one thread, n <= {nmax}" if lanes == "1"
-               else f", {lanes} lanes"))
+    kind, t, lanes, factor_lanes, nmax, solve = m.groups()
+    name = f"{'float' if t == 'f' else 'double'} {_K2_NAMES[(kind, solve)]}"
+    if factor_lanes is not None:  # K2d, K2e: K formed on the lanes
+        return (f"{name}, K on {lanes} lanes, factor on "
+                + (f"one thread, n <= {nmax}" if factor_lanes == "1" else f"{lanes} lanes")
+                + f" (n <= {nmax})" * (factor_lanes != "1"))
+    return f"{name}, " + (f"one thread, n <= {nmax}" if lanes == "1" else f"{lanes} lanes")
 
 
 def ptxas_report(log_text: str, pattern=_KERNEL_RE, label=_k1_label):
@@ -543,6 +551,25 @@ def counted(fn):
     return out, kernels.launch_counts()
 
 
+def busy_time(fn):
+    """``(device seconds, wall seconds)`` of ``fn()`` under torch.profiler:
+    the CUDA kernels' own device time, summed, and the wall time up to a
+    synchronize."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    return busy_us / 1e6, wall
+
+
 def expect_counts(label, counts, **want):
     """Raise unless exactly the ``want`` kernels launched, that often."""
     full = {name: 0 for name in counts}
@@ -586,17 +613,24 @@ def generic_chain(n, device, dtype):
                           dtype=dtype, n=n, name=f"chain{n} from its coordinate map")
 
 
-def k2_inputs(batch, n, dtype, device, seed):
-    """Random SPD K (B, n, n), √M·J (B, 2n, n) and b (B, n) from a seed."""
+def k2_inputs(batch, n, dtype, device, seed, m=None):
+    """Random SPD K (B, n, n), √M·J (B, m, n) (m = 2n unless given) and b
+    (B, n) from a seed.  J is the identity on its first n rows plus noise,
+    0.3·N(0, 1); at m < 2n the noise is scaled by 1/√n, so that every
+    member's K stays well conditioned in float32 (a square J = I + 0.3·G at
+    n = 20 is nearly singular in some members of 16384)."""
     import torch
     from hamilton_tpu_torch.ops.batched_spd import jac_scaled
 
+    m = 2 * n if m is None else m
     g = torch.Generator().manual_seed(seed)
     a = torch.randn(batch, n, n, generator=g, dtype=torch.float64)
     k = a @ a.mT + n * torch.eye(n, dtype=torch.float64)
-    j = 0.3 * torch.randn(batch, 2 * n, n, generator=g, dtype=torch.float64)
+    j = 0.3 * torch.randn(batch, m, n, generator=g, dtype=torch.float64)
+    if m < 2 * n:
+        j /= n ** 0.5
     j[:, :n] += torch.eye(n, dtype=torch.float64)
-    inertia = 1.0 + torch.rand(2 * n, generator=g, dtype=torch.float64)
+    inertia = 1.0 + torch.rand(m, generator=g, dtype=torch.float64)
     b = torch.randn(batch, n, generator=g, dtype=torch.float64)
     k, j, inertia, b = (t.to(device=device, dtype=dtype) for t in (k, j, inertia, b))
     return k, jac_scaled(j, inertia), b
@@ -1564,6 +1598,13 @@ def main() -> int:
     import numpy as np
     import torch
 
+    t_main = time.perf_counter()
+
+    def stamp(phase):
+        """The seconds into the run at which a phase starts: where the time
+        limit goes."""
+        log(f"phase {phase} starts {time.perf_counter() - t_main:.1f} s into the run")
+
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     if not (REPO / "hamilton_tpu_torch" / "__init__.py").is_file():
@@ -1646,6 +1687,7 @@ def main() -> int:
                      if (n, swept, comp, batch) != (20, False, (1.0,), 1000)]
 
     # ---- phase 1: kernel against plain version ---------------------------
+    stamp(1)
     phase1_failures = []
 
     def phase1(label, forms, state, dt, kw, dname, batch, spc, tol=None):
@@ -1707,6 +1749,7 @@ def main() -> int:
                              + "; ".join(phase1_failures))
 
     # ---- phase 2: kernel against physics --------------------------------
+    stamp(2)
     ex5 = chain(n_links=5, fused_solver="semiseparable", device=dev, dtype=torch.float64)
     ph5 = jittered_phase(ex5, 1000, torch.float64, dev, 2)
     ph5 = type(ph5)(ph5.q, ph5.p + 0.01)
@@ -1724,6 +1767,7 @@ def main() -> int:
         f"{err_phys:.2e}")
 
     # ---- phase 3: the headline ---------------------------------------------
+    stamp(3)
     spc, chunk, n_steps = 50, 10_000, HEADLINE_STEPS
     ex20 = chain20(torch.float32)
     ph = jittered_phase(ex20, BATCH, torch.float32, dev, 0)
@@ -1746,7 +1790,7 @@ def main() -> int:
     final, drift = headline(True, on_chunk)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    head_launches = counts["fused_step"]
+    head_launches, head_k2a = counts["fused_step"], counts["spd_solve"]
     if head_launches != n_steps // spc:
         raise AssertionError(f"headline made {head_launches} kernel launches, "
                              f"expected {n_steps // spc}")
@@ -1770,6 +1814,7 @@ def main() -> int:
         raise AssertionError(f"headline drift {max_drift:.3e} >= {DRIFT_BOUND}")
 
     # ---- phase 4: the double pendulum --------------------------------------
+    stamp(4)
     exdp = dpend(torch.float32)
     phdp = jittered_phase(exdp, BATCH, torch.float32, dev, 1)
 
@@ -1799,6 +1844,7 @@ def main() -> int:
         f"({dp_launches} launches, {dp_el / dp_launches * 1e6:.2f} us of wall each)")
 
     # ---- phase 5: plain version's time beside the kernel's -----------------
+    stamp(5)
     entries = []
     shapes = [
         ("fused_step semiseparable n=20 float32 kahan (2,0)", ex20, ph, (2, 0), True,
@@ -1853,6 +1899,7 @@ def main() -> int:
         f"{h_ms:.3f} ms; {n_steps // 1000} samples in the headline")
 
     # ---- phase 6: control without compensation ------------------------------
+    stamp(6)
     ctl_final, ctl_drift = headline(False)
     ctl_max = float(ctl_drift.max())
     if not (bool(torch.isfinite(ctl_final.q).all()) and math.isfinite(ctl_max)):
@@ -1866,28 +1913,36 @@ def main() -> int:
         )
 
     # ---- phase 7: the K2 kernels against their plain versions ---------------
+    stamp(7)
     from hamilton_tpu_torch.ops.batched_spd import ENTRIES
 
-    k2_rows = {e.name: {"max_abs_err": 0.0} for e in ENTRIES}
+    k2_rows = {(name, n): {"m": m, "dtype": dname} for name, n, m, dname in K2_ROWS}
+    errs = {e.name: 0.0 for e in ENTRIES}
     for batch in K2_BATCHES:
         for n in K2_SIZES:
             for dtype in (torch.float32, torch.float64):
                 dname = str(dtype).split(".")[-1]
                 k, js, b = k2_inputs(batch, n, dtype, dev, 1000 * n + batch)
+                js_n = k2_inputs(batch, n, dtype, dev, 1000 * n + batch, m=n)[1]
                 row = []
-                for e in ENTRIES:
-                    args = k2_args(e, k, js, b)
+                # the J entries at m = 2n and at m = n (spring's shape)
+                for e, m in [(e, m) for e in ENTRIES
+                             for m in ((2 * n, n) if e.from_jac else (0,))]:
+                    args = k2_args(e, k, js_n if m == n else js, b)
                     got, want = e.kernel(*args), e.plain(*args)
                     torch.cuda.synchronize()
                     if not all_finite(got, want):
-                        raise AssertionError(f"{e.name} B={batch} n={n} {dname}: not finite")
+                        raise AssertionError(f"{e.name} B={batch} n={n} m={m} {dname}: "
+                                             f"not finite")
                     err = float((got - want).abs().max())
-                    k2_rows[e.name]["max_abs_err"] = max(k2_rows[e.name]["max_abs_err"], err)
-                    row.append(f"{e.name} {err:.1e}")
+                    errs[e.name] = max(errs[e.name], err)
+                    row.append(f"{e.name}{f' m={m}' if m else ''} {err:.1e}")
                     if not err <= K2_TOL:
-                        raise AssertionError(f"{e.name} B={batch} n={n} {dname}: kernel "
+                        raise AssertionError(f"{e.name} B={batch} n={n} m={m} {dname}: kernel "
                                              f"differs from its plain version by {err:.3e}")
                 log(f"phase 7 ok: B={batch} n={n} {dname}: " + ", ".join(row))
+    for (name, _), r in k2_rows.items():
+        r["max_abs_err"] = errs[name]
     # one PyTorch call computing each entry's function on its operands, the
     # yardstick beside the kernel (the port never calls these), timed as the
     # kernels are where it can be queued (the _ex forms: linalg.cholesky and
@@ -1898,43 +1953,54 @@ def main() -> int:
         "cholesky_batched": lambda k: torch.linalg.cholesky_ex(k, check_errors=False)[0],
         "cho_solve_batched": lambda low, b: torch.cholesky_solve(b[..., None], low),
     }
-    for dtype in (torch.float32, torch.float64):
-        dname = str(dtype).split(".")[-1]
-        sets = [k2_inputs(BATCH, 20, dtype, dev, 7 + s) for s in range(K2_ROTATE)]
-        for e in ENTRIES:
-            rotating = [k2_args(e, *inputs) for inputs in sets]
-            args = rotating[0]
-            e.kernel(*args)
-            e.plain(*args)  # warm-up
-            # in turns on one card: plain, kernel, kernel, plain
-            p1, _ = time_call(lambda: e.plain(*args), 2)
-            k1, _ = time_queued(lambda: e.kernel(*args), 100)
-            k2, _ = time_queued(lambda: e.kernel(*args), 100)
-            p2, _ = time_call(lambda: e.plain(*args), 2)
-            turn = iter(range(10**9))
-            rot, _ = time_queued(lambda: e.kernel(*rotating[next(turn) % K2_ROTATE]), 100)
-            lib_ms = None
-            if e.name in k2_library:
-                lib = k2_library[e.name]
-                lib(*args)  # warm-up
-                # queued as the kernels are, unless the call reads back to the
-                # host itself: then CUDA events around calls back to back
-                synced = reads_back(lambda: lib(*args))
-                timer = time_call if synced else time_queued
-                l1, _ = timer(lambda: lib(*args), 20)
-                l2, _ = timer(lambda: lib(*args), 20)
-                lib_ms = (l1 + l2) / 2
-            log(f"phase 7: {e.name} 16384 x n=20 {dname}: kernel {(k1 + k2) / 2:.4f} ms "
-                f"({k1:.4f}, {k2:.4f}; on {K2_ROTATE} operand sets in turn {rot:.4f}), plain "
-                f"{(p1 + p2) / 2:.3f} ms ({p1:.3f}, {p2:.3f})"
-                + ("" if lib_ms is None else f", one PyTorch call {lib_ms:.4f} ms "
-                   f"({l1:.4f}, {l2:.4f}; "
-                   f"{'it reads back to the host' if synced else 'queued'})"))
-            if K2_MAIN_DTYPE[e.name] == dname:
-                k2_rows[e.name].update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, dtype=dname,
-                                       library_ms=lib_ms)
+    by_name = {e.name: e for e in ENTRIES}
+    # every entry at 16384 x 20 (the J entries at m = 40) in both dtypes,
+    # then the kernels line's rows at other shapes
+    timed = [(e.name, 20, 40 if e.from_jac else 0, dname)
+             for dname in ("float32", "float64") for e in ENTRIES]
+    timed += [row for row in K2_ROWS if row not in timed]
+    inputs = {}
+    for name, n, m, dname in timed:
+        e, dtype = by_name[name], getattr(torch, dname)
+        if (n, m or 2 * n, dname) not in inputs:
+            inputs[(n, m or 2 * n, dname)] = [k2_inputs(BATCH, n, dtype, dev, 7 + s, m=m or None)
+                                              for s in range(K2_ROTATE)]
+        rotating = [k2_args(e, *x) for x in inputs[(n, m or 2 * n, dname)]]
+        args = rotating[0]
+        e.kernel(*args)
+        e.plain(*args)  # warm-up
+        # in turns on one card: plain, kernel, kernel, plain
+        p1, _ = time_call(lambda: e.plain(*args), 2)
+        k1, _ = time_queued(lambda: e.kernel(*args), 100)
+        k2, _ = time_queued(lambda: e.kernel(*args), 100)
+        p2, _ = time_call(lambda: e.plain(*args), 2)
+        turn = iter(range(10**9))
+        rot, _ = time_queued(lambda: e.kernel(*rotating[next(turn) % K2_ROTATE]), 100)
+        lib_ms = None
+        if e.name in k2_library:
+            lib = k2_library[e.name]
+            lib(*args)  # warm-up
+            # queued as the kernels are, unless the call reads back to the
+            # host itself: then CUDA events around calls back to back
+            synced = reads_back(lambda: lib(*args))
+            timer = time_call if synced else time_queued
+            l1, _ = timer(lambda: lib(*args), 20)
+            l2, _ = timer(lambda: lib(*args), 20)
+            lib_ms = (l1 + l2) / 2
+        log(f"phase 7: {e.name} 16384 x n={n}{f' m={m}' if m else ''} {dname}: kernel "
+            f"{(k1 + k2) / 2:.4f} ms "
+            f"({k1:.4f}, {k2:.4f}; on {K2_ROTATE} operand sets in turn {rot:.4f}), plain "
+            f"{(p1 + p2) / 2:.3f} ms ({p1:.3f}, {p2:.3f})"
+            + ("" if lib_ms is None else f", one PyTorch call {lib_ms:.4f} ms "
+               f"({l1:.4f}, {l2:.4f}; "
+               f"{'it reads back to the host' if synced else 'queued'})"))
+        r = k2_rows.get((e.name, n))
+        if r and (r["m"], r["dtype"]) == (m, dname):
+            r.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=lib_ms)
+    del inputs, rotating, args
 
     # ---- phase 8: adaptive GSL-RKF45 at full width --------------------------
+    stamp(8)
     from hamilton_tpu_torch import Config, Phase, evolve_ham, spring, to_phase
     from hamilton_tpu_torch.integrators import adaptive
 
@@ -1965,13 +2031,15 @@ def main() -> int:
         summary[f"adaptive_{dname}_traj_per_sec"] = BATCH / el
         summary[f"adaptive_{dname}_max_drift"] = drift_a
         if dtype == torch.float64:
-            k2_rows["spd_solve_batched"]["launches"] = counts["spd_solve"]
+            # and the headline's float64 drift sampler, at the same shape
+            k2_rows[("spd_solve_batched", 20)]["launches"] = counts["spd_solve"] + head_k2a
             if not drift_a < ADAPTIVE_DRIFT_BOUND:
                 raise AssertionError(f"adaptive float64 drift {drift_a:.3e} >= "
                                      f"{ADAPTIVE_DRIFT_BOUND}")
             ex64, ph64a = exa, pha
 
     # ---- phase 9: the adaptive path on the card against the CPU -------------
+    stamp(9)
     ex_cpu = chain(n_links=20, device="cpu", dtype=torch.float64)
     ph8 = Phase(ph64a.q[:8], ph64a.p[:8])
     for mode in ("shared", "per_member"):
@@ -1991,6 +2059,7 @@ def main() -> int:
                                  f"(limit {CPU_TOL_F64}) or in their steps")
 
     # ---- phase 10: the library leapfrog at full width -----------------------
+    stamp(10)
     t0 = time.perf_counter()
     (lf_final, lf_drift), counts = counted(lambda: evolve_ensemble_final(
         ex20.system, ph, 5e-4, LEAPFROG_STEPS, method="leapfrog", iters=(2, 0),
@@ -2008,27 +2077,18 @@ def main() -> int:
     summary["library_leapfrog_max_drift"] = float(lf_drift.max())
     # the card's busy share over BUSY_STEPS more steps: the kernels' device
     # time (torch.profiler) over the wall time of the run
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        evolve_ensemble_final(ex20.system, ph, 5e-4, BUSY_STEPS, method="leapfrog",
-                              iters=(2, 0), compensated=True, track_drift=False,
-                              drift_every=BUSY_STEPS)
-        torch.cuda.synchronize()
-        busy_wall = time.perf_counter() - t0
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA)
+    busy_s, busy_wall = busy_time(lambda: evolve_ensemble_final(
+        ex20.system, ph, 5e-4, BUSY_STEPS, method="leapfrog", iters=(2, 0), compensated=True,
+        track_drift=False, drift_every=BUSY_STEPS))
     log(f"phase 10: library leapfrog, {BUSY_STEPS} steps under torch.profiler: the card busy "
-        f"{busy_us / 1e3:.3f} ms of {busy_wall * 1e3:.3f} ms wall, "
-        f"{100 * busy_us / 1e6 / busy_wall:.2f} %")
-    summary["library_leapfrog_device_busy_share"] = busy_us / 1e6 / busy_wall
-    k2_rows["cholesky_batched"]["launches"] = counts["cholesky"]
-    k2_rows["cho_solve_batched"]["launches"] = counts["cho_solve"]
+        f"{busy_s * 1e3:.3f} ms of {busy_wall * 1e3:.3f} ms wall, "
+        f"{100 * busy_s / busy_wall:.2f} %")
+    summary["library_leapfrog_device_busy_share"] = busy_s / busy_wall
+    k2_rows[("cholesky_batched", 20)]["launches"] = counts["cholesky"]
+    k2_rows[("cho_solve_batched", 20)]["launches"] = counts["cho_solve"]
 
     # ---- phase 11: the J route at full width --------------------------------
+    stamp(11)
     sys_j = generic_chain(20, dev, torch.float32)
     t0 = time.perf_counter()
     (j_final, j_drift), counts = counted(lambda: evolve_ensemble_final(
@@ -2044,7 +2104,15 @@ def main() -> int:
         f"(2,0) kahan dt=5e-4, {J_STEPS} steps in {el:.3f} s: {j_rate:.6e} "
         f"member-steps/s, max|dH/H0| {float(j_drift.max()):.6e}, launches {counts}")
     summary["j_route_leapfrog_member_steps_per_sec"] = j_rate
-    k2_rows["cholesky_jac"]["launches"] = counts["cholesky_jac"]
+    busy_s, busy_wall = busy_time(lambda: evolve_ensemble_final(
+        sys_j, ph, 5e-4, BUSY_STEPS, method="leapfrog", iters=(2, 0), compensated=True,
+        track_drift=False, drift_every=BUSY_STEPS))
+    log(f"phase 11: J-route leapfrog, {BUSY_STEPS} steps under torch.profiler: the card busy "
+        f"{busy_s * 1e3:.3f} ms of {busy_wall * 1e3:.3f} ms wall, "
+        f"{100 * busy_s / busy_wall:.2f} %")
+    summary["j_route_leapfrog_device_busy_share"] = busy_s / busy_wall
+    k2_rows[("cholesky_jac", 20)]["launches"] = counts["cholesky_jac"]
+    k2_rows[("spd_solve_jac", 20)]["launches"] = counts["spd_solve_jac"]
     sl = Phase(ph.q[:1000], ph.p[:1000])
     run = dict(method="leapfrog", iters=(2, 0), compensated=True, track_drift=False,
                drift_every=20)
@@ -2076,7 +2144,7 @@ def main() -> int:
         f"{BATCH / el:.6e} trajectories/s, {attempts} attempts ({stats['total_failed']} "
         f"rejected), {counts['spd_solve_jac']} K2d launches, max|dH/H0| at t=1 "
         f"{rel_drift(sp.system, Phase(sp_out.q[0], sp_out.p[0]), Phase(sp_out.q[-1], sp_out.p[-1])):.6e}")
-    k2_rows["spd_solve_jac"]["launches"] = counts["spd_solve_jac"]
+    k2_rows[("spd_solve_jac", 3)]["launches"] = counts["spd_solve_jac"]
     sp_card = evolve_ham(sp.system, Phase(ph_sp.q[:1000], ph_sp.p[:1000]), ts)
     sp_cpu = evolve_ham(spring(device="cpu", dtype=torch.float64).system,
                         Phase(ph_sp.q[:1000].cpu(), ph_sp.p[:1000].cpu()), ts)
@@ -2086,15 +2154,15 @@ def main() -> int:
     if not err <= CPU_TOL_F64:
         raise AssertionError(f"spring evolve_ham: card and CPU differ by {err:.3e}")
 
-    for e in ENTRIES:
-        r = k2_rows[e.name]
+    for (name, n), r in k2_rows.items():
+        e, m = by_name[name], r["m"]
         if not r.get("launches"):
-            raise AssertionError(f"{e.name}: its main path launched it no time")
+            raise AssertionError(f"{name} n={n}: its main path launched it no time")
         dtype = getattr(torch, r["dtype"])
-        ops, nbytes = k2_work(e, BATCH, 20, 40, dtype)
+        ops, nbytes = k2_work(e, BATCH, n, m, dtype)
         bound_ms, bound_by = rl.bound(ops, nbytes, dtype)
         entries.append({
-            "name": f"{e.name} n=20{' m=40' if e.from_jac else ''} {r['dtype']}",
+            "name": f"{name} n={n}{f' m={m}' if m else ''} {r['dtype']}",
             "route": "cuda", "source": K2_SOURCE,
             "replaces": e.replaces, "launches": r["launches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -2102,6 +2170,7 @@ def main() -> int:
         })
 
     # ---- phase 12: the roofline path -----------------------------------------
+    stamp(12)
     # every layout the sweep below can pick, against the plain version on
     # small random inputs (so a misplaced element shows)
     g = torch.Generator().manual_seed(12)
@@ -2263,6 +2332,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 13: the sweep ------------------------------------------------------
+    stamp(13)
     rng = np.random.default_rng(7)
     sweep_np = {"masses": 1.0 + 0.05 * rng.standard_normal((BATCH, 20))}
     sweep_np["lengths"] = np.tile(ex20.system.params["lengths"].cpu().numpy(), (BATCH, 1))
@@ -2343,6 +2413,7 @@ def main() -> int:
     del state_sw, table_sw, k_out, p_out
 
     # ---- phase 14: order 4 ---------------------------------------------------
+    stamp(14)
     forms20 = ex20.system.fused_forms(ex20.system)
     st_o4 = fused_stepper(forms20, iters=(2, 0), compensated=True, steps_per_call=spc,
                           composition=SUZUKI4_COMPOSITION)
@@ -2403,16 +2474,21 @@ def main() -> int:
     del state_o4, k_out, p_out
 
     # ---- phase 15: the model families ------------------------------------------
+    stamp(15)
     phase_families(dev, entries, summary)
 
     # ---- phase 16: the chain's Möbius and L⁻¹ forms -------------------------------
+    stamp(16)
     phase_chain_solvers(dev, ph, head_rate, ptxas["chain_variants"], entries, summary)
 
     # ---- phase 17: gradients at full width ---------------------------------------
+    stamp(17)
     phase_gradients(dev, ph, entries, summary)
 
     # ---- phase 18: a user's own family on the generated kernel ---------------------
+    stamp(18)
     phase_user_family(dev, user_builds, entries, summary)
+    log(f"phases done {time.perf_counter() - t_main:.1f} s into the run")
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

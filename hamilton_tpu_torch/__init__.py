@@ -83,6 +83,10 @@ from hamilton_tpu_torch.ops.fused_step import (
 from hamilton_tpu_torch.state import Config, Phase
 from hamilton_tpu_torch.system import System, mk_system, mk_system_cart, underlying_pos
 
+#: The reference's version (``hamilton_tpu.__version__``), which the port
+#: matches name for name.
+__version__ = "0.3.0"
+
 __all__ = [
     "Config",
     "Phase",
@@ -145,4 +149,5 @@ __all__ = [
     "evolve_ensemble_chunked",
     "params_from_numpy",
     "phase_from_numpy",
+    "__version__",
 ]

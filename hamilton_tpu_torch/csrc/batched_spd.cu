@@ -4,11 +4,11 @@
 // two bodies (_chol_entries :75, _solve_entries :100) combined three ways, with
 // an optional accessor that forms K = (sqrt(M) J)^T (sqrt(M) J) on demand
 // (_k_at_from_jac :304).  Here:
-//   factor_lanes_kernel<T, G, NMAX>      K2b _chol_kernel (:124)       K -> L
-//   substitute_lanes_kernel<T, G, NMAX>  K2c _chosolve_kernel (:131)   L, b -> x
-//   factor_kernel<T, true>               K2e _jac_chol_kernel (:323)   sqrt(M) J -> L
-//   factor_solve_kernel<T, false>        K2a _solve_kernel (:117)      K, b -> x
-//   factor_solve_kernel<T, true>         K2d _jac_solve_kernel (:316)  sqrt(M) J, b -> x
+//   solve_tile_kernel<T, G, NMAX>              K2a _solve_kernel (:117)      K, b -> x
+//   factor_lanes_kernel<T, G, NMAX>            K2b _chol_kernel (:124)       K -> L
+//   substitute_lanes_kernel<T, G, NMAX>        K2c _chosolve_kernel (:131)   L, b -> x
+//   jac_tile_kernel<T, G, F, NMAX, true>       K2d _jac_solve_kernel (:316)  sqrt(M) J, b -> x
+//   jac_tile_kernel<T, G, F, NMAX, false>      K2e _jac_chol_kernel (:323)   sqrt(M) J -> L
 // each for float32 and float64, any 1 <= n <= 32 at run time, any batch.
 // Operands are member-major and contiguous: K and L (B, n, n), sqrt(M) J
 // (B, m, n), b and x (B, n).  L is written with zeros above the diagonal.
@@ -16,24 +16,28 @@
 // Arithmetic: the left-looking Cholesky of _chol_entries and the forward and
 // back substitutions of _solve_entries, in the same operation order as the
 // plain PyTorch versions beside the wrappers
-// (hamilton_tpu_torch/ops/batched_spd.py).  Every multiply, add and subtract
-// goes through the round-to-nearest intrinsics, which nvcc never contracts
-// into an FMA, and the square root and the reciprocal are correctly rounded
-// (the IEEE routines, or in K2b and K2c's float32 their straight-line
-// equals of libm_fast.cuh), so a member's result is the plain version's bit
-// for bit.  A matrix that is not SPD takes the square root of a negative
-// number and gives NaN in that member only, as in the reference.
+// (hamilton_tpu_torch/ops/batched_spd.py), and K's entries as sums over the
+// rows r of sqrt(M) J from r = 0 (_k_from_jac).  Every multiply, add and
+// subtract goes through the round-to-nearest intrinsics, which nvcc never
+// contracts into an FMA (no tensor cores either: they would round JᵀJ in
+// another order), and the square root and the reciprocal are correctly
+// rounded (in float the straight-line equals of libm_fast.cuh), so a
+// member's result is the plain version's bit for bit.  A matrix that is not
+// SPD takes the square root of a negative number (or divides by a zero
+// diagonal) and gives NaN in that member only, as in the reference.
 //
-// K2b and K2c (the library leapfrog's, one factor and five solves a step):
-// a block stages a tile of members, contiguous in memory, into shared memory
-// with cp.async, a warp's reads contiguous and the whole tile in flight at
-// once (each member at an odd stride, so that the lanes reading one entry of
-// 32 members fall in 32 banks), factors or solves each member, and writes L
-// or x back from shared memory with 16-byte stores.  A tile holds as many
-// members as the tables below give (kFactorShape, kSubstituteShape, by
-// dtype and n: the winners of scripts/k2_sweep.py), fewer where shared
-// memory or the batch asks, so that a small batch still spreads over every
-// SM.  A member runs on one thread or on G lanes of a warp:
+// One design for all five: a block takes a tile of members, contiguous in
+// memory, and stages their operands into shared memory with cp.async, a
+// warp's reads contiguous and every copy in flight at once (each member at
+// an odd stride, so that the lanes reading one entry of 32 members fall in
+// 32 banks); it factors or solves each member there and writes L or x back
+// from shared memory with 16-byte stores.  A tile holds as many members as
+// the tables below give (kSolveShape, kFactorShape, kSubstituteShape,
+// kJacSolveShape, kJacFactorShape, by dtype and n: the winners of
+// scripts/k2_sweep.py), fewer
+// where shared memory or the batch asks, so that a small batch still
+// spreads over every SM.  A member's factor and solve run on one thread or
+// on G lanes of a warp:
 //   - one thread (factor_regs, substitute_regs): the loops over the
 //     member's columns unrolled to the largest n of its class, so that its
 //     vector, or the row j of L that column j reads, lives in registers and
@@ -47,24 +51,27 @@
 //     the term found last comes first, the lanes form the products
 //     L[c][i] x_c of their rows i < c as each x_c arrives and row i's owner
 //     subtracts them in order.
-// At 16384 x 20 one thread a member wins (PERF.md): the member's chain of
-// dependent operations sets the time, not the bytes, and lanes lengthen it
-// by a shuffle a column.
-//
-// K2a, K2d and K2e: each thread stages its member's K (copied, or formed
-// from sqrt(M) J) in shared memory and factors it there in place, the factor
-// entry-major and thread-minor (entry e of thread t at e * blockDim.x + t),
-// so a warp's 32 accesses to one entry fall in distinct banks.  Their loads
-// of K, sqrt(M) J and L do not coalesce (neighbouring threads are n^2 or m*n
-// values apart): they are served through L1 and L2.
+// K2a factors and solves in one launch: L never leaves shared memory, and
+// the factor leaves 1/d on the diagonal for the solve (a division a column
+// where K2c, which reads L, takes two).
+// K2d and K2e stream sqrt(M) J through two buffers of a few rows a member
+// (chunk c + 1 in flight while chunk c's products run) and form K's lower
+// triangle on G lanes a member: lane g holds the sums of the entries (i, j)
+// with j = g mod G in registers (JacSums), reads row i's value once for the
+// member's lanes (a broadcast) and holds its own columns' values for the
+// row.  K is then written once into the member's slot where the buffers
+// were, factored there on one thread or on the same G lanes, and solved
+// (K2d) or written out (K2e).
 //
 // What bounds them on this card: by count, bytes (16384 x 20: K2b reads and
-// writes 26 MB each way, K2c reads 26 MB; under one operation a byte
-// against the card's 20, 67 TFLOP/s over 3.35 TB/s); as measured, the
-// latency of each member's chain of ~n^2/2 dependent operations through
-// shared memory, with one or a few warps a scheduler to hide it: K2b and
-// K2c take the same time on operands that the L2 holds and on operands it
-// does not.
+// writes 26 MB each way, K2d in float64 reads 105 MB of sqrt(M) J; under
+// one operation a byte against the card's 20, 67 TFLOP/s over 3.35 TB/s);
+// as measured, the latency of each member's chain of ~n^2/2 dependent
+// operations through shared memory, with a few warps a scheduler to hide
+// it: every K2 kernel takes the same time on operands that the L2 holds and
+// on four sets that it does not, and K2a in float64 takes about K2b's and
+// K2c's times together (0.104 ms against 0.070 + 0.044 on an H100 80GB
+// HBM3 at 700 W, PERF.md).
 //
 // Build (no fast-math, so sqrt and division stay IEEE):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -79,10 +86,8 @@
 namespace {
 
 constexpr int kMaxN = 32;
-// shared memory an SM offers blocks (228 KB), and the per-block reservation
-constexpr long long kSmemPerSm = 233472;
+// shared memory a block can take
 constexpr long long kSmemPerBlockMax = 232448;
-constexpr long long kSmemReserved = 1024;
 constexpr long long kDefaultSmem = 48 * 1024;
 
 // One IEEE operation each, rounded to nearest, never fused.
@@ -94,8 +99,6 @@ struct Ieee<float> {
   static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
   static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
   static __device__ __forceinline__ float sub(float a, float b) { return __fadd_rn(a, -b); }
-  static __device__ __forceinline__ float sqrt(float a) { return __fsqrt_rn(a); }
-  static __device__ __forceinline__ float rcp(float a) { return __fdiv_rn(1.0f, a); }
 };
 
 template <>
@@ -103,141 +106,36 @@ struct Ieee<double> {
   static __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
   static __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
   static __device__ __forceinline__ double sub(double a, double b) { return __dadd_rn(a, -b); }
-  static __device__ __forceinline__ double sqrt(double a) { return __dsqrt_rn(a); }
-  static __device__ __forceinline__ double rcp(double a) { return __ddiv_rn(1.0, a); }
 };
-
-// A thread's slice of the dynamic shared memory: entry e at base[e * stride].
-template <typename T>
-struct Scratch {
-  T* base;
-  int stride;
-  __device__ __forceinline__ T& operator[](int e) const { return base[e * stride]; }
-};
-
-template <typename T>
-__device__ __forceinline__ Scratch<T> scratch(int offset) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  return Scratch<T>{smem + offset * blockDim.x + threadIdx.x, static_cast<int>(blockDim.x)};
-}
-
-// packed lower triangle, row-major: (i, j) with j <= i
-__device__ __forceinline__ int tri(int i, int j) { return i * (i + 1) / 2 + j; }
-
-// Stage K of one member in the packed triangle `lo`: copied from K (n, n), or
-// formed from sqrt(M) J (m, n) as sum_r J[r][i] * J[r][j], accumulated from
-// r = 0 (_k_at_from_jac's order).  J is read once, row by row (a member's
-// row is contiguous), through the n-entry scratch `row`; reading it entry by
-// entry instead, as the TPU kernel's accessor does, costs m*n*(n+1) scattered
-// loads a member and made the J kernels 20-30x slower than the K ones.
-template <typename T, bool FROM_J>
-__device__ void stage_k(const T* __restrict__ src, int n, int m, Scratch<T> lo,
-                        Scratch<T> row) {
-  using O = Ieee<T>;
-  if constexpr (FROM_J) {
-    for (int r = 0; r < m; ++r) {
-      for (int i = 0; i < n; ++i) row[i] = src[r * n + i];
-      for (int i = 0; i < n; ++i) {
-        const T ri = row[i];
-        for (int j = 0; j <= i; ++j) {
-          const T p = O::mul(ri, row[j]);
-          lo[tri(i, j)] = r == 0 ? p : O::add(lo[tri(i, j)], p);
-        }
-      }
-    }
-  } else {
-    for (int i = 0; i < n; ++i)
-      for (int j = 0; j <= i; ++j) lo[tri(i, j)] = src[i * n + j];
-  }
-}
-
-// _chol_entries on the staged K, in place: column by column, each entry's
-// sum taken from k = 0 (entry (i, j) of K is read once, just before L[i][j]
-// replaces it).  The diagonal slot gets d, or 1/d when the factor only feeds
-// the substitutions.
-template <typename T, bool STORE_INV>
-__device__ void factor(int n, Scratch<T> lo) {
-  using O = Ieee<T>;
-  for (int j = 0; j < n; ++j) {
-    T s = lo[tri(j, j)];
-    for (int k = 0; k < j; ++k) {
-      const T ljk = lo[tri(j, k)];
-      s = O::sub(s, O::mul(ljk, ljk));
-    }
-    const T d = O::sqrt(s);
-    const T inv_d = O::rcp(d);
-    lo[tri(j, j)] = STORE_INV ? inv_d : d;
-    for (int i = j + 1; i < n; ++i) {
-      T e = lo[tri(i, j)];
-      for (int k = 0; k < j; ++k) e = O::sub(e, O::mul(lo[tri(i, k)], lo[tri(j, k)]));
-      lo[tri(i, j)] = O::mul(e, inv_d);
-    }
-  }
-}
-
-// _solve_entries: L y = b from the top, then L^T x = y from the bottom, each
-// sum taken in increasing k.  v holds b on entry and x on exit; l_at(i, j)
-// reads L below the diagonal and inv_at(i) its reciprocal diagonal.
-template <typename T, typename LAt, typename InvAt>
-__device__ void substitute(const LAt& l_at, const InvAt& inv_at, int n, Scratch<T> v) {
-  using O = Ieee<T>;
-  for (int i = 0; i < n; ++i) {
-    T s = v[i];
-    for (int k = 0; k < i; ++k) s = O::sub(s, O::mul(l_at(i, k), v[k]));
-    v[i] = O::mul(s, inv_at(i));
-  }
-  for (int i = n - 1; i >= 0; --i) {
-    T s = v[i];
-    for (int k = i + 1; k < n; ++k) s = O::sub(s, O::mul(l_at(k, i), v[k]));
-    v[i] = O::mul(s, inv_at(i));
-  }
-}
-
-// K2e, one thread a member (launched FROM_J only: K2b is factor_lanes_kernel).
-template <typename T, bool FROM_J>
-__global__ void factor_kernel(const T* __restrict__ src, T* __restrict__ low,
-                              long long batch, int n, int m) {
-  const long long b = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
-  const long long per = FROM_J ? static_cast<long long>(m) * n : static_cast<long long>(n) * n;
-  const Scratch<T> lo = scratch<T>(0);
-  stage_k<T, FROM_J>(src + b * per, n, m, lo, scratch<T>(n * (n + 1) / 2));
-  factor<T, false>(n, lo);
-  T* out = low + b * n * n;
-  for (int i = 0; i < n; ++i)
-    for (int j = 0; j < n; ++j) out[i * n + j] = j <= i ? lo[tri(i, j)] : T(0);
-}
-
-template <typename T, bool FROM_J>
-__global__ void factor_solve_kernel(const T* __restrict__ src, const T* __restrict__ rhs,
-                                    T* __restrict__ x, long long batch, int n, int m) {
-  const long long b = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
-  const long long per = FROM_J ? static_cast<long long>(m) * n : static_cast<long long>(n) * n;
-  const Scratch<T> lo = scratch<T>(0);
-  const Scratch<T> v = scratch<T>(n * (n + 1) / 2);  // J's rows first, then b and x
-  stage_k<T, FROM_J>(src + b * per, n, m, lo, v);
-  factor<T, true>(n, lo);
-  for (int i = 0; i < n; ++i) v[i] = rhs[b * n + i];
-  substitute<T>([&](int i, int j) { return lo[tri(i, j)]; },
-                [&](int i) { return lo[tri(i, i)]; }, n, v);
-  for (int i = 0; i < n; ++i) x[b * n + i] = v[i];
-}
 
 // ---------------------------------------------------------------------------
-// K2b and K2c: a tile of members a block, one thread or G lanes a member.
+// Tiles of members a block, one thread or G lanes a member.
 
 // Lanes a member and threads a block (at most: a small batch takes fewer
-// members a block) of K2b and K2c, by dtype (float, double) and n (n <= 8,
-// n <= 24, n <= 32): the winners of scripts/k2_sweep.py at n = 3, 20 and 32
-// on an H100 at B = 16384 (PERF.md).
+// members a block) of K2a, K2b and K2c, by dtype (float, double) and n
+// (n <= 8, n <= 24, n <= 32): the winners of scripts/k2_sweep.py at n = 3, 20
+// and 32 on an H100 at B = 16384 (PERF.md).
 struct Shape {
   int lanes, threads;
 };
+constexpr Shape kSolveShape[2][3] = {{{1, 64}, {1, 32}, {4, 32}}, {{1, 64}, {8, 32}, {8, 256}}};
 constexpr Shape kFactorShape[2][3] = {{{1, 64}, {1, 32}, {4, 32}}, {{1, 64}, {1, 32}, {4, 128}}};
 constexpr Shape kSubstituteShape[2][3] = {{{1, 64}, {1, 32}, {1, 64}},
                                           {{1, 64}, {1, 32}, {32, 32}}};
+// K2d's (kJacSolveShape) and K2e's (kJacFactorShape): lanes a member that
+// form K, lanes that factor (and solve) it (1: one thread, or the same
+// lanes), threads a block; the sweep's winners at n = 3, 20 and 32 with
+// m = n and 2n.  A class's lanes keep a lane's sums within kMaxJacSums.
+struct JacShape {
+  int lanes, factor_lanes, threads;
+};
+constexpr JacShape kJacSolveShape[2][3] = {{{1, 1, 64}, {4, 4, 32}, {8, 8, 32}},
+                                           {{1, 1, 64}, {4, 4, 32}, {8, 8, 256}}};
+constexpr JacShape kJacFactorShape[2][3] = {{{1, 1, 64}, {4, 1, 256}, {8, 8, 32}},
+                                            {{1, 1, 64}, {8, 1, 128}, {8, 8, 256}}};
+constexpr int kMaxJacSums = 96;
+// values of sqrt(M) J a member's chunk of rows holds (at least one row)
+constexpr int kChunkValues = 128;
 constexpr int kMaxTileThreads = 256;
 // rows a thread or lane carries through one pass over a column of the factor
 constexpr int kRows = 4;
@@ -246,7 +144,7 @@ constexpr int kRows = 4;
 constexpr int n_class(int n) { return n <= 8 ? 0 : n <= 24 ? 1 : 2; }
 constexpr int kClassMaxN[3] = {8, 24, 32};
 
-// The square root and the reciprocal of K2b and K2c: in float the
+// The square root and the reciprocal of every K2 kernel: in float the
 // straight-line versions (libm_fast.cuh) where the input is in their range,
 // which every member of an SPD batch is, the IEEE routines outside it (a
 // member that is not SPD: the square root of a negative number, NaN); in
@@ -300,6 +198,10 @@ struct TileMap {
     return pad ? e + __umulhi(e, magic) : e;
   }
   __device__ __forceinline__ unsigned stride() const { return per + pad; }
+  // the member of value e (magic wraps to 0 for per = 1)
+  __device__ __forceinline__ unsigned member(unsigned e) const {
+    return per == 1 ? e : __umulhi(e, magic);
+  }
 };
 
 // Values before the first 16-byte boundary at p, at most count.
@@ -327,6 +229,19 @@ __device__ __forceinline__ void copy_async_wait() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 #endif
 }
+// Close this thread's group of copies, and wait until at most N of its
+// groups are still in flight.
+__device__ __forceinline__ void copy_async_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+template <int N>
+__device__ __forceinline__ void copy_async_wait_groups() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
+}
 
 // Start the copy of the tile's `count` values from global src into shared
 // dst (laid out by map), by every thread of the block: value e by thread
@@ -337,6 +252,21 @@ template <typename T>
 __device__ void stage_in(const T* __restrict__ src, int count, TileMap map, T* dst) {
 #pragma unroll 4
   for (int e = threadIdx.x; e < count; e += blockDim.x) copy_async(dst + map.at(e), src + e);
+}
+
+// Start the copy of a chunk of `map.per` values from each of the tile's
+// `here` members, member t's at src + t * src_stride in global memory, into
+// shared dst laid out by map: value e of the chunk by thread e mod
+// blockDim.x, so that a warp reads contiguous memory within a member.
+template <typename T>
+__device__ void stage_chunk_in(const T* __restrict__ src, long long src_stride, int here,
+                               TileMap map, T* dst) {
+  const int count = here * static_cast<int>(map.per);
+#pragma unroll 4
+  for (int e = threadIdx.x; e < count; e += blockDim.x) {
+    const unsigned t = map.member(e);
+    copy_async(dst + e + t * map.pad, src + t * src_stride + (e - t * map.per));
+  }
 }
 
 // The tile's `count` values from shared src (laid out by map) to global dst,
@@ -387,10 +317,12 @@ struct Lanes {
 // lanes: column j's rows j, j + 1, ... go to the lanes in turn, each lane
 // carrying kRows of them at a time through the sums over k from 0 (L[j][k]
 // read once for them); the lane with row j forms d and 1/d, and hands 1/d
-// to the others.  Then zeros above the diagonal.  Every lane of the block
-// runs it (a lane of a member past the batch on what its slot holds), so
-// that the lanes of a warp meet at every shuffle and barrier.
-template <typename T, int G>
+// to the others.  Then zeros above the diagonal; or, where only the solve
+// reads the factor (FOR_SOLVE), 1/d on the diagonal in d's place and no
+// zeros.  Every lane of the block runs it (a lane of a member past the batch
+// on what its slot holds), so that the lanes of a warp meet at every
+// shuffle and barrier.
+template <typename T, int G, bool FOR_SOLVE = false>
 __device__ void factor_member(T* a, int n, const Lanes<G>& lanes) {
   using O = Ieee<T>;
   for (int j = 0; j < n; ++j) {
@@ -418,15 +350,16 @@ __device__ void factor_member(T* a, int n, const Lanes<G>& lanes) {
     if (lanes.g == 0) {  // row j is this lane's first
       const T d = sqrt_rn(a[j * n + j]);
       inv_d = rcp_rn(d);
-      a[j * n + j] = d;
+      a[j * n + j] = FOR_SOLVE ? inv_d : d;
     }
     inv_d = lanes.from(inv_d, 0);
     for (int i = j + (lanes.g == 0 ? G : lanes.g); i < n; i += G)
       a[i * n + j] = O::mul(a[i * n + j], inv_d);
     lanes.sync();
   }
-  for (int i = lanes.g; i < n; i += G)
-    for (int k = i + 1; k < n; ++k) a[i * n + k] = T(0);
+  if constexpr (!FOR_SOLVE)
+    for (int i = lanes.g; i < n; i += G)
+      for (int k = i + 1; k < n; ++k) a[i * n + k] = T(0);
 }
 
 // _solve_entries on one member's staged L (n x n, row-major) and b (v: b on
@@ -434,16 +367,18 @@ __device__ void factor_member(T* a, int n, const Lanes<G>& lanes) {
 // v_i / L[i][i] by its owner, shuffled to the lanes, which take L[r][i] y_i
 // from their rows r > i.  Back: x_c = (v_c - sum_{k>c} L[k][c] x_k) / L[c][c]
 // by its owner, the sum in increasing k from the products L[k][c] x_k that
-// the owner formed in L's place as each x_k arrived.  Every lane of the
+// the owner formed in L's place as each x_k arrived.  With INV the
+// diagonal holds 1/L[i][i] (factor_member's FOR_SOLVE).  Every lane of the
 // block runs it, as factor_member.
-template <typename T, int G>
+template <typename T, int G, bool INV = false>
 __device__ void substitute_member(T* l, T* v, int n, const Lanes<G>& lanes) {
   using O = Ieee<T>;
+  const auto inv = [&](int i) { return INV ? l[i * n + i] : rcp_rn(l[i * n + i]); };
   for (int i = 0; i < n; ++i) {
     const int owner = i & (G - 1);
     T y = T(0);
     if (lanes.g == owner) {
-      y = O::mul(v[i], rcp_rn(l[i * n + i]));
+      y = O::mul(v[i], inv(i));
       v[i] = y;
     }
     y = lanes.from(y, owner);
@@ -458,7 +393,7 @@ __device__ void substitute_member(T* l, T* v, int n, const Lanes<G>& lanes) {
       T s = v[c];
 #pragma unroll 4
       for (int k = c + 1; k < n; ++k) s = O::sub(s, l[k * n + c]);
-      x = O::mul(s, rcp_rn(l[c * n + c]));
+      x = O::mul(s, inv(c));
       v[c] = x;
     }
     x = lanes.from(x, owner);
@@ -473,8 +408,10 @@ __device__ void substitute_member(T* l, T* v, int n, const Lanes<G>& lanes) {
 
 // _chol_entries on one member's staged K, in place, one thread: column j's
 // row j of L read into registers, d and 1/d from its diagonal first, then
-// the rows below kRows at a time, each sum from k = 0, stored scaled by 1/d.
-template <typename T, int NMAX>
+// the rows below kRows at a time, each sum from k = 0, stored scaled by 1/d;
+// then zeros above the diagonal, or (FOR_SOLVE) 1/d in d's place and no
+// zeros, as factor_member.
+template <typename T, int NMAX, bool FOR_SOLVE = false>
 __device__ __forceinline__ void factor_regs(T* a, int n) {
   using O = Ieee<T>;
 #pragma unroll
@@ -488,7 +425,7 @@ __device__ __forceinline__ void factor_regs(T* a, int n) {
     for (int k = 0; k < j; ++k) s = O::sub(s, O::mul(lj[k], lj[k]));
     const T d = sqrt_rn(s);
     const T inv_d = rcp_rn(d);
-    a[j * n + j] = d;
+    a[j * n + j] = FOR_SOLVE ? inv_d : d;
     for (int i0 = j + 1; i0 < n; i0 += kRows) {
       const T* li[kRows];
       T e[kRows];
@@ -507,24 +444,26 @@ __device__ __forceinline__ void factor_regs(T* a, int n) {
         if (i0 + u < n) a[(i0 + u) * n + j] = O::mul(e[u], inv_d);
     }
   }
-  for (int i = 0; i < n; ++i)
-    for (int k = i + 1; k < n; ++k) a[i * n + k] = T(0);
+  if constexpr (!FOR_SOLVE)
+    for (int i = 0; i < n; ++i)
+      for (int k = i + 1; k < n; ++k) a[i * n + k] = T(0);
 }
 
 // _solve_entries on one member's staged L and b (v: b on entry, x on exit),
 // one thread, the vector in registers: entries past n run on the last row
 // again and are never kept (and never enter a kept entry's sum), so that no
-// loop depends on n.
-template <typename T, int NMAX>
+// loop depends on n.  With INV the diagonal holds 1/L[i][i].
+template <typename T, int NMAX, bool INV = false>
 __device__ __forceinline__ void substitute_regs(const T* l, T* vs, int n) {
   using O = Ieee<T>;
+  const auto inv = [&](int i) { return INV ? l[i * n + i] : rcp_rn(l[i * n + i]); };
   T v[NMAX];
 #pragma unroll
   for (int i = 0; i < NMAX; ++i) v[i] = vs[i < n ? i : n - 1];
 #pragma unroll
   for (int i = 0; i < NMAX; ++i) {
     const int c = i < n ? i : n - 1;
-    v[i] = O::mul(v[i], rcp_rn(l[c * n + c]));
+    v[i] = O::mul(v[i], inv(c));
 #pragma unroll
     for (int r = i + 1; r < NMAX; ++r)
       v[r] = O::sub(v[r], O::mul(l[(r < n ? r : n - 1) * n + c], v[i]));
@@ -541,7 +480,7 @@ __device__ __forceinline__ void substitute_regs(const T* l, T* vs, int n) {
       const T t = O::sub(s, O::mul(l[(k < n ? k : n - 1) * n + cc], v[k]));
       s = k < n ? t : s;
     }
-    v[c] = O::mul(s, rcp_rn(l[cc * n + cc]));
+    v[c] = O::mul(s, inv(cc));
   }
 #pragma unroll
   for (int i = 0; i < NMAX; ++i)
@@ -600,6 +539,163 @@ __global__ void __launch_bounds__(kMaxTileThreads)
   stage_out(vtile, here * n, vmap, x + first * n);
 }
 
+// K2a: members [blockIdx.x * members, ...) of K (B, n, n) and b (B, n) -> x,
+// factored and solved in place, on G lanes a member, or (G = 1) one thread a
+// member with n <= NMAX.
+template <typename T, int G, int NMAX>
+__global__ void __launch_bounds__(kMaxTileThreads)
+    solve_tile_kernel(const T* __restrict__ k, const T* __restrict__ rhs, T* __restrict__ x,
+                      long long batch, int n, int members) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const TileMap kmap(n * n), vmap(n);
+  T* ktile = reinterpret_cast<T*>(smem_raw);
+  T* vtile = ktile + members * kmap.stride();
+  const long long first = static_cast<long long>(blockIdx.x) * members;
+  const int here = static_cast<int>(batch - first < members ? batch - first : members);
+  stage_in(k + first * n * n, here * n * n, kmap, ktile);
+  stage_in(rhs + first * n, here * n, vmap, vtile);
+  copy_async_wait();
+  __syncthreads();
+  const Lanes<G> lanes;
+  T* a = ktile + (threadIdx.x / G) * kmap.stride();
+  T* v = vtile + (threadIdx.x / G) * vmap.stride();
+  if constexpr (G == 1) {
+    factor_regs<T, NMAX, true>(a, n);
+    substitute_regs<T, NMAX, true>(a, v, n);
+  } else {
+    factor_member<T, G, true>(a, n, lanes);
+    substitute_member<T, G, true>(a, v, n, lanes);
+  }
+  __syncthreads();
+  stage_out(vtile, here * n, vmap, x + first * n);
+}
+
+// The sums of K = (sqrt(M) J)^T (sqrt(M) J) that lane g of a member's G holds
+// in registers: the lower triangle's entries (i, j) with j = g + c G, c <
+// kCols, slot by slot in order of i, then c (row i has a slot c where c G <= i,
+// used by the lanes with g + c G <= i), for n <= NMAX.  Each sum runs over
+// the rows r of sqrt(M) J from r = 0 as _k_from_jac's: the product
+// J[r][i] J[r][j] rounded, then the sum; from -0, which adds to the first
+// product exactly.
+__host__ __device__ constexpr int jac_sums(int nmax, int lanes) {
+  int s = 0;
+  for (int i = 0; i < nmax; ++i) s += i / lanes + 1;
+  return s;
+}
+
+template <typename T, int G, int NMAX>
+struct JacSums {
+  static constexpr int kCols = (NMAX + G - 1) / G;
+  static constexpr int kCount = jac_sums(NMAX, G);
+  static_assert(kCount <= kMaxJacSums, "too many sums a lane: more lanes for this class");
+  T acc[kCount];
+
+  __device__ JacSums() {
+#pragma unroll
+    for (int s = 0; s < kCount; ++s) acc[s] = T(-0.0);
+  }
+
+  // Add the products of `rows` rows of one member's sqrt(M) J (row r at
+  // j + r * n in shared memory).
+  __device__ __forceinline__ void add_rows(const T* j, int rows, int n, int g) {
+    using O = Ieee<T>;
+    for (int r = 0; r < rows; ++r, j += n) {
+      T mine[kCols];
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) mine[c] = g + c * G < n ? j[g + c * G] : T(0);
+      int s = 0;
+#pragma unroll
+      for (int i = 0; i < NMAX; ++i) {
+        if (i >= n) break;
+        T ji;
+        if constexpr (G == 1) {
+          ji = mine[i];
+        } else {
+          ji = j[i];
+        }
+#pragma unroll
+        for (int c = 0; c <= i / G; ++c, ++s)
+          if (g + c * G <= i) acc[s] = O::add(acc[s], O::mul(ji, mine[c]));
+      }
+    }
+  }
+
+  // K's lower triangle into a member's slot (n x n, row-major).
+  __device__ __forceinline__ void store(T* a, int n, int g) const {
+    int s = 0;
+#pragma unroll
+    for (int i = 0; i < NMAX; ++i) {
+      if (i >= n) break;
+#pragma unroll
+      for (int c = 0; c <= i / G; ++c, ++s)
+        if (g + c * G <= i) a[i * n + g + c * G] = acc[s];
+    }
+  }
+};
+
+// K2d (SOLVE) and K2e: members [blockIdx.x * members, ...) of sqrt(M) J
+// (B, m, n) and b (B, n) -> x, or -> L.  The rows of sqrt(M) J pass through
+// two buffers, `rows` rows a member at a time, chunk c + 1's copy in flight
+// while G lanes a member add chunk c's products to their sums; K is written
+// into the member's slot (over the buffers), then factored and solved on
+// one thread a member with n <= NMAX (F = 1) or on the G lanes (F = G).
+template <typename T, int G, int F, int NMAX, bool SOLVE>
+__global__ void __launch_bounds__(kMaxTileThreads)
+    jac_tile_kernel(const T* __restrict__ js, const T* __restrict__ rhs, T* __restrict__ out,
+                    long long batch, int n, int m, int rows, int members) {
+  static_assert(F == 1 || F == G, "the factor runs on one thread or on the formation's lanes");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const TileMap kmap(n * n), vmap(n), cmap(rows * n);
+  T* vtile = reinterpret_cast<T*>(smem_raw);  // b and x (SOLVE)
+  T* ktile = vtile + (SOLVE ? members * vmap.stride() : 0);
+  const int buffer = members * cmap.stride();  // chunk c at ktile + (c & 1) * buffer
+  const long long first = static_cast<long long>(blockIdx.x) * members;
+  const int here = static_cast<int>(batch - first < members ? batch - first : members);
+  const long long per = static_cast<long long>(m) * n;
+  const T* src = js + first * per;
+  if constexpr (SOLVE) stage_in(rhs + first * n, here * n, vmap, vtile);
+  stage_chunk_in(src, per, here, cmap, ktile);
+  copy_async_commit();
+  const Lanes<G> lanes;
+  const int t = threadIdx.x / G;
+  JacSums<T, G, NMAX> sums;
+  for (int r0 = 0, c = 0; r0 < m; r0 += rows, ++c) {
+    const int next = m - r0 - rows < rows ? m - r0 - rows : rows;
+    if (next > 0) {
+      stage_chunk_in(src + (r0 + rows) * n, per, here, TileMap(next * n),
+                     ktile + ((c + 1) & 1) * buffer);
+      copy_async_commit();
+      copy_async_wait_groups<1>();
+    } else {
+      copy_async_wait_groups<0>();
+    }
+    __syncthreads();
+    const int count = m - r0 < rows ? m - r0 : rows;
+    sums.add_rows(ktile + (c & 1) * buffer + t * odd(count * n), count, n, lanes.g);
+    __syncthreads();
+  }
+  sums.store(ktile + t * kmap.stride(), n, lanes.g);
+  __syncthreads();
+  if constexpr (F == 1) {
+    if (threadIdx.x < members) {
+      T* a = ktile + threadIdx.x * kmap.stride();
+      factor_regs<T, NMAX, SOLVE>(a, n);
+      if constexpr (SOLVE)
+        substitute_regs<T, NMAX, true>(a, vtile + threadIdx.x * vmap.stride(), n);
+    }
+  } else {
+    T* a = ktile + t * kmap.stride();
+    factor_member<T, G, SOLVE>(a, n, lanes);
+    if constexpr (SOLVE) substitute_member<T, G, true>(a, vtile + t * vmap.stride(), n, lanes);
+  }
+  __syncthreads();
+  if constexpr (SOLVE) {
+    stage_out(vtile, here * n, vmap, out + first * n);
+  } else {
+    stage_out(ktile, here * n * n, kmap, out + first * n * n);
+  }
+}
+
 int sm_count() {
   int device = 0, sms = 0;
   cudaGetDevice(&device);
@@ -655,39 +751,31 @@ int substitute_class(const T* low, const T* rhs, T* x, long long batch, int n,
                                    batch, st, low, rhs, x, batch, n);
 }
 
-// Threads per block for a kernel holding `per_thread` bytes of shared memory
-// per thread: the size (a whole number of warps, at most 256) that keeps the
-// most threads resident on an SM, the larger on a tie.
-int threads_for(long long per_thread) {
-  int best = 32;
-  long long best_resident = -1;
-  for (int tpb = 256; tpb >= 32; tpb /= 2) {
-    const long long bytes = tpb * per_thread;
-    if (bytes > kSmemPerBlockMax) continue;
-    long long blocks = kSmemPerSm / (bytes + kSmemReserved);
-    if (blocks > 2048 / tpb) blocks = 2048 / tpb;
-    if (blocks * tpb > best_resident) {
-      best_resident = blocks * tpb;
-      best = tpb;
-    }
-  }
-  return best;
+template <typename T, int C>
+int solve_class(const T* k, const T* rhs, T* x, long long batch, int n, cudaStream_t st) {
+  constexpr Shape shape = kSolveShape[std::is_same<T, double>::value][C];
+  constexpr int nmax = shape.lanes == 1 ? kClassMaxN[C] : 0;
+  return launch_tiles<shape.lanes>(solve_tile_kernel<T, shape.lanes, nmax>, shape.threads,
+                                   static_cast<long long>(odd(n * n) + odd(n)) * sizeof(T),
+                                   batch, st, k, rhs, x, batch, n);
 }
 
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, long long per_thread, long long batch, cudaStream_t stream,
-           Args... args) {
-  const int tpb = threads_for(per_thread);
-  const long long bytes = tpb * per_thread;
-  if (bytes > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const long long blocks = (batch + tpb - 1) / tpb;
-  kernel<<<static_cast<unsigned int>(blocks), tpb, static_cast<size_t>(bytes), stream>>>(
-      args...);
-  return static_cast<int>(cudaGetLastError());
+// K2d (SOLVE) or K2e for a member class C of dtype T, as its table says: a
+// member's slot holds K, or first its two buffers of `rows` rows of
+// sqrt(M) J, and (SOLVE) b.
+template <typename T, int C, bool SOLVE>
+int jac_class(const T* js, const T* rhs, T* out, long long batch, int n, int m,
+              cudaStream_t st) {
+  constexpr JacShape shape =
+      (SOLVE ? kJacSolveShape : kJacFactorShape)[std::is_same<T, double>::value][C];
+  int rows = kChunkValues / n;
+  rows = rows < 1 ? 1 : rows > m ? m : rows;
+  const long long k_values = odd(n * n), chunk_values = 2LL * odd(rows * n);
+  const long long member_bytes =
+      ((k_values > chunk_values ? k_values : chunk_values) + (SOLVE ? odd(n) : 0)) * sizeof(T);
+  return launch_tiles<shape.lanes>(
+      jac_tile_kernel<T, shape.lanes, shape.factor_lanes, kClassMaxN[C], SOLVE>,
+      shape.threads, member_bytes, batch, st, js, rhs, out, batch, n, m, rows);
 }
 
 bool bad_args(long long batch, int n, int from_j, int m) {
@@ -700,8 +788,11 @@ int factor_t(int from_j, const void* src, void* low, long long batch, int n, int
   const T* s = static_cast<const T*>(src);
   T* l = static_cast<T*>(low);
   if (from_j) {
-    const long long per = (static_cast<long long>(n) * (n + 1) / 2 + n) * sizeof(T);
-    return launch(factor_kernel<T, true>, per, batch, st, s, l, batch, n, m);
+    switch (n_class(n)) {
+      case 0: return jac_class<T, 0, false>(s, nullptr, l, batch, n, m, st);
+      case 1: return jac_class<T, 1, false>(s, nullptr, l, batch, n, m, st);
+      default: return jac_class<T, 2, false>(s, nullptr, l, batch, n, m, st);
+    }
   }
   switch (n_class(n)) {
     case 0: return factor_class<T, 0>(s, l, batch, n, st);
@@ -713,13 +804,21 @@ int factor_t(int from_j, const void* src, void* low, long long batch, int n, int
 template <typename T>
 int factor_solve_t(int from_j, const void* src, const void* rhs, void* x, long long batch,
                    int n, int m, cudaStream_t st) {
-  const long long per = (static_cast<long long>(n) * (n + 1) / 2 + n) * sizeof(T);
   const T* s = static_cast<const T*>(src);
   const T* r = static_cast<const T*>(rhs);
   T* out = static_cast<T*>(x);
-  return from_j
-             ? launch(factor_solve_kernel<T, true>, per, batch, st, s, r, out, batch, n, m)
-             : launch(factor_solve_kernel<T, false>, per, batch, st, s, r, out, batch, n, m);
+  if (from_j) {
+    switch (n_class(n)) {
+      case 0: return jac_class<T, 0, true>(s, r, out, batch, n, m, st);
+      case 1: return jac_class<T, 1, true>(s, r, out, batch, n, m, st);
+      default: return jac_class<T, 2, true>(s, r, out, batch, n, m, st);
+    }
+  }
+  switch (n_class(n)) {
+    case 0: return solve_class<T, 0>(s, r, out, batch, n, st);
+    case 1: return solve_class<T, 1>(s, r, out, batch, n, st);
+    default: return solve_class<T, 2>(s, r, out, batch, n, st);
+  }
 }
 
 template <typename T>

@@ -12,12 +12,14 @@ from hamilton_tpu_torch.utils.observables import (
     hamiltonian_trajectory,
     lyapunov_estimate,
 )
+from hamilton_tpu_torch.utils.profiling import benchmark_fn
 
 __all__ = [
     "energies",
     "energy_drift",
     "hamiltonian_trajectory",
     "lyapunov_estimate",
+    "benchmark_fn",
     "LyapunovPairs",
     "RunningExtrema",
     "PoincareSections",

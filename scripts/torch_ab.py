@@ -41,9 +41,11 @@ Readings, all on 16384 members:
 - the batched solves (K2, ``csrc/batched_spd.cu``) at 16384 × n=20 through
   the tree's entries: ``cholesky`` (K2b) and ``cho_solve`` (K2c) in float32
   and float64, ``spd_solve`` (K2a) and ``spd_solve_jac`` (K2d, m=40) in
-  float64, ``cholesky_jac`` (K2e, m=40) in float32, each the device ms of one
-  call from ``time_queued`` around 100 calls on one operand set, and
-  (``_rotating``) on four sets in turn, more than the 50 MB L2 holds.
+  float64, ``cholesky_jac`` (K2e, m=40) in float32, and
+  ``spd_solve_jac_n3`` (K2d at n = m = 3, spring's) in float64, each the
+  device ms of one call from ``time_queued`` around 100 calls on one operand
+  set, and (``_rotating``) on four sets in turn (at n = 20 more than the
+  50 MB L2 holds).
 
 Each tree's ``-Xptxas -v`` report of the K1 kernels (``csrc/fused_step.cu``,
 ``csrc/chain_variants.cu``, ``csrc/family_step.cu`` and the generated
@@ -78,11 +80,17 @@ from pathlib import Path
 
 BATCH, SPC, REPS = 16384, 50, 100
 LEAPFROG_STEPS = 20
-# the K2 readings: (entry, dtype); each also on K2_ROTATE operand sets in turn
-K2_READINGS = (("cholesky", "float32"), ("cho_solve", "float32"), ("cholesky", "float64"),
-               ("cho_solve", "float64"), ("spd_solve", "float64"),
-               ("spd_solve_jac", "float64"), ("cholesky_jac", "float32"))
+# the K2 readings: (entry, dtype, n); the J entries at m = 2n (n = 20) or
+# m = n (n = 3, spring's); each also on K2_ROTATE operand sets in turn
+K2_READINGS = (("cholesky", "float32", 20), ("cho_solve", "float32", 20),
+               ("cholesky", "float64", 20), ("cho_solve", "float64", 20),
+               ("spd_solve", "float64", 20), ("spd_solve_jac", "float64", 20),
+               ("spd_solve_jac", "float64", 3), ("cholesky_jac", "float32", 20))
 K2_ROTATE = 4
+def _k2_reading(entry: str, dtype: str, n: int) -> str:
+    return f"{entry}{'' if n == 20 else f'_n{n}'}_{dtype}"
+
+
 # the families of chip_smoke.py phase 15, in its order (its generator is
 # drawn across them in turn)
 FAMILY_READINGS = ("spherical", "twobody", "spring", "room", "ellipse", "bezier", "bezier2")
@@ -90,11 +98,12 @@ READINGS = ("headline", "double_pendulum", "sweep", "suzuki4", "mobius", "linv",
             "double_pendulum_host", "double_pendulum_wall", "library_leapfrog_step",
             "adaptive_f64") + tuple(f"family_{f}" for f in FAMILY_READINGS) + (
                 "generated_bezier3", "generated_elastic") + tuple(
-                    f"{e}_{d}{r}" for e, d in K2_READINGS for r in ("", "_rotating"))
+                    f"{_k2_reading(*k)}{r}" for k in K2_READINGS for r in ("", "_rotating"))
 DP_WALL_LAUNCHES = 400
 # the K2 kernels as each tree's report names them (the mangled template name)
-_K2_ANY_RE = re.compile(r"(?:factor_solve_kernel|factor_lanes_kernel|factor_kernel"
-                        r"|substitute_lanes_kernel|substitute_kernel)I[fd](?:L[bi]\d+E)*")
+_K2_ANY_RE = re.compile(r"(?:solve_tile_kernel|jac_tile_kernel|factor_solve_kernel"
+                        r"|factor_lanes_kernel|factor_kernel|substitute_lanes_kernel"
+                        r"|substitute_kernel)I[fd](?:L[bi]\d+E)*")
 
 
 def _time_queued():
@@ -345,22 +354,23 @@ def _time_k2(time_queued) -> dict:
              "spd_solve": lambda k, js, b, low: bs.spd_solve_batched(k, b),
              "spd_solve_jac": lambda k, js, b, low: bs.spd_solve_jac(js, b),
              "cholesky_jac": lambda k, js, b, low: bs.cholesky_jac(js)}
-    out = {}
+    out, inputs = {}, {}
     with torch.no_grad():
-        for dname in ("float32", "float64"):
-            sets = []
-            for s in range(K2_ROTATE):
-                k, js, b = cs.k2_inputs(BATCH, 20, getattr(torch, dname), dev, 7 + s)
-                sets.append((k, js, b, bs.cholesky_plain(k)))
-            for entry, d in K2_READINGS:
-                if d != dname:
-                    continue
-                call = calls[entry]
-                call(*sets[0])  # warm-up
-                out[f"{entry}_{d}"], _ = time_queued(lambda: call(*sets[0]), REPS)
-                turn = iter(range(10**9))
-                out[f"{entry}_{d}_rotating"], _ = time_queued(
-                    lambda: call(*sets[next(turn) % K2_ROTATE]), REPS)
+        for entry, dname, n in K2_READINGS:
+            if (n, dname) not in inputs:
+                inputs[(n, dname)] = []
+                for s in range(K2_ROTATE):
+                    k, js, b = cs.k2_inputs(BATCH, n, getattr(torch, dname), dev, 7 + s,
+                                            m=2 * n if n == 20 else n)
+                    inputs[(n, dname)].append((k, js, b, bs.cholesky_plain(k)))
+            sets = inputs[(n, dname)]
+            call = calls[entry]
+            call(*sets[0])  # warm-up
+            name = _k2_reading(entry, dname, n)
+            out[name], _ = time_queued(lambda: call(*sets[0]), REPS)
+            turn = iter(range(10**9))
+            out[f"{name}_rotating"], _ = time_queued(
+                lambda: call(*sets[next(turn) % K2_ROTATE]), REPS)
     return out
 
 

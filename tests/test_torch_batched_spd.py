@@ -16,6 +16,7 @@ bit.
 """
 
 import ctypes
+import importlib.util
 import re
 import shutil
 import subprocess
@@ -402,16 +403,29 @@ def test_mechanics_take_the_reference_routes(monkeypatch):
 #: Threads a block for each count of lanes a member that the host build is
 #: run at: a tile of several members, so that a batch of 37 on the host's
 #: four SMs ends in a tile part full.
-HOST_TILE_THREADS = {1: 64, 2: 64, 4: 64, 8: 64, 32: 128}
+HOST_TILE_THREADS = {1: 64, 2: 64, 4: 64, 8: 64, 16: 64, 32: 64}
+
+
+def _k2_sweep():
+    """``scripts/k2_sweep.py``, loaded from its file: its ``patch_tables``
+    sets the source's shape tables to a variant."""
+    path = Path(__file__).resolve().parent.parent / "scripts" / "k2_sweep.py"
+    spec = importlib.util.spec_from_file_location("_k2_sweep", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _host_spd_library(where: Path, lanes=None) -> Path:
     """``csrc/batched_spd.cu`` as a host library: g++ through ``HOST_SHIM``,
     the dynamic shared memory a static buffer, each launch a loop over
-    blocks of threads.  With ``lanes``, every entry of the K2b and K2c
-    tables (``kFactorShape``, ``kSubstituteShape``) set to that many lanes
-    a member and ``HOST_TILE_THREADS`` threads a block, as
-    ``scripts/k2_sweep.py`` builds its variants; else the source's own."""
+    blocks of threads.  With ``lanes``, the shape tables set as
+    ``scripts/k2_sweep.py`` sets a variant's (``patch_tables``): K2a, K2b and
+    K2c at that many lanes a member and ``HOST_TILE_THREADS`` threads a
+    block, K2d and K2e forming K on that many lanes (more in a class where a
+    lane's sums would pass ``kMaxJacSums``), factoring and solving on one
+    thread at n <= 8 and on those lanes above, so that one build covers
+    both; else the source's own."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ for the host build of the kernel source")
     csrc = Path(kernels.__file__).resolve().parent.parent / "csrc"
@@ -420,18 +434,15 @@ def _host_spd_library(where: Path, lanes=None) -> Path:
         (where / h.name).write_text(h.read_text())
     src = (csrc / "batched_spd.cu").read_text()
     if lanes is not None:
-        shape = "{%d, %d}" % (lanes, HOST_TILE_THREADS[lanes])
-        table = "{{%s}, {%s}}" % ((", ".join([shape] * 3),) * 2)
-        src, count = re.subn(r"(k(?:Factor|Substitute)Shape\[2\]\[3\] = )\{.*?\};",
-                             lambda m: f"{m.group(1)}{table};", src, flags=re.S)
-        assert count == 2
+        src, _ = _k2_sweep().patch_tables(src, lanes, HOST_TILE_THREADS[lanes],
+                                          (False, True, True))
     src, shared = re.subn(r"extern __shared__ __align__\(16\) unsigned char (\w+)\[\];",
                           r"alignas(16) static unsigned char \1[1 << 18];", src)
     src, launches = re.subn(r"(\w+)<<<(.*?),(.*?),.*?>>>\((.*?)\);",
                             lambda m: f"HOST_LAUNCH({m.group(2)}, {m.group(3)}, "
                                       f"{m.group(1)}({m.group(4)}));", src, flags=re.S)
-    # scratch() and the two tile kernels; the one-thread and the tile launch
-    assert shared == 3 and launches == 2
+    # the four tile kernels; launch_tiles' launch
+    assert shared == 4 and launches == 1
     (where / "batched_spd.cc").write_text(src)
     lib = where / "libbatched_spd_host.so"
     proc = subprocess.run(["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
@@ -442,6 +453,19 @@ def _host_spd_library(where: Path, lanes=None) -> Path:
     for fn, argtypes in kernels._SIGNATURES["batched_spd"].items():
         getattr(out, fn).argtypes = argtypes
     return out
+
+
+@pytest.fixture(scope="module")
+def host_spd_library(tmp_path_factory):
+    """``_host_spd_library`` of a variant, built once a module."""
+    built = {}
+
+    def get(lanes=None):
+        if lanes not in built:
+            built[lanes] = _host_spd_library(tmp_path_factory.mktemp(f"spd_{lanes}"), lanes)
+        return built[lanes]
+
+    return get
 
 
 def _offset(t: torch.Tensor) -> torch.Tensor:
@@ -464,21 +488,23 @@ def _ieee_sqrt(x: torch.Tensor) -> torch.Tensor:
         return torch.from_numpy(np.sqrt(x.numpy()))
 
 
-@pytest.mark.parametrize("lanes", [None, 1, 2, 4, 8, 32],
-                         ids=["shipped", "G1", "G2", "G4", "G8", "G32"])
-def test_tile_kernels_on_the_host(lanes, tmp_path, monkeypatch):
-    """K2b and K2c (``hamilton_spd_factor`` with ``from_j = 0`` and
-    ``hamilton_spd_substitute``) built with g++ in the host emulation, at
-    the source's own lanes a member and at each count the sweep tries: at
-    n = 1, 2, 3, 20 and 32, float32 and float64, on 37 members (the last
-    tile part full) lying off a 16-byte boundary, each equal to
-    ``cholesky_plain`` and ``cho_solve_plain`` bit for bit.  One member that
-    is not SPD: NaN in that member, every other member still equal.
+@pytest.mark.parametrize("lanes", [None, 1, 2, 4, 8, 16, 32],
+                         ids=["shipped", "G1", "G2", "G4", "G8", "G16", "G32"])
+def test_tile_kernels_on_the_host(lanes, host_spd_library, monkeypatch):
+    """K2a, K2b and K2c (``hamilton_spd_solve`` and ``hamilton_spd_factor``
+    with ``from_j = 0``, ``hamilton_spd_substitute``) built with g++ in the
+    host emulation, at the source's own lanes a member and at each count the
+    sweep tries: at n = 1, 2, 3, 20 and 32 (K2a, which fuses K2b's and K2c's
+    member routines, at 1, 3 and 20), float32 and float64, on 37 members
+    (the last tile part full) lying off a 16-byte boundary, each equal to
+    ``spd_solve_plain``, ``cholesky_plain`` and ``cho_solve_plain`` bit for
+    bit.  One member that is not SPD: NaN in that member, every
+    other member still equal.
 
     The plain versions run here with a correctly rounded ``torch.sqrt``, as
     on the card: PyTorch's vectorized CPU square root can be an ulp off
     (AVX-512: sqrt(8.165938262201326) in float64 comes out one ulp low)."""
-    lib = _host_spd_library(tmp_path, lanes)
+    lib = host_spd_library(lanes)
     monkeypatch.setattr(torch, "sqrt", _ieee_sqrt)
     rng = np.random.default_rng(40)
     batch = 37
@@ -503,3 +529,48 @@ def test_tile_kernels_on_the_host(lanes, tmp_path, monkeypatch):
             nan = torch.isnan(x).any(-1)
             assert int(nan.sum()) == (1 if n == 20 else 0) and (n != 20 or bool(nan[5]))
             assert int(torch.isnan(low).flatten(1).any(-1).sum()) == (1 if n == 20 else 0)
+            if n in (2, 32):  # K2a: the wiring of the fused tile, at fewer n
+                continue
+            x = _offset(torch.full_like(vec, float("nan")))
+            assert lib.hamilton_spd_solve(code, 0, k.data_ptr(), vec.data_ptr(), x.data_ptr(),
+                                          batch, n, 0, None) == 0
+            assert _same(x, bs.spd_solve_plain(k, vec)), ("K2a", n, dtype)
+            nan = torch.isnan(x).any(-1)
+            assert int(nan.sum()) == (1 if n == 20 else 0) and (n != 20 or bool(nan[5]))
+
+
+@pytest.mark.parametrize("lanes", [None, 1, 2, 4, 8, 16, 32],
+                         ids=["shipped", "G1", "G2", "G4", "G8", "G16", "G32"])
+def test_jac_tiles_on_the_host(lanes, host_spd_library, monkeypatch):
+    """K2d and K2e (``hamilton_spd_solve`` and ``hamilton_spd_factor`` with
+    ``from_j = 1``) built with g++ in the host emulation, with the source's
+    tables and with K formed on each count of lanes the sweep tries: at
+    n = 3 and 8 (factored on one thread) and 20 (on the lanes that formed
+    K), m = n and 2n (the rows of sqrt(M) J in one chunk and in several),
+    float32 and float64, on 37 members lying off a 16-byte boundary, equal
+    to ``spd_solve_jac_plain`` and ``cholesky_jac_plain`` bit for bit.  One
+    member whose sqrt(M) J is zero (K singular): NaN in that member only."""
+    lib = host_spd_library(lanes)
+    monkeypatch.setattr(torch, "sqrt", _ieee_sqrt)
+    rng = np.random.default_rng(41)
+    batch = 37
+    for n in (3, 8, 20):
+        for m in (n, 2 * n):
+            for dtype in (torch.float32, torch.float64):
+                code = int(dtype == torch.float64)
+                j, inertia = _jac(rng, batch, n, m, np.float64)
+                js = bs.jac_scaled(torch.tensor(j), torch.tensor(inertia)).to(dtype)
+                js[7] = 0.0
+                vec = torch.tensor(rng.standard_normal((batch, n))).to(dtype)
+                js, vec = _offset(js), _offset(vec)
+                low = _offset(torch.full((batch, n, n), float("nan"), dtype=dtype))
+                assert lib.hamilton_spd_factor(code, 1, js.data_ptr(), low.data_ptr(), batch,
+                                               n, m, None) == 0
+                assert _same(low, bs.cholesky_jac_plain(js)), ("K2e", n, m, dtype)
+                x = _offset(torch.full_like(vec, float("nan")))
+                assert lib.hamilton_spd_solve(code, 1, js.data_ptr(), vec.data_ptr(),
+                                              x.data_ptr(), batch, n, m, None) == 0
+                assert _same(x, bs.spd_solve_jac_plain(js, vec)), ("K2d", n, m, dtype)
+                for out in (x, low):
+                    nan = torch.isnan(out).flatten(1).any(-1)
+                    assert nan.nonzero().flatten().tolist() == [7], (n, m, dtype)

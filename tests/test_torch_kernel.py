@@ -661,6 +661,28 @@ def test_k2_member_that_is_not_spd_gives_nan_there_only(card):
         assert torch.equal(x[~nan], good[~nan])
 
 
+@pytest.mark.parametrize("n", [3, 8, 20])
+def test_k2_jac_entries_at_m_equal_n(card, n):
+    """K2d and K2e with as many rows of sqrt(M) J as columns (spring's
+    shape: its rows in one chunk), in both dtypes on a ragged batch of 300,
+    bit for bit their plain versions; a member whose sqrt(M) J is zero (K
+    singular) gives NaN there only."""
+    g = torch.Generator().manual_seed(10 + n)
+    j = torch.eye(n, dtype=torch.float64) + 0.3 / n ** 0.5 * torch.randn(
+        300, n, n, generator=g, dtype=torch.float64)
+    inertia = 1.0 + torch.rand(n, generator=g, dtype=torch.float64)
+    b = torch.randn(300, n, generator=g, dtype=torch.float64)
+    for dtype in (torch.float32, torch.float64):
+        js = bs.jac_scaled(j, inertia).to(device=card, dtype=dtype)
+        js[7] = 0.0
+        rhs = b.to(device=card, dtype=dtype)
+        for got, want in ((bs.spd_solve_jac(js, rhs), bs.spd_solve_jac_plain(js, rhs)),
+                          (bs.cholesky_jac(js), bs.cholesky_jac_plain(js))):
+            nan = torch.isnan(got).flatten(1).any(-1)
+            assert nan.nonzero().flatten().tolist() == [7]
+            assert torch.equal(got[~nan], want[~nan]) and bool(torch.isnan(want[7]).any())
+
+
 @pytest.mark.parametrize("entry", bs.ENTRIES, ids=[e.name for e in bs.ENTRIES])
 def test_k2_backward_launches_its_kernel(card, entry):
     """Each entry's gradient at n = 20 on the card: the solves' backwards

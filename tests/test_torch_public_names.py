@@ -1,0 +1,59 @@
+"""The port's public names against the JAX package's.
+
+For the top level, ``ops``, ``utils``, ``integrators`` and ``models``, every
+name in the reference's ``__all__`` is in the port's ``__all__`` and
+importable from the port, except the names of modules that are not ported
+yet, each listed below with its ROADMAP item.  The port's ``__all__`` names
+all exist, and its ``__version__`` is the reference's.
+"""
+
+import importlib
+
+import pytest
+
+import hamilton_tpu
+import hamilton_tpu_torch
+
+#: Reference names the port does not have yet: name → ROADMAP §1 item.
+UNPORTED = {
+    "evolve_ensemble": "M11",
+    "evolve_ensemble_sharded": "M13",
+    # diagnostics, Poincaré sections and checkpoints
+    "check_finite_phase": "M12",
+    "checked": "M12",
+    "nan_guard": "M12",
+    "poincare_section": "M12",
+    "coordinate_section": "M12",
+    "save_checkpoint": "M12",
+    "load_checkpoint": "M12",
+}
+
+MODULES = ["", ".ops", ".utils", ".integrators", ".models"]
+
+
+@pytest.mark.parametrize("suffix", MODULES, ids=[m or "top" for m in MODULES])
+def test_the_port_exports_the_reference_names(suffix):
+    ref = importlib.import_module(f"hamilton_tpu{suffix}")
+    port = importlib.import_module(f"hamilton_tpu_torch{suffix}")
+    want = set(ref.__all__) - set(UNPORTED)
+    assert want <= set(port.__all__), sorted(want - set(port.__all__))
+    for name in want:
+        assert hasattr(port, name), name
+        exec(f"from hamilton_tpu_torch{suffix} import {name}", {})
+    for name in port.__all__:
+        assert hasattr(port, name), f"hamilton_tpu_torch{suffix}.__all__ names {name}"
+    # an unported name stays out of the port until its module is ported,
+    # and then leaves the list above
+    missing = set(ref.__all__) & set(UNPORTED)
+    assert not missing & set(port.__all__), sorted(missing & set(port.__all__))
+
+
+def test_every_unported_name_is_a_reference_name():
+    names = set()
+    for suffix in MODULES:
+        names |= set(importlib.import_module(f"hamilton_tpu{suffix}").__all__)
+    assert set(UNPORTED) <= names, sorted(set(UNPORTED) - names)
+
+
+def test_version_is_the_reference_version():
+    assert hamilton_tpu_torch.__version__ == hamilton_tpu.__version__
