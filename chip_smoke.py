@@ -135,7 +135,30 @@ raises as soon as one fails:
     exactly 12002 K1 launches (2 in its parity stage) and nothing else;
     (e) the 3-point Bézier as a family cell (16384 members, float32 (2,0)
     Kahan, t = 100, 50 steps a launch); (f) each one's launch timed at its
-    run's shape, with its plain version, the host's issue and its bound.
+    run's shape, with its plain version, the host's issue and its bound;
+19. the fixed-step default, ``gauss4``, on the library path
+    (``bench.py::phase_drift``'s configuration): (a) ``evolve_ensemble_final
+    (method="gauss4", iters=6, drift_every=1000)`` on 1024 × chain-20,
+    float64, dt = 1e-3, jittered as ``bench.py::_build`` (seed 0), cut to
+    1000 steps (one drift sample) from the bench's 1e5 — exactly 1 + iters
+    K2a launches a step
+    (its two stages folded into one 2048-member solve) and one a drift
+    sample, nothing else, finite output, ``max|ΔH/H₀| < 1e-12``; K2a timed
+    at that stage shape (2048 × n = 20, float64) beside its plain version
+    and one PyTorch call; (b) every library fixed-step method (``rk4``,
+    ``midpoint``, ``gauss4``, ``gauss6``, ``yoshida4`` at (2,0), ``tao2``,
+    ``tao4``) on 8 members of chain-20, float64, 20 steps, and ``gauss4`` on
+    the J-route chain (K2d), also as a sweep over per-member inertia through
+    ``evolve_ensemble(system_batched=True)``: the card's kernels against the port's plain
+    versions on the CPU to 1e-12, each with its exact launch counts; (c)
+    the gradient through 5 gauss4 steps against the CPU's to 1e-9
+    relative, with and without ``remat`` (each solve's backward one more
+    K2a launch, remat's recompute one more a solve), and the backward's
+    peak memory at 1024 members.  (a)-(c) run in a second process on the
+    card, started after the build beside phase 1 (both host-bound on one
+    core; phase 1 times nothing) and waited for before phase 2; phase 19
+    prints their log and times, in this process, the host's ms a gauss4
+    ``ham_eqs`` and K2a at the stage shape.
 
 Every kernel's row gives its launches on its main path, its device time
 and its plain version's, the bound (the larger of its operations over the
@@ -150,6 +173,7 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import re
@@ -310,6 +334,26 @@ BEZIER3_POINTS = ((-1.0, -1.0), (0.0, 1.0), (1.0, -1.0))
 ELASTIC_STEPS = 12000
 ELASTIC_PARITY_TOL = 1e-11
 USER_TABLES = ("float64 constant table", "run-time shared table", "per-member table")
+# the gauss4 drift run (bench.py::phase_drift, :929-1022: 1024 × chain-20,
+# float64, iters=6, dt=1e-3, drift every 1000 steps over 1e5 steps; the
+# JAX package read max|ΔH/H₀| = 6.8564e-14 there, BENCH_r05.json:43), cut
+# to one drift sample: the library path is host-bound (phase 19 prints the
+# host ms a ham_eqs and its ∂T/∂q sweep's; 7 ham_eqs a step), and 2000
+# steps took over the phase's 90 s; the bound allows ~15x the reference's
+# reading
+GAUSS_BATCH = 1024
+GAUSS_STEPS = 1000
+GAUSS_BENCH_STEPS = 100_000
+GAUSS_DT = 1e-3
+GAUSS_ITERS = 6
+GAUSS_DRIFT_EVERY = 1000
+GAUSS_DRIFT_BOUND = 1e-12
+# the library fixed-step methods on the card against the CPU: 8 members of
+# chain-20 (and the J-route chain for gauss4), float64, 20 steps; the
+# gradient through GAUSS_GRAD_STEPS gauss4 steps (GRAD_TOL relative)
+GAUSS_CPU_MEMBERS = 8
+GAUSS_CPU_STEPS = 20
+GAUSS_GRAD_STEPS = 5
 
 
 def log(msg: str) -> None:
@@ -1587,6 +1631,277 @@ def phase_user_family(dev, user_builds, entries, summary):
     log(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
 
 
+def fixed_step_launches(method, iters, steps):
+    """The exact kernel launches of ``steps`` library fixed steps on the K
+    route, derived from the steppers: one K2a a ``ham_eqs`` call.  rk4
+    evaluates its four stages; the Gauss family f(y) and then, each of
+    ``iters`` iterations, every stage in one folded call; tao2 its four
+    flows (A, B, B, A; the ω-rotation solves nothing) and tao4 three tao2
+    steps.  yoshida4 at (2,0) is three leapfrog substeps, each one factor
+    (K2b) at the predictor and five substitutions (K2c): two in the p-loop,
+    v0, the q-update and the end-of-step force; plus the initial factor."""
+    if method == "yoshida4":
+        return {"cholesky": 1 + 3 * steps, "cho_solve": 15 * steps}
+    per_step = {"rk4": 4, "midpoint": 1 + iters, "gauss4": 1 + iters,
+                "gauss6": 1 + iters, "tao2": 4, "tao4": 12}[method]
+    return {"spd_solve": per_step * steps}
+
+
+def phase_gauss4_checks(dev, summary):
+    """Phase 19's checks, (a)-(c): the fixed-step default, gauss4, at full
+    width, every library fixed-step method on the card against the CPU, and
+    gauss4's gradient.  Run in a second process beside phase 1
+    (:func:`start_gauss4_checks`); returns (a)'s K2a launches."""
+    import torch
+    from hamilton_tpu_torch.ensemble import evolve_ensemble, evolve_ensemble_final
+    from hamilton_tpu_torch.integrators.evolve import evolve_ham_fixed
+    from hamilton_tpu_torch.models import chain
+    from hamilton_tpu_torch.state import Phase
+
+    t_phase = time.perf_counter()
+    f64 = torch.float64
+    ex = chain(n_links=20, device=dev, dtype=f64)
+    ph = jittered_phase(ex, GAUSS_BATCH, f64, dev, 0)
+    # (a) exactly 1 + iters K2a launches a step (f(y) on the 1024 members,
+    # then each iteration on both stages folded into 2048) and one a drift
+    # sample (H(0) and every GAUSS_DRIFT_EVERY steps), and no other kernel
+    samples = 1 + GAUSS_STEPS // GAUSS_DRIFT_EVERY
+    want = (1 + GAUSS_ITERS) * GAUSS_STEPS + samples
+    log(f"phase 19: gauss4 horizon cut to {GAUSS_STEPS} steps from the bench's "
+        f"{GAUSS_BENCH_STEPS} ({samples - 1} drift samples after H(0))")
+    t0 = time.perf_counter()
+    (final, drift), counts = counted(lambda: evolve_ensemble_final(
+        ex.system, ph, GAUSS_DT, GAUSS_STEPS, method="gauss4", iters=GAUSS_ITERS,
+        drift_every=GAUSS_DRIFT_EVERY))
+    el = time.perf_counter() - t0
+    expect_counts("gauss4 drift run", counts, spd_solve=want)
+    counts_a = counts["spd_solve"]
+    if not all_finite(final.q, final.p, drift) or tuple(final.q.shape) != (GAUSS_BATCH, 20):
+        raise AssertionError(f"gauss4: output not finite or shaped {tuple(final.q.shape)}")
+    max_drift = float(drift.max())
+    rate = GAUSS_BATCH * GAUSS_STEPS / el
+    log(f"phase 19: gauss4 {GAUSS_BATCH} x chain-20 float64 iters={GAUSS_ITERS} "
+        f"dt={GAUSS_DT:g}, {GAUSS_STEPS} steps in {el:.3f} s: {rate:.6e} member-steps/s, "
+        f"max|dH/H0| {max_drift:.6e} (bound {GAUSS_DRIFT_BOUND:.0e}), "
+        f"{counts['spd_solve']} K2a launches, in a second process beside phase 1 "
+        f"({card_line()})")
+    if not max_drift < GAUSS_DRIFT_BOUND:
+        raise AssertionError(f"gauss4 drift {max_drift:.3e} >= {GAUSS_DRIFT_BOUND}")
+    summary["gauss4_f64_member_steps_per_sec"] = rate
+    summary["gauss4_f64_max_drift"] = max_drift
+    summary["gauss4_f64_steps"] = GAUSS_STEPS
+    summary["gauss4_f64_seconds"] = el
+    # (b) every library method, card (kernels) against CPU (plain versions)
+    t_part = time.perf_counter()
+    log(f"phase 19: (a) took {t_part - t_phase:.1f} s")
+    sl = Phase(ph.q[:GAUSS_CPU_MEMBERS], ph.p[:GAUSS_CPU_MEMBERS])
+    sl_cpu = Phase(sl.q.cpu(), sl.p.cpu())
+    ex_cpu = chain(n_links=20, device="cpu", dtype=f64)
+    cases = [(m, ex.system, ex_cpu.system, "chain-20") for m in
+             ("rk4", "midpoint", "gauss4", "gauss6", "yoshida4", "tao2", "tao4")]
+    cases.append(("gauss4", generic_chain(20, dev, f64), generic_chain(20, "cpu", f64),
+                  "J-route chain-20"))
+    # a sweep over the masses of a hand-built system: evolve_ensemble pairs
+    # the (B, m) inertia with the members, the stages stay a leading axis and
+    # K2d takes (2, B) members a launch
+    inert = torch.linspace(1.0, 2.0, GAUSS_CPU_MEMBERS, dtype=f64)[:, None].expand(-1, 40)
+    cases.append(("gauss4", generic_chain(20, dev, f64).replace_inertia(inert),
+                  generic_chain(20, "cpu", f64).replace_inertia(inert),
+                  "J-route chain-20, per-member inertia, system_batched=True"))
+    for method, sys_card, sys_cpu, label in cases:
+        iters = (2, 0) if method == "yoshida4" else GAUSS_ITERS
+        run = dict(method=method, iters=iters, emit_every=GAUSS_CPU_STEPS)
+        drive = evolve_ham_fixed
+        if "system_batched" in label:
+            drive = functools.partial(evolve_ensemble, system_batched=True)
+        card_out, counts = counted(lambda: drive(sys_card, sl, GAUSS_DT, GAUSS_CPU_STEPS, **run))
+        cpu_out = drive(sys_cpu, sl_cpu, GAUSS_DT, GAUSS_CPU_STEPS, **run)
+        if label.startswith("J"):
+            launches = {"spd_solve_jac": (1 + GAUSS_ITERS) * GAUSS_CPU_STEPS}
+        else:
+            launches = fixed_step_launches(method, GAUSS_ITERS, GAUSS_CPU_STEPS)
+        expect_counts(f"{method} on {label}", counts, **launches)
+        err = max(float((card_out.q.cpu() - cpu_out.q).abs().max()),
+                  float((card_out.p.cpu() - cpu_out.p).abs().max()))
+        log(f"phase 19 {'ok' if err <= CPU_TOL_F64 else 'FAILED'}: {method} "
+            f"iters={iters} on {label}, {GAUSS_CPU_MEMBERS} members x {GAUSS_CPU_STEPS} "
+            f"steps float64, card vs CPU {err:.3e} (|p| up to "
+            f"{float(cpu_out.p.abs().max()):.2f}), launches {launches}")
+        if not (all_finite(card_out.q, card_out.p) and err <= CPU_TOL_F64):
+            raise AssertionError(f"{method} on {label}: card and CPU differ by {err:.3e} "
+                                 f"(limit {CPU_TOL_F64})")
+
+    log(f"phase 19: (b) took {time.perf_counter() - t_part:.1f} s")
+    t_part = time.perf_counter()
+
+    # (c) gradients through gauss4: every K2a solve's backward launches it
+    # once more (gb = K⁻¹g); remat=True runs each step's forward again in
+    # the backward.  The card's gradient against the CPU's, and the peak
+    # memory of the backward at full width with and without remat
+    def loss_grad(system, phase, n_steps, remat):
+        q = phase.q.detach().clone().requires_grad_(True)
+        out = evolve_ham_fixed(system, Phase(q, phase.p), GAUSS_DT, n_steps,
+                               emit_every=n_steps, iters=GAUSS_ITERS, remat=remat)
+        return torch.autograd.grad((out.q[-1] ** 2).sum() + (out.p[-1] ** 2).sum(), q)[0]
+
+    fwd = (1 + GAUSS_ITERS) * GAUSS_GRAD_STEPS
+    grads = {}
+    for remat in (False, True):
+        g, counts = counted(lambda: loss_grad(ex.system, sl, GAUSS_GRAD_STEPS, remat))
+        expect_counts(f"gauss4 gradient remat={remat}", counts,
+                      spd_solve=(3 if remat else 2) * fwd)
+        grads[remat] = g
+    g_cpu = loss_grad(ex_cpu.system, sl_cpu, GAUSS_GRAD_STEPS, False)
+    scale = float(g_cpu.abs().max())
+    err = float((grads[False].cpu() - g_cpu).abs().max()) / scale
+    err_remat = float((grads[True] - grads[False]).abs().max()) / scale
+    log(f"phase 19: (c)'s gradients took {time.perf_counter() - t_part:.1f} s")
+    peaks = {}
+    for remat in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss_grad(ex.system, ph, GAUSS_GRAD_STEPS, remat)
+        torch.cuda.synchronize()
+        peaks[remat] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    log(f"phase 19 {'ok' if err <= GRAD_TOL and err_remat <= GRAD_TOL else 'FAILED'}: "
+        f"gauss4 gradient of |q|^2 + |p|^2 after {GAUSS_GRAD_STEPS} steps, "
+        f"{GAUSS_CPU_MEMBERS} members: card vs CPU {err:.3e}, remat vs not {err_remat:.3e} "
+        f"(relative), K2a launches {2 * fwd} ({3 * fwd} with remat); at {GAUSS_BATCH} "
+        f"members the backward's peak {peaks[False]:.1f} MiB ({peaks[True]:.1f} MiB with "
+        f"remat)")
+    if not (err <= GRAD_TOL and err_remat <= GRAD_TOL):
+        raise AssertionError(f"gauss4 gradient: card vs CPU {err:.3e}, remat {err_remat:.3e}")
+    summary["gauss4_grad_peak_mib"] = peaks[False]
+    summary["gauss4_grad_peak_mib_remat"] = peaks[True]
+    log(f"phase 19: (a)-(c) took {time.perf_counter() - t_phase:.1f} s")
+    return counts_a
+
+
+GAUSS_CHECKS_FLAG = "--phase-19-checks"
+
+
+def start_gauss4_checks():
+    """Start phase 19's checks, (a)-(c), in a second process on the same
+    card.  The library path they drive is host-bound (one core of the
+    machine's eight) and so is phase 1's comparison of each kernel with its
+    plain version, which times nothing: the two run side by side, and
+    :func:`collect_gauss4_checks` waits for the checks before phase 2.  The
+    process is stopped when this one exits."""
+    import atexit
+
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), GAUSS_CHECKS_FLAG],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=REPO)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    atexit.register(stop)
+    return proc
+
+
+def collect_gauss4_checks(proc):
+    """Wait for the checks' process: ``(its log lines, its summary)``, or
+    raise with its output if it failed."""
+    out, err = proc.communicate()
+    lines = out.splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"phase 19's checks failed (exit {proc.returncode}):\n"
+                             f"{out[-6000:]}\n{err[-6000:]}")
+    return lines[:-1], json.loads(lines[-1])
+
+
+def gauss4_checks_main() -> int:
+    """The second process: phase 19's checks, their log, then their summary
+    as one JSON line."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    summary = {}
+    summary["gauss4_k2a_launches"] = phase_gauss4_checks(torch.device("cuda", 0), summary)
+    print(json.dumps(summary), flush=True)
+    return 0
+
+
+def phase_gauss4(dev, entries, summary, checks):
+    """Phase 19: the checks' log and summary from their process, then, on
+    this one, the host's ms a gauss4 ham_eqs and K2a's time at gauss4's
+    stage shape."""
+    import torch
+    from hamilton_tpu_torch.mechanics import _dtdq, ham_eqs
+    from hamilton_tpu_torch.models import chain
+    from hamilton_tpu_torch.ops.batched_spd import ENTRIES
+    from hamilton_tpu_torch.state import Phase
+    from hamilton_tpu_torch.utils import roofline as rl
+    from hamilton_tpu_torch.utils.profiling import time_queued
+
+    t_phase = time.perf_counter()
+    lines, checked = checks
+    for line in lines:
+        log(line)
+    summary.update(checked)
+    launches = summary.pop("gauss4_k2a_launches")
+    el = summary["gauss4_f64_seconds"]
+    f64 = torch.float64
+    ex = chain(n_links=20, device=dev, dtype=f64)
+    ph = jittered_phase(ex, GAUSS_BATCH, f64, dev, 0)
+    # where the host's time goes: one ham_eqs at the stages' shape, and the
+    # ∂T/∂q sweep (vmap of a VJP of a JVP) inside it, host ms a call
+    stages = Phase(ph.q.repeat(2, 1), ph.p.repeat(2, 1))
+    host = {}
+    for name, fn in (("ham_eqs", lambda: ham_eqs(ex.system, stages)),
+                     ("dtdq", lambda: _dtdq(ex.system, stages.q, stages.p))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        host[name] = (time.perf_counter() - t0) / 20 * 1e3
+        torch.cuda.synchronize()
+    log(f"phase 19: host ms a call at {2 * GAUSS_BATCH} x chain-20 float64: ham_eqs "
+        f"{host['ham_eqs']:.3f} (its dT/dq sweep {host['dtdq']:.3f}); the run's wall a "
+        f"ham_eqs {el / launches * 1e3:.3f} ms")
+    summary["gauss4_host_ms_per_ham_eqs"] = host["ham_eqs"]
+
+    # K2a at the stages' shape: kernel, plain version, one PyTorch call
+    e = next(x for x in ENTRIES if x.name == "spd_solve_batched")
+    batch = 2 * GAUSS_BATCH
+    k, _, b = k2_inputs(batch, 20, f64, dev, 19)
+    got, ref = e.kernel(k, b), e.plain(k, b)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    if not err <= K2_TOL:
+        raise AssertionError(f"K2a at {batch} x 20 float64: kernel differs from its plain "
+                             f"version by {err:.3e}")
+    p1, _ = time_call(lambda: e.plain(k, b), 2)
+    k1, _ = time_queued(lambda: e.kernel(k, b), 100)
+    k2, _ = time_queued(lambda: e.kernel(k, b), 100)
+    p2, _ = time_call(lambda: e.plain(k, b), 2)
+    lib = lambda: torch.linalg.solve_ex(k, b, check_errors=False)[0]  # noqa: E731
+    lib()
+    timer = time_call if reads_back(lib) else time_queued
+    l1, _ = timer(lib, 20)
+    l2, _ = timer(lib, 20)
+    ops, nbytes = k2_work(e, batch, 20, 0, f64)
+    bound_ms, bound_by = rl.bound(ops, nbytes, f64)
+    ms = (k1 + k2) / 2
+    log(f"phase 19: K2a {batch} x n=20 float64 (gauss4's stages): kernel {ms:.5f} ms "
+        f"({k1:.5f}, {k2:.5f}), plain {(p1 + p2) / 2:.3f} ms, one PyTorch call "
+        f"{(l1 + l2) / 2:.5f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    entries.append({
+        "name": f"spd_solve_batched n=20 float64 B={batch} (gauss4 stages)", "route": "cuda",
+        "source": K2_SOURCE, "replaces": e.replaces, "launches": launches,
+        "max_abs_err": err, "ms": ms, "plain_ms": (p1 + p2) / 2, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": (l1 + l2) / 2,
+    })
+
+    log(f"phase 19: {time.perf_counter() - t_phase:.1f} s in this process")
+
+
 def _launch_name(entry):
     """The name an entry's launches are counted under."""
     from hamilton_tpu_torch import kernels
@@ -1687,6 +2002,7 @@ def main() -> int:
                      if (n, swept, comp, batch) != (20, False, (1.0,), 1000)]
 
     # ---- phase 1: kernel against plain version ---------------------------
+    checks = start_gauss4_checks()
     stamp(1)
     phase1_failures = []
 
@@ -1747,6 +2063,9 @@ def main() -> int:
     if phase1_failures:
         raise AssertionError("kernel disagrees with its plain version: "
                              + "; ".join(phase1_failures))
+    t_wait = time.perf_counter()
+    checks = collect_gauss4_checks(checks)
+    log(f"phase 1: waited {time.perf_counter() - t_wait:.1f} s for phase 19's checks")
 
     # ---- phase 2: kernel against physics --------------------------------
     stamp(2)
@@ -2488,6 +2807,10 @@ def main() -> int:
     # ---- phase 18: a user's own family on the generated kernel ---------------------
     stamp(18)
     phase_user_family(dev, user_builds, entries, summary)
+
+    # ---- phase 19: the fixed-step default, gauss4, on the library path ----------
+    stamp(19)
+    phase_gauss4(dev, entries, summary, checks)
     log(f"phases done {time.perf_counter() - t_main:.1f} s into the run")
 
     if "jax" in sys.modules:
@@ -2507,4 +2830,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(gauss4_checks_main() if sys.argv[1:] == [GAUSS_CHECKS_FLAG] else main())

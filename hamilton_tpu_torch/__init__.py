@@ -12,7 +12,8 @@ the ensemble main path — state, system, mechanics, the serial-chain models,
 the library and fused leapfrog with its order-4 compositions and per-member
 parameter sweeps, and the final-state ensemble drivers with f64 drift
 sampling — the library path: GSL-RKF45 ``evolve_ham`` and its
-``stepHam``/``evolveHam`` wrappers — every bundled model (spherical
+``stepHam``/``evolveHam`` wrappers, every other fixed-step method
+(``gauss4`` by default) and ``evolve_ensemble`` — every bundled model (spherical
 pendulum, two-body, room, spring, ellipse and Bézier beside the chain) with
 its fused forms on the card (``csrc/family_step.cu``), the chain's Möbius
 and L⁻¹ forms (``csrc/chain_variants.cu``), the roofline accounting
@@ -23,7 +24,11 @@ the fused step (its backward replays the plain version), the K2 entries
 """
 
 from hamilton_tpu_torch.convert import params_from_numpy, phase_from_numpy
-from hamilton_tpu_torch.ensemble import evolve_ensemble_chunked, evolve_ensemble_final
+from hamilton_tpu_torch.ensemble import (
+    evolve_ensemble,
+    evolve_ensemble_chunked,
+    evolve_ensemble_final,
+)
 from hamilton_tpu_torch.integrators.adaptive import GSL_EPS_DEFAULT, gsl_evolve_to
 from hamilton_tpu_torch.integrators.evolve import (
     evolve_ham,
@@ -145,6 +150,7 @@ __all__ = [
     "serial_chain_forms_on",
     "serial_chain_forms_mobius",
     "serial_chain_forms_linv",
+    "evolve_ensemble",
     "evolve_ensemble_final",
     "evolve_ensemble_chunked",
     "params_from_numpy",

@@ -1,8 +1,11 @@
-"""Ensemble evolution to the final state, with running energy-drift tracking.
+"""Ensemble evolution: trajectories, and the final state with running
+energy-drift tracking.
 
-PyTorch counterpart of the final-state drivers of :mod:`hamilton_tpu.ensemble`
-(``evolve_ensemble_final`` and ``evolve_ensemble_chunked``).  The ensemble is
-one batch-native ``(B, n)`` phase; the drivers run an eager Python loop of
+PyTorch counterpart of :mod:`hamilton_tpu.ensemble`: ``evolve_ensemble``
+emits the trajectory of a batch through ``evolve_ham_fixed``;
+``evolve_ensemble_final`` and ``evolve_ensemble_chunked`` keep only the
+final state.  The ensemble is
+one batch-native ``(B, n)`` phase; the final-state drivers run an eager Python loop of
 ``stepper.step`` calls (each call advances ``stepper.substeps`` dt-steps —
 50 per launch on the fused kernel's main path) and, every ``drift_every``
 dt-steps, fold ``|H(t) − H(0)| / max(|H(0)|, 1)`` into a running per-member
@@ -24,8 +27,7 @@ exists because the TPU emulates f64, is not ported).
 loop (:mod:`hamilton_tpu_torch.utils.observables`): every ``obs_every``
 dt-steps ``observable.update(obs_state, phase, step)`` runs on the current
 phase, and a transforming observable's replacement phase re-inits the
-stepper carry.  Not ported yet: the trajectory-emitting ``evolve_ensemble``
-(M11) and ``evolve_ensemble_sharded`` (M13).
+stepper carry.  Not ported yet: ``evolve_ensemble_sharded`` (M13).
 """
 
 from __future__ import annotations
@@ -35,12 +37,57 @@ from typing import Optional
 
 import torch
 
+from hamilton_tpu_torch.integrators.evolve import evolve_ham_fixed
 from hamilton_tpu_torch.integrators.fixed import make_stepper
 from hamilton_tpu_torch.mechanics import hamiltonian
 from hamilton_tpu_torch.state import Phase
 from hamilton_tpu_torch.system import System
 
-__all__ = ["evolve_ensemble_final", "evolve_ensemble_chunked"]
+__all__ = ["evolve_ensemble", "evolve_ensemble_final", "evolve_ensemble_chunked"]
+
+
+def evolve_ensemble(
+    system: System,
+    phase0: Phase,
+    dt: float,
+    n_steps: int,
+    *,
+    method: str = "gauss4",
+    emit_every: int = 1,
+    iters=6,
+    omega: float = 20.0,
+    system_batched: bool = False,
+    compensated: bool = False,
+    steps_per_call: int = 1,
+    group_unroll: int = 1,
+) -> Phase:
+    """Evolve a batch of initial conditions with a fixed-step integrator.
+
+    ``phase0`` carries one leading batch axis; the result has axes
+    ``(time, batch, n)``.  A shared system, or one whose ``params`` carry a
+    leading batch axis matching the phase batch (a parameter sweep,
+    :meth:`System.replace_params`), evolves batch-native through
+    :func:`~hamilton_tpu_torch.integrators.evolve.evolve_ham_fixed`: the
+    mechanics pair the params member-wise with the state, and on a CUDA
+    tensor every solve is one batched kernel launch.
+
+    ``system_batched=True`` declares a system whose tensors carry the batch
+    axis: batched params, or a hand-built system's inertia vector
+    (:meth:`System.replace_inertia`).  Where the reference maps the whole
+    evolution over the system with ``jax.vmap``, the port pairs such an
+    inertia with the members as it pairs batched params, so this path is
+    the same batch-native one and its solves launch the same kernels.
+    """
+    if system_batched and system.member_batch_ndim() != 1:
+        raise ValueError(
+            f"system_batched=True needs a system with one batch axis on its "
+            f"params or inertia; this one carries {system.member_batch_ndim()}"
+        )
+    return evolve_ham_fixed(
+        system, phase0, dt, n_steps, method=method, emit_every=emit_every,
+        iters=iters, omega=omega, compensated=compensated,
+        steps_per_call=steps_per_call, group_unroll=group_unroll,
+    )
 
 
 def _drift_measure(system: System, phase0: Phase, drift_dtype):
@@ -168,6 +215,7 @@ def evolve_ensemble_final(
     *,
     method: str = "gauss4",
     iters=6,
+    omega: float = 20.0,
     track_drift: bool = True,
     drift_every: int = 100,
     compensated: bool = False,
@@ -190,7 +238,7 @@ def evolve_ensemble_final(
     if n_steps % drift_every != 0:
         raise ValueError(f"{n_steps=} not divisible by {drift_every=}")
     stepper = make_stepper(
-        system, method, iters=iters, compensated=compensated,
+        system, method, iters=iters, omega=omega, compensated=compensated,
         steps_per_call=steps_per_call,
     )
     sub = _check_substeps(stepper, n_steps, drift_every, track_drift)
@@ -222,6 +270,7 @@ def evolve_ensemble_chunked(
     chunk_steps: int,
     method: str = "gauss4",
     iters=6,
+    omega: float = 20.0,
     track_drift: bool = True,
     drift_every: int = 100,
     compensated: bool = False,
@@ -260,7 +309,7 @@ def evolve_ensemble_chunked(
     if track_drift and chunk_steps % drift_every != 0:
         raise ValueError(f"{chunk_steps=} not divisible by {drift_every=}")
     stepper = make_stepper(
-        system, method, iters=iters, compensated=compensated,
+        system, method, iters=iters, omega=omega, compensated=compensated,
         steps_per_call=steps_per_call,
     )
     sub = _check_substeps(stepper, chunk_steps, drift_every, track_drift)

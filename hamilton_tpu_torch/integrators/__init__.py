@@ -1,9 +1,10 @@
 """Time integrators (counterpart of :mod:`hamilton_tpu.integrators`).
 
-Ported so far: the fixed-step leapfrog family (:mod:`.fixed`), the adaptive
-GSL-parity driver (:mod:`.adaptive`, over the Butcher tableaus of
-:mod:`.tableaus`) and the ``evolveHam`` drivers with ``evolve_ham_fixed``
-(:mod:`.evolve`).  The other fixed-step methods are ROADMAP M11.
+Every integrator of the reference: the fixed-step methods (:mod:`.fixed`:
+the Gauss family, ``rk4``, Tao's, the library and fused leapfrog and their
+order-4 compositions), the adaptive GSL-parity driver (:mod:`.adaptive`,
+over the Butcher tableaus of :mod:`.tableaus`) and the ``evolveHam``
+drivers with ``evolve_ham_fixed`` (:mod:`.evolve`).
 """
 
 from hamilton_tpu_torch.integrators.adaptive import (

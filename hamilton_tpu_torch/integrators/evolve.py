@@ -14,11 +14,10 @@ PyTorch counterpart of :mod:`hamilton_tpu.integrators.evolve`:
   runs in phase space.
 
 * :func:`evolve_ham_fixed` — fixed-step evolution with chunked emission, for
-  the ported fixed-step methods (``leapfrog`` and the fused
-  ``leapfrog_fused``/``yoshida4_fused``/``suzuki4_fused``); its default,
-  ``gauss4``, and the other methods raise naming ROADMAP M11.  Everything is
-  differentiable (the library leapfrog through the K2 entries' backwards,
-  the fused methods through the fused step's replay).
+  every method of :data:`~hamilton_tpu_torch.integrators.fixed.FIXED_METHODS`
+  (``gauss4`` by default).  Everything is differentiable (the library
+  methods through the K2 entries' backwards, the fused methods through the
+  fused step's replay).
 """
 
 from __future__ import annotations
@@ -208,7 +207,8 @@ def _captured_tensors(obj, found: dict, seen: set, depth: int = 0) -> None:
             found.setdefault(id(obj), obj)
     elif isinstance(obj, System):
         for name in ("_inertia", "params", "coords", "potential", "inertia_fn",
-                     "jacobian_fn", "mass_matrix_fn", "fused_forms"):
+                     "jacobian_fn", "mass_matrix_fn", "dtdq_fn", "pallas_step",
+                     "fused_forms"):
             rec(getattr(obj, name, None))
     elif isinstance(obj, (list, tuple, set, frozenset)):
         for x in obj:
@@ -328,10 +328,13 @@ def evolve_ham_fixed(
     kernel launch; it must divide ``emit_every`` so emissions land on launch
     boundaries.  Everything is differentiable; with ``remat=True`` each step
     call is checkpointed (:class:`_Remat`): the backward keeps the step
-    carries and recomputes one call's intermediates at a time.  ``omega`` belongs to the
-    ``tao2``/``tao4`` methods and ``group_unroll`` (which must be 1) to the
-    TPU kernel's tiling: the signature keeps both.  A plain Python loop.
-    ``n_steps`` must be divisible by ``emit_every``."""
+    carries and recomputes one call's intermediates at a time.  ``omega`` is
+    the binding frequency of the ``tao2``/``tao4`` methods; ``group_unroll``
+    (which must be 1) belongs to the TPU kernel's tiling, and the signature
+    keeps it.  ``dt`` becomes a 0-d tensor in the state's dtype on its device
+    (a fused method keeps a Python float), so no step reads a value back to
+    the host.  A plain Python loop; ``n_steps`` must be divisible by
+    ``emit_every``."""
     if n_steps % emit_every != 0:
         raise ValueError(f"{n_steps=} not divisible by {emit_every=}")
     if emit_every % steps_per_call != 0:
@@ -344,8 +347,8 @@ def evolve_ham_fixed(
             f"group_unroll={group_unroll}: the port's kernel takes any batch, "
             f"one thread a member; only 1 is accepted"
         )
-    stepper = make_stepper(system, method, iters=iters, compensated=compensated,
-                           steps_per_call=steps_per_call)
+    stepper = make_stepper(system, method, iters=iters, omega=omega,
+                           compensated=compensated, steps_per_call=steps_per_call)
     if isinstance(dt, torch.Tensor) or not method.endswith("_fused"):
         # in the state's dtype, as the reference takes it; a fused method
         # keeps a Python float, which its launches read without a host sync

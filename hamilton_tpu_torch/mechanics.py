@@ -155,11 +155,18 @@ def _dtdq(system: System, q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ``−uᵀ (∂J/∂q_k) w`` with ``u = M·J·w``, as one VJP of ``q ↦ J(q)·w``.
 
     ``J·w`` is the primal output of the linearization, so the cotangent
-    ``u`` costs no extra pass and no Jacobian is materialized."""
+    ``u`` costs no extra pass and no Jacobian is materialized.  An analytic
+    ``system.dtdq_fn`` (∂T/∂q at fixed w) replaces the sweep outright; this
+    function returns the kinetic part of ∂H/∂q, which is −∂T/∂q|_w (the
+    Legendre identity), hence the negation of the override."""
+    if system.dtdq_fn is not None:
+        fn = system.dtdq_fn
+        if system.has_params:
+            return -map_member(system, fn, q, w)
+        return -map_member(system, lambda qq, ww, _p: fn(qq, ww), q, w)
 
-    def one(qi, wi, pp):
+    def one(qi, wi, inert, pp):
         coords1 = system.coords_bound(pp)
-        inert = system.inertia_of(pp).to(qi.dtype)
 
         def jw(qq):
             return jvp(coords1, (qq,), (wi,))[1]
@@ -168,7 +175,11 @@ def _dtdq(system: System, q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         # in q's dtype (see System.jacobian)
         return -vjp_fn((inert * jw_val).to(jw_val.dtype))[0].to(qi.dtype)
 
-    return map_member(system, one, q, w)
+    # the inertia, shared or batched like the members, broadcast to the
+    # state's batch axes and mapped with it
+    inertia = system.inertia.to(q.dtype)
+    inertia = inertia.expand(*q.shape[:-1], inertia.shape[-1])
+    return map_member(system, one, q, w, inertia)
 
 
 def ham_eqs(system: System, phase: Phase) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -14,7 +14,9 @@ torch operations only and no Python branching on tensor values, so that
 Parameter sweeps: ``params`` leaves may carry extra leading batch axes
 (:meth:`System.replace_params`); :func:`map_member` pairs them with the
 trailing batch axes of the state, so an ensemble ``(B, n)`` evolves under
-``(B, ...)``-batched params member by member.
+``(B, ...)``-batched params member by member.  A hand-built system's
+inertia vector may carry the batch axes instead
+(:meth:`System.replace_inertia`), and pairs with the state the same way.
 """
 
 from __future__ import annotations
@@ -60,6 +62,8 @@ class System:
         name: str = "system",
         jacobian_fn: Optional[Callable[..., torch.Tensor]] = None,
         mass_matrix_fn: Optional[Callable[..., torch.Tensor]] = None,
+        dtdq_fn: Optional[Callable[..., torch.Tensor]] = None,
+        pallas_step: Optional[Callable[..., object]] = None,
         params=None,
         inertia_fn: Optional[Callable[[Params], torch.Tensor]] = None,
         fused_forms: Optional[Callable[["System"], object]] = None,
@@ -102,6 +106,14 @@ class System:
         self.name = name
         self.jacobian_fn = jacobian_fn
         self.mass_matrix_fn = mass_matrix_fn
+        # ``dtdq_fn(q, w[, params]) -> (n,)``: the analytic ∂T/∂q at fixed
+        # generalized velocity w, replacing the dynamics' VJP sweep
+        self.dtdq_fn = dtdq_fn
+        # ``pallas_step(system, iters=..., compensated=..., steps_per_call=...,
+        # composition=...) -> Stepper``: a custom fused-stepper factory that
+        # the fused methods prefer to ``fused_forms``, called with the live
+        # system (the reference's name for it)
+        self.pallas_step = pallas_step
         # ``fused_forms(system) -> ops.fused_step.FusedForms``: the closed-form
         # family contract that ``method="leapfrog_fused"`` builds its stepper
         # from, called with the live system so it reads the current params
@@ -132,6 +144,19 @@ class System:
                 "edits must keep each leaf's base shape"
             )
         return pb
+
+    def member_batch_ndim(self) -> int:
+        """Number of leading batch axes the system's tensors carry: those of
+        the ``params`` leaves (:meth:`param_batch_ndim`) or of a stored
+        inertia (:meth:`replace_inertia`), which agree where both are
+        batched.  They pair with the state's trailing batch axes."""
+        pb = self.param_batch_ndim()
+        ib = 0 if self._inertia is None else self._inertia.ndim - 1
+        if pb and ib and pb != ib:
+            raise ValueError(
+                f"params carry {pb} batch axes but the inertia carries {ib}"
+            )
+        return max(pb, ib)
 
     def _member_params(self, params):
         """The params of a single-member call: an explicit member ``params``
@@ -206,6 +231,31 @@ class System:
         new.param_batch_ndim()  # validate the leaves' batching now
         return new
 
+    def replace_inertia(self, inertia) -> "System":
+        """A copy with a new stored inertia vector: shape ``(m,)``, or
+        ``(B, m)`` with leading batch axes for a sweep over the masses of a
+        hand-built system, paired member by member with the state's trailing
+        batch axes like batched params.  The copy drops ``mass_matrix_fn``,
+        ``dtdq_fn``, ``fused_forms`` and ``pallas_step``: closed forms
+        written for the old masses.  A system that derives its inertia
+        from params (``inertia_fn``) sweeps its params instead."""
+        if self.inertia_fn is not None:
+            raise ValueError(
+                f"system {self.name!r} derives its inertia from params "
+                f"(inertia_fn): batch its params with replace_params instead"
+            )
+        inertia = torch.as_tensor(inertia, device=self.device, dtype=self.dtype)
+        if inertia.ndim < 1 or inertia.shape[-1] != self.m:
+            raise ValueError(
+                f"replace_inertia: shape {tuple(inertia.shape)} must end in "
+                f"the system's m={self.m} (batch axes lead)"
+            )
+        new = self.to()
+        new._inertia = inertia
+        new.mass_matrix_fn = new.dtdq_fn = new.fused_forms = new.pallas_step = None
+        new.member_batch_ndim()  # validate against batched params now
+        return new
+
     # -- dimensions -----------------------------------------------------
     @property
     def m(self) -> int:
@@ -275,24 +325,30 @@ def map_member(system: System, fn, *args):
     batch axes of the state: an ensemble ``(B, n)`` maps member-wise with
     ``(B, ...)``-batched params, while extra leading state axes (time,
     stages) map with the params held fixed.  Unbatched params are shared by
-    every member; a system without params hands ``fn`` None."""
+    every member; a system without params hands ``fn`` None.  A batched
+    stored inertia (:meth:`System.replace_inertia`) must match the same
+    trailing axes; the mechanics broadcast it against the state."""
     nd = args[0].ndim - 1
-    pb = system.param_batch_ndim()
-    if pb > nd:
+    mb = system.member_batch_ndim()
+    if mb > nd:
         raise ValueError(
-            f"params carry {pb} batch axes but the state has only {nd}; "
-            f"batched params align with the trailing state batch axes "
-            f"(state {tuple(args[0].shape)})"
+            f"the system carries {mb} batch axes but the state has only {nd}; "
+            f"batched params or inertia align with the trailing state batch "
+            f"axes (state {tuple(args[0].shape)})"
         )
-    if pb:
-        lead = args[0].shape[nd - pb:nd]
-        for k, v in system.params.items():
-            if tuple(v.shape[:pb]) != tuple(lead):
+    if mb:
+        lead = args[0].shape[nd - mb:nd]
+        batched = dict(system.params) if system.param_batch_ndim() else {}
+        if system._inertia is not None and system._inertia.ndim > 1:
+            batched["inertia"] = system._inertia
+        for k, v in batched.items():
+            if tuple(v.shape[:mb]) != tuple(lead):
                 raise ValueError(
-                    f"params batch {tuple(v.shape[:pb])} of {k!r} does not "
+                    f"batch {tuple(v.shape[:mb])} of {k!r} does not "
                     f"equal the state's trailing batch axes {tuple(lead)} "
                     f"(broadcast size-1 axes explicitly)"
                 )
+    pb = system.param_batch_ndim()
 
     def g(params, *a):
         return fn(*a, params)
@@ -315,17 +371,28 @@ def mk_system(
     name: str = "system",
     jacobian_fn=None,
     mass_matrix_fn=None,
+    dtdq_fn=None,
+    pallas_step=None,
     params=None,
     inertia_fn=None,
     fused_forms=None,
 ) -> System:
     """Create a system from generalized-coordinate data (counterpart of
     :func:`hamilton_tpu.system.mk_system`); with ``n`` given, the user
-    functions are shape-checked at construction."""
+    functions are shape-checked at construction.
+
+    ``dtdq_fn(q, w[, params]) -> (n,)`` is an optional analytic kinetic
+    gradient ``∂T/∂q`` at fixed generalized velocity ``w = q̇``
+    (``½ ∂(wᵀK(q)w)/∂q``): the dynamics use ``∂H/∂q = ∇U − ∂T/∂q|_w``, so it
+    replaces the VJP sweep of :func:`~hamilton_tpu_torch.mechanics.ham_eqs`
+    and must equal it.  ``pallas_step`` is a custom fused-stepper factory
+    (see :func:`~hamilton_tpu_torch.integrators.fixed.make_stepper`), which
+    the fused methods prefer to ``fused_forms``."""
     system = System(
         inertia, coords, potential, device=device, dtype=dtype, n=n,
         name=name, jacobian_fn=jacobian_fn, mass_matrix_fn=mass_matrix_fn,
-        params=params, inertia_fn=inertia_fn, fused_forms=fused_forms,
+        dtdq_fn=dtdq_fn, pallas_step=pallas_step, params=params,
+        inertia_fn=inertia_fn, fused_forms=fused_forms,
     )
     if n is not None:
         _validate_system(system, n)
@@ -354,24 +421,26 @@ def _validate_system(system: System, n: int) -> None:
         return tuple(torch.as_tensor(fn(*args)).shape)
 
     checks = [
-        ("coords function", system.coords, (system.m,)),
-        ("potential function", system.potential, None),
-        ("jacobian_fn", system.jacobian_fn, (system.m, n)),
-        ("mass_matrix_fn", system.mass_matrix_fn, (n, n)),
+        ("coords function", system.coords, (system.m,), 1),
+        ("potential function", system.potential, None, 1),
+        ("jacobian_fn", system.jacobian_fn, (system.m, n), 1),
+        ("mass_matrix_fn", system.mass_matrix_fn, (n, n), 1),
+        ("dtdq_fn", system.dtdq_fn, (n,), 2),
     ]
-    for label, fn, want in checks:
+    for label, fn, want, n_args in checks:
         if fn is None:
             continue
+        inputs = ", ".join([f"({n},)"] * n_args)
         try:
-            got = shape_of(fn, probe)
+            got = shape_of(fn, *[probe] * n_args)
         except Exception as e:
-            raise ValueError(f"{label} failed on a ({n},) input: {e}") from e
+            raise ValueError(f"{label} failed on {inputs} inputs: {e}") from e
         if want is None:
             if got not in ((), (1,)):
                 raise ValueError(f"potential must return a scalar, got shape {got}")
         elif got != want:
             raise ValueError(
-                f"{label} must map ({n},) -> {want}, got output shape {got}"
+                f"{label} must map {inputs} -> {want}, got output shape {got}"
             )
 
 
@@ -386,12 +455,15 @@ def mk_system_cart(
     name: str = "system",
     jacobian_fn=None,
     mass_matrix_fn=None,
+    dtdq_fn=None,
+    pallas_step=None,
     params=None,
     inertia_fn=None,
     fused_forms=None,
 ) -> System:
     """Create a system with the potential stated in *Cartesian* coordinates
-    (counterpart of :func:`hamilton_tpu.system.mk_system_cart`)."""
+    (counterpart of :func:`hamilton_tpu.system.mk_system_cart`); the other
+    arguments as in :func:`mk_system`."""
     if params is not None:
         def potential(q, p):
             return potential_cart(coords(q, p), p)
@@ -401,7 +473,8 @@ def mk_system_cart(
     return mk_system(
         inertia, coords, potential, device=device, dtype=dtype, n=n,
         name=name, jacobian_fn=jacobian_fn, mass_matrix_fn=mass_matrix_fn,
-        params=params, inertia_fn=inertia_fn, fused_forms=fused_forms,
+        dtdq_fn=dtdq_fn, pallas_step=pallas_step, params=params,
+        inertia_fn=inertia_fn, fused_forms=fused_forms,
     )
 
 

@@ -205,8 +205,12 @@ def test_argument_checks():
         tp.evolve_ham(ex.system, ex.init_phase, [0.0, 0.1], batch_mode="lockstep")
     sp = tp.spring(device="cpu", dtype=F64)
     assert tp.make_stepper(sp.system, "leapfrog_fused").order == 2
-    with pytest.raises(NotImplementedError, match="M11"):
-        tp.make_stepper(sp.system, "rk4")
+    rk4 = tp.make_stepper(sp.system, "rk4")
+    assert (rk4.order, rk4.symplectic) == (4, False)
+    out = rk4.extract(rk4.step(rk4.init(sp.init_phase), torch.tensor(0.01, dtype=F64)))
+    assert out.q.shape == sp.init_phase.q.shape and bool(torch.isfinite(out.q).all())
+    with pytest.raises(ValueError, match="unknown fixed-step method"):
+        tp.make_stepper(sp.system, "rk5")
 
 
 def test_host_reads_count_attempts():

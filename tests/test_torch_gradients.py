@@ -1,12 +1,13 @@
 """Gradients through the port's trajectories against ``jax.grad`` on the CPU.
 
 The mirror of ``tests/test_gradients.py``: reverse-mode differentiation
-through ``evolve_ham_fixed`` — the leapfrog's fixed-point iterations, its
-batched SPD solves (the K2 entries' backwards), the VJP-of-JVP force and
-``to_phase`` — in float64.  The port has no ``gauss4`` yet (ROADMAP M11), so
-both packages run the ``leapfrog`` where the JAX test uses its default.  The
-same inputs go through both; the gradients agree to 1e-9 relative, and to a
-central finite difference at the JAX tests' own rtol.
+through ``evolve_ham_fixed`` — the fixed-point iterations of the leapfrog and
+of ``gauss4``, the batched SPD solves (the K2 entries' backwards), the
+VJP-of-JVP force and ``to_phase`` — in float64.  The per-method cases run
+every library method the JAX test runs (``gauss4``, ``leapfrog``, ``rk4``,
+``tao2``) and the fused ones; the other cases run the ``leapfrog`` in both
+packages.  The same inputs go through both; the gradients agree to 1e-9
+relative, and to a central finite difference at the JAX tests' own rtol.
 """
 
 import numpy as np
@@ -41,8 +42,8 @@ def _t_final_q0(system, ph0, **kw):
 
 
 def _j_final_q0(system, ph0, **kw):
-    out = j_evolve_ham_fixed(system, ph0, 0.01, 30, emit_every=30, iters=3,
-                             method="leapfrog", **kw)
+    kw.setdefault("method", "leapfrog")
+    out = j_evolve_ham_fixed(system, ph0, 0.01, 30, emit_every=30, iters=3, **kw)
     return out.q[-1, ..., 0]
 
 
@@ -69,11 +70,11 @@ def test_grad_wrt_initial_momentum_matches_fd():
     np.testing.assert_allclose(float(g[0]), float(fd), rtol=1e-5)
 
 
-@pytest.mark.parametrize("method", ["leapfrog", "leapfrog_fused", "yoshida4_fused",
-                                    "suzuki4_fused"])
+@pytest.mark.parametrize("method", ["gauss4", "leapfrog", "rk4", "tao2", "leapfrog_fused",
+                                    "yoshida4_fused", "suzuki4_fused"])
 def test_grad_finite_all_methods(method):
-    """Every ported method differentiates (the fused ones through the fused
-    step's replay); the library leapfrog's gradient is JAX's."""
+    """Every method differentiates (the fused ones through the fused step's
+    replay); each library method's gradient is JAX's."""
     ex = _dp()
     ph0 = ex.init_phase
     batched = method.endswith("_fused")  # the fused steppers take (B, n)
@@ -83,9 +84,11 @@ def test_grad_finite_all_methods(method):
     out = _t_final_q0(ex.system, tp.Phase(q, p0), method=method)
     (g,) = torch.autograd.grad(out.sum(), q)
     assert bool(torch.isfinite(g).all()) and bool((g != 0).any())
-    jg = jax.grad(lambda qq: _j_final_q0(JDP.system, JPhase(qq, JDP.init_phase.p)))(
+    library = not batched
+    jg = jax.grad(lambda qq: _j_final_q0(JDP.system, JPhase(qq, JDP.init_phase.p),
+                                         method=method if library else "leapfrog"))(
         JDP.init_phase.q)
-    if method == "leapfrog":
+    if library:
         _rel_close(jg, g.numpy())
     elif method == "leapfrog_fused":
         # (3, 3) iterations: the same fixed points as the library leapfrog
@@ -230,8 +233,12 @@ def test_evolve_ham_fixed_emission_and_refusals():
     with pytest.raises(ValueError, match="kernel-call boundaries"):
         tp.evolve_ham_fixed(ex.system, phb, 0.01, 12, method="leapfrog_fused",
                             emit_every=4, steps_per_call=3)
-    with pytest.raises(NotImplementedError, match="M11"):
-        tp.evolve_ham_fixed(ex.system, ex.init_phase, 0.01, 12)
+    default = tp.evolve_ham_fixed(ex.system, ex.init_phase, 0.01, 12, emit_every=4)
+    jdefault = j_evolve_ham_fixed(JDP.system, JDP.init_phase, 0.01, 12, emit_every=4)
+    assert default.q.shape == (4, 2)  # gauss4, the default method
+    np.testing.assert_allclose(np.asarray(jdefault.q), default.q.numpy(), rtol=0, atol=1e-13)
+    with pytest.raises(ValueError, match="unknown fixed-step method"):
+        tp.evolve_ham_fixed(ex.system, ex.init_phase, 0.01, 12, method="gauss5")
 
 
 # ----------------------------------------------------------------------

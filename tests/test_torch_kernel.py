@@ -10,6 +10,8 @@ conftest::
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernel.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -700,6 +702,57 @@ def test_k2_backward_launches_its_kernel(card, entry):
     want = torch.autograd.grad(entry.entry(*cpu), cpu, g.cpu())
     for x, y in zip(got, want):
         assert float((x.cpu() - y).abs().max()) <= 1e-12 * max(1.0, float(y.abs().max()))
+
+
+# ----------------------------------------------------------------------
+# The library fixed-step default, gauss4, on the K2 kernels
+# ----------------------------------------------------------------------
+
+
+def _generic_chain(n, device):
+    """chain(n_links=n)'s physics from its coordinate map alone: the J route."""
+    def coords(q):
+        return torch.cat([torch.cumsum(torch.sin(q), 0), torch.cumsum(1.0 - torch.cos(q), 0)])
+
+    return tp.mk_system_cart(torch.ones(2 * n), coords, lambda xs: 5.0 * torch.sum(xs[n:]),
+                             device=device, dtype=torch.float64, n=n)
+
+
+@pytest.mark.parametrize("route", ["K", "J", "J_inertia_sweep"])
+def test_gauss4_on_the_card_matches_the_cpu(card, route):
+    """gauss4 (iters=6) on 6 members of chain-20, float64, 10 steps: on the
+    card every ham_eqs is one K2a launch (K route: the stages folded into
+    one 12-member solve) or one K2d launch (J route, from √M·J; with a
+    per-member inertia through ``evolve_ensemble(system_batched=True)``, the
+    stages a leading axis), 1 + iters a step and nothing else; the result
+    agrees with the CPU's plain versions to 1e-12."""
+    rng = np.random.default_rng(12)
+    q = 0.5 + 0.01 * rng.standard_normal((6, 20))
+    p = 0.1 * rng.standard_normal((6, 20))
+    if route == "K":
+        sys_card = tp.chain(n_links=20, device=card, dtype=torch.float64).system
+        sys_cpu = tp.chain(n_links=20, device="cpu", dtype=torch.float64).system
+        launcher = kernels.spd_solve_launch
+    else:
+        sys_card, sys_cpu = _generic_chain(20, card), _generic_chain(20, "cpu")
+        launcher = kernels.spd_solve_jac_launch
+    evolve = tp.evolve_ham_fixed
+    if route == "J_inertia_sweep":
+        inertia = 1.0 + rng.random((6, 1)) * np.ones((1, 40))
+        sys_card = sys_card.replace_inertia(torch.tensor(inertia))
+        sys_cpu = sys_cpu.replace_inertia(torch.tensor(inertia))
+        evolve = functools.partial(tp.evolve_ensemble, system_batched=True)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    got = evolve(sys_card, tp.phase_from_numpy(q, p, device=card, dtype=torch.float64),
+                 1e-3, 10, emit_every=10)
+    counts = kernels.launch_counts()
+    assert launcher.launches == 70 and sum(counts.values()) == 70, counts
+    want = evolve(sys_cpu, tp.phase_from_numpy(q, p, device="cpu", dtype=torch.float64),
+                  1e-3, 10, emit_every=10)
+    assert got.q.device == card
+    for x, y in ((got.q, want.q), (got.p, want.p)):
+        assert float((x.cpu() - y).abs().max()) <= 1e-12
 
 
 # ----------------------------------------------------------------------

@@ -213,7 +213,11 @@ def test_system_checks():
     with pytest.raises(ValueError, match="fused_solver must be one of"):
         tp.chain(n_links=3, fused_solver="qr", device="cpu", dtype=F64)
     ex = tp.chain(n_links=3, device="cpu", dtype=F64)
-    with pytest.raises(NotImplementedError, match="M11"):
-        tp.make_stepper(ex.system, "gauss4")
+    g4 = tp.make_stepper(ex.system)
+    assert (g4.order, g4.symplectic) == (4, True)
+    out = g4.extract(g4.step(g4.init(ex.init_phase), torch.tensor(0.01, dtype=F64)))
+    assert out.q.shape == (3,) and bool(torch.isfinite(out.q).all())
+    with pytest.raises(ValueError, match="unknown fixed-step method"):
+        tp.make_stepper(ex.system, "gauss8")
     pos = tp.underlying_pos(ex.system, torch.zeros(4, 3, dtype=F64))
     assert pos.shape == (4, 6)

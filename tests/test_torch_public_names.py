@@ -16,7 +16,6 @@ import hamilton_tpu_torch
 
 #: Reference names the port does not have yet: name → ROADMAP §1 item.
 UNPORTED = {
-    "evolve_ensemble": "M11",
     "evolve_ensemble_sharded": "M13",
     # diagnostics, Poincaré sections and checkpoints
     "check_finite_phase": "M12",
