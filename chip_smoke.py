@@ -40,7 +40,15 @@ raises as soon as one fails:
    (random SPD K, and √M·J with m = 2n and m = n, from a seed), bit for
    bit, and each kernel's device time at 16384 × 20 (m = 40; on one operand
    set, and on four in turn) beside its plain version's and one PyTorch
-   call's, and K2d's at 16384 × n = m = 3 in float64 (spring's shape);
+   call's, and K2d's at 16384 × n = m = 3 in float64 (spring's shape); then
+   in bfloat16 (a storage type: the kernels widen to float32, run the
+   float32 member chain and round once, as the plain versions do): each
+   entry against its plain version bit for bit on B=1000, 4097 and 16384 at
+   n = 3, 20, 32 (J at m = 2n and m = n), the bf16 library path (a leapfrog
+   (2,0) of 16384 × chain-20 on the K route and on the J route, one
+   ``ham_eqs`` on each) with its exact launches, and each entry timed at
+   16384 × 20 beside its plain version, the float32 entry and the PyTorch
+   call where ``torch.linalg`` takes bf16 on the card;
 8. adaptive GSL-RKF45 ``evolve_ham`` at full width (``bench.py::
    phase_adaptive``): 16384 × chain-20, one shared controller over t ∈ [0, 1],
    float64 at GSL's eps and float32 at eps 1e-6 — exactly six K2a launches
@@ -158,7 +166,29 @@ raises as soon as one fails:
     card, started after the build beside phase 1 (both host-bound on one
     core; phase 1 times nothing) and waited for before phase 2; phase 19
     prints their log and times, in this process, the host's ms a gauss4
-    ``ham_eqs`` and K2a at the stage shape.
+    ``ham_eqs`` and K2a at the stage shape;
+20. the tools and examples (``hamilton_tpu_torch/examples/``, ``cli``,
+    ``utils``): (a) ``chaos_scan.main(["--fused", "--cols", "128", "--rows",
+    "64"])`` — 16384 pair members, 4000 steps at 40 a launch: exit 0 and
+    exactly 100 K1 launches and nothing else, its first launch against the
+    plain version within ``TOL``'s float32 limits, K1 timed at that shape;
+    (b) ``ensemble_sweep.main(["--method", "leapfrog_fused", "--batch",
+    "16384", "--steps", "20000", "--mass-grid", "8", "--json"])``
+    (BASELINE configs[4]'s size, per-member m₂): exactly 2 × 20000 K1
+    launches (one step a launch, the run and its twin), finite λ and drift,
+    its member-steps/s; (c) in the second process after phase 19's checks,
+    host-bound, rates recorded and never claimed: the sweep at its gauss4
+    default on 16384 members cut to ``SWEEP_GAUSS4_STEPS``, ``hmc.main`` at
+    16384 chains × 100 iterations with its exact K2e, K2c and K2d launches,
+    and the CLI headless (``doublepend`` 12 frames and chain-20 3 frames at
+    ``rkf45``, ``--method gauss4 doublepend``), each final state against the
+    same run on the CPU to 1e-12 with its seconds a frame; (d) a Poincaré
+    section of a 16384-member float64 trajectory on the card against the
+    CPU's (1e-12, the same mask), a 50-step guarded fused loop under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host read until
+    ``checked`` returns; a poisoned member raises naming its step), and a
+    checkpoint of the fused carry saved from the card and resumed bit for
+    bit; and hmc's K2 kernels timed at its shape.
 
 Every kernel's row gives its launches on its main path, its device time
 and its plain version's, the bound (the larger of its operations over the
@@ -176,6 +206,7 @@ from __future__ import annotations
 import functools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -251,6 +282,17 @@ K2_ROTATE = 4
 K2_ROWS = (("spd_solve_batched", 20, 0, "float64"), ("cholesky_batched", 20, 0, "float32"),
            ("cho_solve_batched", 20, 0, "float32"), ("spd_solve_jac", 20, 40, "float64"),
            ("spd_solve_jac", 3, 3, "float64"), ("cholesky_jac", 20, 40, "float32"))
+# bfloat16 K2 (phase 7): the entries widen bf16 to float32, run the float32
+# member chain and round each result once, as their plain versions do, so
+# the two are equal bit for bit (K2_TOL) at these n; the kernels line's bf16
+# rows at the float32 rows' shapes (16384 x 20, m = 40), with the launches
+# of a bfloat16 library leapfrog on each route (BF16_STEPS steps of 16384 x
+# chain-20, K route K2b/K2c and J route K2e/K2c) and one ham_eqs on each
+# (K2a, K2d)
+K2_BF16_SIZES = (3, 20, 32)
+K2_BF16_ROWS = (("spd_solve_batched", 20, 0), ("cholesky_batched", 20, 0),
+                ("cho_solve_batched", 20, 0), ("spd_solve_jac", 20, 40), ("cholesky_jac", 20, 40))
+BF16_STEPS = 10
 # Adaptive float64 at GSL's eps: the JAX package's CPU run of the same
 # configuration at 64 members read max|ΔH/H₀| = 8.22e-9 (75 attempts);
 # the bound allows 12x that for the max over 16384 members.
@@ -351,6 +393,38 @@ GAUSS_DRIFT_BOUND = 1e-12
 # the library fixed-step methods on the card against the CPU: 8 members of
 # chain-20 (and the J-route chain for gauss4), float64, 20 steps; the
 # gradient through GAUSS_GRAD_STEPS gauss4 steps (GRAD_TOL relative)
+# phase 20, the tools and examples: chaos_scan --fused at the bench's
+# ensemble size (128 x 64 cells, 16384 pair members; 4000 steps at 40 a
+# launch: 100 K1 launches), ensemble_sweep --method leapfrog_fused at
+# BASELINE configs[4]'s size (one step a launch, twice: 40000 K1 launches),
+# and in the second process the host-bound ones: the sweep at its gauss4
+# default on 16384 members, cut from 20000 steps to SWEEP_GAUSS4_STEPS (its
+# 7 host-bound ham_eqs a step at n = 2 took 76 ms a step on an H100 80GB
+# HBM3 host: 2 x 350 steps, the run and its twin, fit about a minute), hmc at
+# 16384 chains, and the CLI headless on the card against the CPU
+CHAOS_ARGV = ["--fused", "--cols", "128", "--rows", "64", "--device", "cuda"]
+CHAOS_LAUNCHES = 100
+SWEEP_ARGV = ["--method", "leapfrog_fused", "--batch", "16384", "--steps", "20000",
+              "--mass-grid", "8", "--device", "cuda", "--json"]
+SWEEP_LAUNCHES = 2 * 20000
+SWEEP_GAUSS4_STEPS = 350
+HMC_ARGV = ["--chains", "16384", "--iters", "100", "--warmup", "25", "--device", "cuda"]
+HMC_ITERS, HMC_L = 100, 16
+# (label, argv, frames) of the CLI on the card against the CPU, to
+# CPU_TOL_F64; the loop aims at 12 frames a second
+CLI_RUNS = (("doublepend rkf45", ["doublepend"], 12), ("chain n=20 rkf45", ["chain"], 3),
+            ("doublepend gauss4", ["--method", "gauss4", "doublepend"], 3))
+# chaos_scan's first launch against its plain version: TOL's float32 limits
+# but the absolute q, p one.  TOL's 1e-6 was read on chain-20 at dt = 5e-4;
+# the scan steps dt = 5e-3 with three momentum iterations, and the kernel's
+# FMA contractions (one rounding where the plain version takes two) carry
+# further through 40 such steps: on an H100 80GB HBM3 the reading was
+# 1.431e-6 in p (|q|, |p| ≤ 3.998: six ulps) and 7.15e-7 in q; the limit
+# sits about twice above, as CHAIN5_VDOT's do
+CHAOS_TOL = dict(TOL["float32"], abs=3e-6)
+POINCARE_STEPS, POINCARE_EMIT, POINCARE_CAP = 2000, 10, 24
+GUARD_STEPS = 50
+
 GAUSS_CPU_MEMBERS = 8
 GAUSS_CPU_STEPS = 20
 GAUSS_GRAD_STEPS = 5
@@ -1823,6 +1897,7 @@ def gauss4_checks_main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     summary = {}
     summary["gauss4_k2a_launches"] = phase_gauss4_checks(torch.device("cuda", 0), summary)
+    phase_tools_checks(torch.device("cuda", 0), summary)
     print(json.dumps(summary), flush=True)
     return 0
 
@@ -1900,6 +1975,425 @@ def phase_gauss4(dev, entries, summary, checks):
     })
 
     log(f"phase 19: {time.perf_counter() - t_phase:.1f} s in this process")
+
+
+def phase_k2_bfloat16(dev, by_name, k2_library, f32_ms, entries):
+    """Phase 7 in bfloat16: each K2 entry against its plain version, bit for
+    bit, at ``K2_BATCHES`` x ``K2_BF16_SIZES`` (the J entries at m = 2n and
+    m = n); the bf16 library path (a leapfrog on each route, one ham_eqs on
+    each) at 16384 x chain-20, counted; and each entry timed at 16384 x 20
+    (m = 40) on one operand set and on four in turn, beside its plain
+    version, the float32 entry and the PyTorch call where ``torch.linalg``
+    takes bf16 on the card."""
+    import torch
+    from hamilton_tpu_torch.ensemble import evolve_ensemble_final
+    from hamilton_tpu_torch.mechanics import ham_eqs
+    from hamilton_tpu_torch.models import chain
+    from hamilton_tpu_torch.utils import roofline as rl
+    from hamilton_tpu_torch.utils.profiling import time_queued
+
+    t_phase = time.perf_counter()
+    bf, f32 = torch.bfloat16, torch.float32
+    errs = {name: 0.0 for name in by_name}
+    for batch in K2_BATCHES:
+        for n in K2_BF16_SIZES:
+            k, js, b = k2_inputs(batch, n, bf, dev, 3000 * n + batch)
+            js_n = k2_inputs(batch, n, bf, dev, 3000 * n + batch, m=n)[1]
+            row = []
+            for e, m in [(e, m) for e in by_name.values()
+                         for m in ((2 * n, n) if e.from_jac else (0,))]:
+                args = k2_args(e, k, js_n if m == n else js, b)
+                got, want = e.kernel(*args), e.plain(*args)
+                torch.cuda.synchronize()
+                if got.dtype != bf or not all_finite(got, want):
+                    raise AssertionError(f"{e.name} bfloat16 B={batch} n={n} m={m}: "
+                                         f"{got.dtype}, or not finite")
+                err = float((got.float() - want.float()).abs().max())
+                errs[e.name] = max(errs[e.name], err)
+                row.append(f"{e.name}{f' m={m}' if m else ''} {err:.1e}")
+                if not (err <= K2_TOL and torch.equal(got, want)):
+                    raise AssertionError(f"{e.name} bfloat16 B={batch} n={n} m={m}: kernel "
+                                         f"differs from its plain version by {err:.3e}")
+            log(f"phase 7 ok: bfloat16 B={batch} n={n}: " + ", ".join(row))
+
+    # the bf16 library path a user runs: chain-20 on the K route and on the
+    # J route, a leapfrog (2,0) and one ham_eqs each
+    exb = chain(n_links=20, device=dev, dtype=bf)
+    phb = jittered_phase(chain(n_links=20, device=dev, dtype=f32), BATCH, f32, dev, 0).astype(bf)
+    gen = generic_chain(20, dev, bf)
+
+    def bf16_path():
+        outs = []
+        for system in (exb.system, gen):
+            final, _ = evolve_ensemble_final(system, phb, 1e-2, BF16_STEPS, method="leapfrog",
+                                             iters=(2, 0), track_drift=False,
+                                             drift_every=BF16_STEPS)
+            outs += [final.q, final.p, *ham_eqs(system, phb)]
+        return outs
+
+    outs, counts = counted(bf16_path)
+    expect_counts("bfloat16 library path", counts, cholesky=BF16_STEPS + 1,
+                  cholesky_jac=BF16_STEPS + 1, cho_solve=2 * 5 * BF16_STEPS, spd_solve=1,
+                  spd_solve_jac=1)
+    if not all_finite(*outs) or any(t.dtype != bf for t in outs):
+        raise AssertionError("bfloat16 library path: output not finite or not bfloat16")
+    log(f"phase 7: bfloat16 library path, 16384 x chain-20, {BF16_STEPS} leapfrog (2,0) "
+        f"steps of 1e-2 and one ham_eqs on the K route and on the J route: launches {counts}")
+    launches = {"spd_solve_batched": counts["spd_solve"], "cholesky_batched": counts["cholesky"],
+                "cho_solve_batched": counts["cho_solve"],
+                "spd_solve_jac": counts["spd_solve_jac"], "cholesky_jac": counts["cholesky_jac"]}
+    del outs
+
+    for name, n, m in K2_BF16_ROWS:
+        e = by_name[name]
+        sets = [k2_args(e, *k2_inputs(BATCH, n, bf, dev, 7 + s, m=m or None))
+                for s in range(K2_ROTATE)]
+        args = sets[0]
+        e.kernel(*args)
+        e.plain(*args)  # warm-up
+        p1, _ = time_call(lambda: e.plain(*args), 2)
+        k1, _ = time_queued(lambda: e.kernel(*args), 100)
+        k2, _ = time_queued(lambda: e.kernel(*args), 100)
+        p2, _ = time_call(lambda: e.plain(*args), 2)
+        turn = iter(range(10**9))
+        rot, _ = time_queued(lambda: e.kernel(*sets[next(turn) % K2_ROTATE]), 100)
+        lib_ms, lib_note = None, "none: bf16 unsupported" if name in k2_library else "none"
+        if name in k2_library:
+            lib = k2_library[name]
+            try:
+                lib(*args)
+                torch.cuda.synchronize()
+            except RuntimeError as exc:
+                lib_note = f"none: bf16 unsupported ({str(exc).splitlines()[0][:80]})"
+            else:
+                timer = time_call if reads_back(lambda: lib(*args)) else time_queued
+                l1, _ = timer(lambda: lib(*args), 20)
+                l2, _ = timer(lambda: lib(*args), 20)
+                lib_ms = (l1 + l2) / 2
+                lib_note = f"{lib_ms:.4f} ms ({l1:.4f}, {l2:.4f})"
+        ms = (k1 + k2) / 2
+        ops, nbytes32 = k2_work(e, BATCH, n, m, f32)
+        # the float32 member chain's operations, on bf16 bytes (half)
+        bound_ms, bound_by = rl.bound(ops, nbytes32 / 2, f32)
+        f32_row = f32_ms[(name, n, m)]
+        log(f"phase 7: {name} 16384 x n={n}{f' m={m}' if m else ''} bfloat16: kernel "
+            f"{ms:.4f} ms ({k1:.4f}, {k2:.4f}; on {K2_ROTATE} operand sets in turn "
+            f"{rot:.4f}), plain {(p1 + p2) / 2:.3f} ms ({p1:.3f}, {p2:.3f}), float32 "
+            f"kernel {f32_row:.4f} ms ({ms / f32_row:.3f} of it), bound {bound_ms:.5f} ms "
+            f"({bound_by}, share {bound_ms / ms:.3f}), one PyTorch call {lib_note}")
+        entries.append({
+            "name": f"{name} n={n}{f' m={m}' if m else ''} bfloat16", "route": "cuda",
+            "source": K2_SOURCE, "replaces": e.replaces, "launches": launches[name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": (p1 + p2) / 2,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+        })
+        del sets, args
+    log(f"phase 7: bfloat16 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def _quiet(fn):
+    """``(fn(), its standard output)``: an example's printout kept from the
+    run's log."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = fn()
+    return result, out.getvalue()
+
+
+def phase_tools_checks(dev, summary):
+    """Phase 20 (c), in the second process after phase 19's checks: the
+    host-bound tools, their rates recorded and never claimed.  The ensemble
+    sweep at its gauss4 default on 16384 members (cut to
+    ``SWEEP_GAUSS4_STEPS``), ``hmc.main`` at 16384 chains with its exact K2
+    launches, and the CLI headless in this process, each final state against
+    the same run on the CPU."""
+    import torch
+    from hamilton_tpu_torch import cli, kernels
+    from hamilton_tpu_torch.examples import ensemble_sweep, hmc
+
+    t_phase = time.perf_counter()
+    argv = ["--batch", str(BATCH), "--steps", str(SWEEP_GAUSS4_STEPS), "--device", "cuda",
+            "--json"]
+    t0 = time.perf_counter()
+    (rc, text), counts = counted(lambda: _quiet(lambda: ensemble_sweep.main(argv)))
+    el = time.perf_counter() - t0
+    out = json.loads(text.strip().splitlines()[-1])
+    # n = 2: the double pendulum's solves are below the K2 entries' n >= 3,
+    # so its library path launches no hand-written kernel
+    expect_counts("ensemble_sweep gauss4", counts)
+    if rc != 0 or not all(math.isfinite(out[k]) for k in
+                          ("lyapunov_mean", "lyapunov_max", "max_energy_drift")):
+        raise AssertionError(f"ensemble_sweep gauss4: exit {rc}, {out}")
+    log(f"phase 20 (c): ensemble_sweep gauss4 {BATCH} x double pendulum float32, "
+        f"{SWEEP_GAUSS4_STEPS} steps (cut from 20000: host-bound, ~7 ham_eqs a step), "
+        f"{el:.1f} s in all: {out['member_steps_per_sec']:.6e} member-steps/s (recorded, not "
+        f"claimed), lambda mean {out['lyapunov_mean']:.4f}, max|dH/H0| "
+        f"{out['max_energy_drift']:.6e}, launches {counts}")
+    summary["sweep_gauss4_member_steps_per_sec"] = out["member_steps_per_sec"]
+
+    t0 = time.perf_counter()
+    (rc, text), counts = counted(lambda: _quiet(lambda: hmc.main(HMC_ARGV)))
+    el = time.perf_counter() - t0
+    # J route (identity coordinates, no mass matrix): a step factors K from
+    # sqrt(M) J (K2e) and solves with the factor three times (K2c); each
+    # iteration's two hamiltonians and the leapfrog's velocity solve K2d
+    want = dict(cholesky_jac=HMC_ITERS * (HMC_L + 1), cho_solve=HMC_ITERS * 3 * HMC_L,
+                spd_solve_jac=HMC_ITERS * (HMC_L + 2))
+    expect_counts("hmc", counts, **want)
+    if rc != 0:
+        raise AssertionError(f"hmc.main returned {rc}:\n{text}")
+    log(f"phase 20 (c): hmc {' '.join(HMC_ARGV)}: exit 0, {el:.1f} s "
+        f"({el / HMC_ITERS * 1e3:.1f} ms an iteration of {HMC_L} leapfrog steps), launches "
+        f"{counts}; " + " | ".join(text.strip().splitlines()[1:4]))
+    summary["hmc_launches"] = {k: v for k, v in counts.items() if v}
+    summary["hmc_seconds"] = el
+
+    for label, argv, frames in CLI_RUNS:
+        states = {}
+        for where in ("cuda", "cpu"):
+            args = cli.build_parser().parse_args(["--device", where] + argv)
+            ex = cli._example_from_args(args)
+            step = cli._make_step(ex, args.method, args.dt)
+            ph = ex.init_phase
+            t0 = time.perf_counter()
+            if where == "cuda":
+                torch.cuda.synchronize()
+                before = kernels.launch_counts()
+            for _ in range(frames):
+                ph = step(ph, 1.0 / cli.FPS)
+            if where == "cuda":
+                torch.cuda.synchronize()
+                launched = {k: v - before[k] for k, v in kernels.launch_counts().items()
+                            if v - before[k]}
+            states[where] = (ph, (time.perf_counter() - t0) / frames)
+        (card, s_card), (cpu, s_cpu) = states["cuda"], states["cpu"]
+        err = max(float((card.q.cpu() - cpu.q).abs().max()),
+                  float((card.p.cpu() - cpu.p).abs().max()))
+        log(f"phase 20 (c): cli {label}, {frames} frames: card vs CPU {err:.3e}; "
+            f"{s_card:.3f} s a frame on the card, {s_cpu:.3f} on the CPU (the loop aims at "
+            f"{1 / cli.FPS:.4f}); launches {launched}")
+        if not err <= CPU_TOL_F64:
+            raise AssertionError(f"cli {label}: card and CPU differ by {err:.3e}")
+        summary[f"cli_{label.replace(' ', '_').replace('=', '')}_s_per_frame"] = s_card
+    log(f"phase 20 (c): took {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_tools(dev, entries, summary):
+    """Phase 20, the tools and examples in this process: (a) chaos_scan
+    --fused at 16384 pair members, its first launch against the plain
+    version, K1 timed at its shape; (b) ensemble_sweep --method
+    leapfrog_fused at BASELINE configs[4]'s size; (d) a Poincaré section of
+    a 16384-member trajectory on the card against the CPU's, a guarded
+    50-step loop that never synchronizes, a checkpoint from the card resumed
+    bit for bit; and hmc's K2 kernels timed at its shape."""
+    import torch
+    from hamilton_tpu_torch.ensemble import evolve_ensemble
+    from hamilton_tpu_torch.examples import chaos_scan, ensemble_sweep
+    from hamilton_tpu_torch.examples import hmc
+    from hamilton_tpu_torch.integrators.fixed import make_stepper
+    from hamilton_tpu_torch.models import double_pendulum
+    from hamilton_tpu_torch.ops.batched_spd import ENTRIES
+    from hamilton_tpu_torch.ops.fused_step import (
+        fused_step_kernel, fused_step_reference, fused_stepper,
+    )
+    from hamilton_tpu_torch.state import Phase
+    from hamilton_tpu_torch.utils import roofline as rl
+    from hamilton_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    from hamilton_tpu_torch.utils.diagnostics import CheckError, checked, nan_guard
+    from hamilton_tpu_torch.utils.poincare import coordinate_section, poincare_section
+    from hamilton_tpu_torch.utils.profiling import time_queued
+
+    t_phase = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+
+    # (a) chaos_scan --fused: exactly 100 K1 launches and nothing else
+    t0 = time.perf_counter()
+    (rc, text), counts = counted(lambda: _quiet(lambda: chaos_scan.main(CHAOS_ARGV)))
+    el = time.perf_counter() - t0
+    expect_counts("chaos_scan --fused", counts, fused_step=CHAOS_LAUNCHES)
+    lines = text.strip().splitlines()
+    if rc != 0:
+        raise AssertionError(f"chaos_scan returned {rc}:\n{text}")
+    log(f"phase 20 (a): chaos_scan {' '.join(CHAOS_ARGV)}: exit 0 in {el:.2f} s, "
+        f"{counts['fused_step']} K1 launches; " + " | ".join(lines[1:3] + lines[-1:]))
+    system, pairs, _, _ = chaos_scan.chaos_setup(64, 128, eps=1e-4, device=dev, dtype=f32)
+    forms = system.fused_forms(system)
+    state, table = fused_stepper(forms, iters=(3, 1), steps_per_call=40).init(pairs)
+    kw = dict(iters=(3, 1), compensated=False, steps_per_call=40, coef=table)
+
+    def kern():
+        return fused_step_kernel(forms, state, 5e-3, **kw)
+
+    def plain():
+        return fused_step_reference(forms, state, 5e-3, **kw)
+
+    members = pairs.q.shape[0]
+    p1, p_out = time_call(plain, 1)
+    worst, errs, failures = compare_states(kern(), p_out, "float32", CHAOS_TOL)
+    log(f"phase 20 {'FAILED' if failures else 'ok'}: (a) chaos_scan's first 40-step launch, "
+        f"{members} x dense n=2 float32 (3,1) per-member tables, kernel vs plain (largest "
+        f"|q|, |p| {float(p_out[:2].abs().max()):.3f}; limits {CHAOS_TOL}): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    if failures:
+        raise AssertionError("chaos_scan's launch disagrees with its plain version: "
+                             + "; ".join(failures))
+    k1, _ = time_queued(kern, 100)
+    k2, _ = time_queued(kern, 100)
+    p2, _ = time_call(plain, 1)
+    bound_ms, bound_by, _ = k1_bound(system, "leapfrog_fused", (3, 1), False, members, 40)
+    log(f"phase 20 (a): K1 at chaos_scan's shape {(k1 + k2) / 2:.5f} ms a 40-step launch "
+        f"({k1:.5f}, {k2:.5f}), plain {(p1 + p2) / 2:.2f} ms, bound {bound_ms:.5f} ms "
+        f"({bound_by})")
+    entries.append({
+        "name": "fused_step dense n=2 float32 (3,1) per-member tables, 40 steps a launch "
+                "(chaos_scan --fused)", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
+        "launches": CHAOS_LAUNCHES, "max_abs_err": worst, "ms": (k1 + k2) / 2,
+        "plain_ms": (p1 + p2) / 2, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None,
+    })
+    del state, table, p_out
+    t_part = time.perf_counter()
+    log(f"phase 20: (a) took {t_part - t_phase:.1f} s")
+
+    # (b) ensemble_sweep --method leapfrog_fused: one step a launch (its
+    # evolve_ensemble's steps_per_call is 1), the run and its twin: exactly
+    # 2 x 20000 K1 launches, no K2 (n = 2)
+    (rc, text), counts = counted(lambda: _quiet(lambda: ensemble_sweep.main(SWEEP_ARGV)))
+    out = json.loads(text.strip().splitlines()[-1])
+    expect_counts("ensemble_sweep leapfrog_fused", counts, fused_step=SWEEP_LAUNCHES)
+    fields = ("lyapunov_mean", "lyapunov_max", "chaotic_fraction", "max_energy_drift")
+    if rc != 0 or not all(math.isfinite(out[k]) for k in fields) or out["devices"] != 1:
+        raise AssertionError(f"ensemble_sweep leapfrog_fused: exit {rc}, {out}")
+    log(f"phase 20 (b): ensemble_sweep {' '.join(SWEEP_ARGV)}: {out['member_steps_per_sec']:.6e} "
+        f"member-steps/s, lambda mean {out['lyapunov_mean']:.4f} max {out['lyapunov_max']:.4f}, "
+        f"chaotic {out['chaotic_fraction']:.4f} (by m2 "
+        f"{[round(f, 3) for f in out['chaotic_fraction_by_mass']]}), max|dH/H0| "
+        f"{out['max_energy_drift']:.6e}, {counts['fused_step']} K1 launches; "
+        f"{time.perf_counter() - t_part:.1f} s")
+    summary["sweep_fused_member_steps_per_sec"] = out["member_steps_per_sec"]
+    summary["sweep_fused_max_drift"] = out["max_energy_drift"]
+    t_part = time.perf_counter()
+
+    # (d) the utilities on the card
+    dp = double_pendulum(device=dev, dtype=f64)
+    ph = jittered_phase(dp, BATCH, f64, dev, 20)
+    traj = evolve_ensemble(dp.system, ph, 1e-2, POINCARE_STEPS, method="leapfrog_fused",
+                           iters=(2, 1), emit_every=POINCARE_EMIT)
+    pts, valid = poincare_section(traj, coordinate_section(0), max_crossings=POINCARE_CAP)
+    cpu_traj = Phase(traj.q.cpu(), traj.p.cpu())
+    cpu_pts, cpu_valid = poincare_section(cpu_traj, coordinate_section(0),
+                                          max_crossings=POINCARE_CAP)
+    err = max(float((pts.q.cpu() - cpu_pts.q).abs().max()),
+              float((pts.p.cpu() - cpu_pts.p).abs().max()))
+    same_mask = torch.equal(valid.cpu(), cpu_valid)
+    log(f"phase 20 {'ok' if same_mask and err <= PHYSICS_TOL else 'FAILED'}: (d) poincare_section "
+        f"of a {tuple(traj.q.shape)} float64 trajectory on the card vs the CPU: {err:.3e}, masks "
+        f"{'equal' if same_mask else 'DIFFER'}, {int(valid.sum())} crossings, "
+        f"{int(valid.all(0).sum())} members at the cap {POINCARE_CAP}")
+    if not (same_mask and err <= PHYSICS_TOL):
+        raise AssertionError("poincare_section on the card differs from the CPU's")
+    del traj, cpu_traj
+
+    dp32 = double_pendulum(device=dev, dtype=f32)
+    st = make_stepper(dp32.system, "leapfrog_fused", iters=(2, 1))
+    ph32 = ph.astype(f32)
+    poison = torch.zeros(BATCH, 1, dtype=f32, device=dev)
+    poison[5] = float("nan")
+
+    def guarded(ph, bad_at):
+        carry = st.init(ph)
+        for i in range(GUARD_STEPS):
+            if i == bad_at:  # the poison, outside the watched step
+                phi = st.extract(carry)
+                carry = st.init(Phase(phi.q + poison, phi.p))
+            torch.cuda.set_sync_debug_mode("error")  # any host read in here raises
+            try:
+                carry = st.step(carry, 1e-3)
+                nan_guard(st.extract(carry), f"step {i}")
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return st.extract(carry)
+
+    st.step(st.init(ph32), 1e-3)  # the stepper's first step uploads its table
+    clean = checked(guarded)(ph32, -1)
+    try:
+        checked(guarded)(ph32, 31)
+    except CheckError as exc:
+        message = str(exc)
+    else:
+        message = None
+    if not all_finite(clean.q, clean.p) or message != "non-finite state detected at step 31":
+        raise AssertionError(f"guarded loop: clean finite {all_finite(clean.q, clean.p)}, "
+                             f"poisoned run raised {message!r}")
+    log(f"phase 20 ok: (d) {GUARD_STEPS}-step guarded fused loop on {BATCH} members under "
+        f"torch.cuda.set_sync_debug_mode('error'): no host read until checked returned; the "
+        f"member poisoned at step 31 raised {message!r}")
+
+    path = str(REPO / "chiprun_out" / "phase20_checkpoint.npz")
+    (REPO / "chiprun_out").mkdir(exist_ok=True)
+    carry = st.init(ph32)
+    for _ in range(25):
+        carry = st.step(carry, 1e-3)
+    save_checkpoint(path, carry, step=25)
+    straight = carry
+    for _ in range(25):
+        straight = st.step(straight, 1e-3)
+    resumed, step, _ = load_checkpoint(path, like=carry)
+    for _ in range(GUARD_STEPS - step):
+        resumed = st.step(resumed, 1e-3)
+    a, b = st.extract(straight), st.extract(resumed)
+    same = torch.equal(a.q, b.q) and torch.equal(a.p, b.p)
+    os.remove(path)
+    log(f"phase 20 {'ok' if same else 'FAILED'}: (d) checkpoint of the fused carry saved from "
+        f"the card at step 25 and resumed to step {GUARD_STEPS}: "
+        f"{'bit for bit' if same else 'DIFFERS'} the straight run")
+    if not same:
+        raise AssertionError("the resumed run differs from the straight run")
+    log(f"phase 20: (d) took {time.perf_counter() - t_part:.1f} s")
+
+    # hmc's kernels at its shape (16384 chains, n = m = 3, float32), with the
+    # second process's launches
+    launches = summary.pop("hmc_launches")
+    gsys = hmc.gaussian_system(dev, f32)
+    g = torch.Generator(device=dev).manual_seed(20)
+    q = torch.randn((BATCH, 3), generator=g, device=dev)
+    p = torch.randn((BATCH, 3), generator=g, device=dev)
+    from hamilton_tpu_torch.mechanics import _jacobian
+    from hamilton_tpu_torch.ops.batched_spd import jac_scaled
+
+    js = jac_scaled(_jacobian(gsys, q), gsys.inertia)
+    by_name = {e.name: e for e in ENTRIES}
+    low = by_name["cholesky_jac"].plain(js)
+    for name, args, launch in (("cholesky_jac", (js,), "cholesky_jac"),
+                               ("cho_solve_batched", (low, p), "cho_solve"),
+                               ("spd_solve_jac", (js, p), "spd_solve_jac")):
+        e = by_name[name]
+        got, want = e.kernel(*args), e.plain(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not err <= K2_TOL:
+            raise AssertionError(f"{name} at hmc's shape: kernel differs from plain by {err}")
+        p1, _ = time_call(lambda: e.plain(*args), 2)
+        k1, _ = time_queued(lambda: e.kernel(*args), 100)
+        k2, _ = time_queued(lambda: e.kernel(*args), 100)
+        p2, _ = time_call(lambda: e.plain(*args), 2)
+        ops, nbytes = k2_work(e, BATCH, 3, 3 if e.from_jac else 0, f32)
+        bound_ms, bound_by = rl.bound(ops, nbytes, f32)
+        log(f"phase 20: {name} at hmc's shape {BATCH} x n=3{' m=3' if e.from_jac else ''} "
+            f"float32: kernel {(k1 + k2) / 2:.5f} ms ({k1:.5f}, {k2:.5f}), plain "
+            f"{(p1 + p2) / 2:.3f} ms, bound {bound_ms:.6f} ms ({bound_by}), "
+            f"{launches[launch]} launches in hmc's run")
+        entries.append({
+            "name": f"{name} n=3{' m=3' if e.from_jac else ''} float32 (hmc, {BATCH} chains)",
+            "route": "cuda", "source": K2_SOURCE, "replaces": e.replaces,
+            "launches": launches[launch], "max_abs_err": err, "ms": (k1 + k2) / 2,
+            "plain_ms": (p1 + p2) / 2, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+        })
+    log(f"phase 20: {time.perf_counter() - t_phase:.1f} s in this process")
 
 
 def _launch_name(entry):
@@ -2273,6 +2767,7 @@ def main() -> int:
         "cho_solve_batched": lambda low, b: torch.cholesky_solve(b[..., None], low),
     }
     by_name = {e.name: e for e in ENTRIES}
+    k2_f32_ms = {}
     # every entry at 16384 x 20 (the J entries at m = 40) in both dtypes,
     # then the kernels line's rows at other shapes
     timed = [(e.name, 20, 40 if e.from_jac else 0, dname)
@@ -2316,7 +2811,10 @@ def main() -> int:
         r = k2_rows.get((e.name, n))
         if r and (r["m"], r["dtype"]) == (m, dname):
             r.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=lib_ms)
+        if dname == "float32":
+            k2_f32_ms[(e.name, n, m)] = (k1 + k2) / 2
     del inputs, rotating, args
+    phase_k2_bfloat16(dev, by_name, k2_library, k2_f32_ms, entries)
 
     # ---- phase 8: adaptive GSL-RKF45 at full width --------------------------
     stamp(8)
@@ -2811,6 +3309,10 @@ def main() -> int:
     # ---- phase 19: the fixed-step default, gauss4, on the library path ----------
     stamp(19)
     phase_gauss4(dev, entries, summary, checks)
+
+    # ---- phase 20: the tools and examples ------------------------------------------
+    stamp(20)
+    phase_tools(dev, entries, summary)
     log(f"phases done {time.perf_counter() - t_main:.1f} s into the run")
 
     if "jax" in sys.modules:

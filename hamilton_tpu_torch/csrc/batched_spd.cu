@@ -4,12 +4,13 @@
 // two bodies (_chol_entries :75, _solve_entries :100) combined three ways, with
 // an optional accessor that forms K = (sqrt(M) J)^T (sqrt(M) J) on demand
 // (_k_at_from_jac :304).  Here:
-//   solve_tile_kernel<T, G, NMAX>              K2a _solve_kernel (:117)      K, b -> x
-//   factor_lanes_kernel<T, G, NMAX>            K2b _chol_kernel (:124)       K -> L
-//   substitute_lanes_kernel<T, G, NMAX>        K2c _chosolve_kernel (:131)   L, b -> x
-//   jac_tile_kernel<T, G, F, NMAX, true>       K2d _jac_solve_kernel (:316)  sqrt(M) J, b -> x
-//   jac_tile_kernel<T, G, F, NMAX, false>      K2e _jac_chol_kernel (:323)   sqrt(M) J -> L
-// each for float32 and float64, any 1 <= n <= 32 at run time, any batch.
+//   solve_tile_kernel<S, G, NMAX>              K2a _solve_kernel (:117)      K, b -> x
+//   factor_lanes_kernel<S, G, NMAX>            K2b _chol_kernel (:124)       K -> L
+//   substitute_lanes_kernel<S, G, NMAX>        K2c _chosolve_kernel (:131)   L, b -> x
+//   jac_tile_kernel<S, G, F, NMAX, true>       K2d _jac_solve_kernel (:316)  sqrt(M) J, b -> x
+//   jac_tile_kernel<S, G, F, NMAX, false>      K2e _jac_chol_kernel (:323)   sqrt(M) J -> L
+// each for float32, float64 and bfloat16, any 1 <= n <= 32 at run time, any
+// batch.
 // Operands are member-major and contiguous: K and L (B, n, n), sqrt(M) J
 // (B, m, n), b and x (B, n).  L is written with zeros above the diagonal.
 //
@@ -73,12 +74,26 @@
 // K2c's times together (0.104 ms against 0.070 + 0.044 on an H100 80GB
 // HBM3 at 700 W, PERF.md).
 //
+// bfloat16 is a storage type only (the reference's kernels take bf16
+// operands, pallas_solve.py:252): a tile's bf16 values are read as they lie
+// in global memory, 16 bytes at a time (a member of n = 3 is 18 bytes, so a
+// tile starts anywhere within a 16-byte line: the reads take the lines that
+// hold the tile, and the first value's place in the first line is the
+// shift), widened to float32 into the member slots the float32 kernel uses,
+// factored and solved there by the float32 member chain unchanged, and each
+// result rounded to bf16 once, at the store.  So a bf16 entry is its float32
+// plain version on the widened operands, rounded to nearest even: bit for
+// bit.  K2d and K2e stage a tile's whole sqrt(M) J with cp.async where its K
+// slots are (no chunks) and form K from the bf16 values as they read them.
+//
 // Build (no fast-math, so sqrt and division stay IEEE):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o libbatched_spd.so batched_spd.cu
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstring>
 #include <type_traits>
 
 #include "libm_fast.cuh"
@@ -107,6 +122,29 @@ struct Ieee<double> {
   static __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
   static __device__ __forceinline__ double sub(double a, double b) { return __dadd_rn(a, -b); }
 };
+
+// The type a stored value S is computed in: float and double in themselves,
+// bfloat16 in float.  widen reads a stored value exactly; narrow rounds a
+// result to S once (to nearest even).
+template <typename S>
+struct Compute {
+  using type = S;
+};
+template <>
+struct Compute<__nv_bfloat16> {
+  using type = float;
+};
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ double widen(double x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename S>
+__device__ __forceinline__ S narrow(typename Compute<S>::type x) {
+  if constexpr (std::is_same<S, __nv_bfloat16>::value) {
+    return __float2bfloat16_rn(x);
+  } else {
+    return x;
+  }
+}
 
 // ---------------------------------------------------------------------------
 // Tiles of members a block, one thread or G lanes a member.
@@ -177,6 +215,15 @@ struct Vec16<double> {
   static __device__ __forceinline__ void set(double2& v, int k, double x) {
     if (k == 0) v.x = x;
     else v.y = x;
+  }
+};
+template <>
+struct Vec16<__nv_bfloat16> {
+  using type = uint4;
+  static __device__ __forceinline__ void set(uint4& v, int k, __nv_bfloat16 x) {
+    const unsigned bits = __bfloat16_as_ushort(x);
+    unsigned& w = k < 2 ? v.x : k < 4 ? v.y : k < 6 ? v.z : v.w;
+    w = (k & 1) ? ((w & 0xffffu) | (bits << 16)) : ((w & 0xffff0000u) | bits);
   }
 };
 
@@ -270,24 +317,95 @@ __device__ void stage_chunk_in(const T* __restrict__ src, long long src_stride, 
 }
 
 // The tile's `count` values from shared src (laid out by map) to global dst,
-// by every thread of the block: 16-byte stores of the aligned middle.
-template <typename T>
-__device__ void stage_out(const T* src, int count, TileMap map, T* __restrict__ dst) {
-  using V = typename Vec16<T>::type;
-  constexpr int kW = 16 / sizeof(T);
+// by every thread of the block, each rounded to dst's type (narrow): 16-byte
+// stores of the aligned middle.
+template <typename S, typename T>
+__device__ void stage_out(const T* src, int count, TileMap map, S* __restrict__ dst) {
+  using V = typename Vec16<S>::type;
+  constexpr int kW = 16 / sizeof(S);
   const int head = aligned_head(dst, count);
   const int vecs = (count - head) / kW;
   const int nthreads = blockDim.x;
-  for (int e = threadIdx.x; e < head; e += nthreads) dst[e] = src[map.at(e)];
+  for (int e = threadIdx.x; e < head; e += nthreads) dst[e] = narrow<S>(src[map.at(e)]);
   for (int e = head + vecs * kW + threadIdx.x; e < count; e += nthreads)
-    dst[e] = src[map.at(e)];
+    dst[e] = narrow<S>(src[map.at(e)]);
   V* body = reinterpret_cast<V*>(dst + head);
   for (int v = threadIdx.x; v < vecs; v += nthreads) {
-    V out;
+    V out{};
 #pragma unroll
-    for (int k = 0; k < kW; ++k) Vec16<T>::set(out, k, src[map.at(head + v * kW + k)]);
+    for (int k = 0; k < kW; ++k)
+      Vec16<S>::set(out, k, narrow<S>(src[map.at(head + v * kW + k)]));
     body[v] = out;
   }
+}
+
+// bfloat16 staging.  K, L and the vectors are widened on their way in:
+// each thread reads whole 16-byte lines of the tile (8 values, from the line
+// that holds the tile's first value: a tile of n = 3 members starts anywhere
+// within a line) and writes each value of the tile, widened, to its member
+// slot, so a bf16 tile takes the float32 kernel's shared memory and no more
+// (a staging buffer beside the slots halved the blocks an SM).  A line is
+// never split between two allocations, so its bytes beyond the tile are the
+// allocation's.
+template <typename S, typename T>
+__device__ void widen_in(const S* __restrict__ src, int count, TileMap map, T* dst) {
+  constexpr int kPer = 16 / static_cast<int>(sizeof(S));
+  // lines a thread has in flight at once: all read before any is written
+  constexpr int kBatch = 8;
+  const unsigned long long at = reinterpret_cast<unsigned long long>(src);
+  const uint4* line = reinterpret_cast<const uint4*>(at & ~15ULL);
+  const int shift = static_cast<int>((at & 15) / sizeof(S));
+  const int lines = (shift + count + kPer - 1) / kPer;
+  const int stride = blockDim.x;
+  for (int c0 = threadIdx.x; c0 < lines; c0 += kBatch * stride) {
+    uint4 bits[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (c0 + u * stride < lines) bits[u] = __ldg(line + c0 + u * stride);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int c = c0 + u * stride;
+      if (c >= lines) break;
+      S vals[kPer];
+      memcpy(vals, &bits[u], 16);
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const int e = c * kPer + k - shift;
+        if (e >= 0 && e < count) dst[map.at(e)] = widen(vals[k]);
+      }
+    }
+  }
+}
+
+// Shared memory rounded up to 16 bytes; and the slack a bf16 sqrt(M) J
+// staging (stage_raw) takes beyond its values: a late start within a line,
+// and the lines' ends.
+__host__ __device__ constexpr long long align16(long long bytes) { return (bytes + 15) & ~15LL; }
+constexpr long long kRawSlack = 64;
+
+// One 16-byte line from global src to shared dst, asynchronously (on a host
+// build, at once).
+__device__ __forceinline__ void copy_line_async(void* dst, const void* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(to), "l"(src));
+#else
+  memcpy(dst, src, 16);
+#endif
+}
+
+// Start the copy of the 16-byte lines of global memory that hold `count`
+// values from src into raw (16-byte aligned shared memory), by every thread
+// of the block, all in flight at once; returns where src's first value lands
+// in raw (the shift, in values).
+template <typename S>
+__device__ int stage_raw(const S* __restrict__ src, int count, unsigned char* raw) {
+  const unsigned long long at = reinterpret_cast<unsigned long long>(src);
+  const unsigned char* line = reinterpret_cast<const unsigned char*>(at & ~15ULL);
+  const int shift = static_cast<int>((at & 15) / sizeof(S));
+  const int lines = static_cast<int>(((shift + count) * sizeof(S) + 15) / 16);
+  for (int c = threadIdx.x; c < lines; c += blockDim.x) copy_line_async(raw + 16 * c, line + 16 * c);
+  return shift;
 }
 
 // The G lanes of a warp that share a member: this lane's index g among them,
@@ -488,19 +606,24 @@ __device__ __forceinline__ void substitute_regs(const T* l, T* vs, int n) {
 }
 
 // K2b: members [blockIdx.x * members, ...) of K (B, n, n) -> L, on G lanes a
-// member, or (G = 1) one thread a member with n <= NMAX.
-template <typename T, int G, int NMAX>
+// member, or (G = 1) one thread a member with n <= NMAX; S the stored type.
+template <typename S, int G, int NMAX>
 __global__ void __launch_bounds__(kMaxTileThreads)
-    factor_lanes_kernel(const T* __restrict__ k, T* __restrict__ low, long long batch, int n,
+    factor_lanes_kernel(const S* __restrict__ k, S* __restrict__ low, long long batch, int n,
                         int members) {
+  using T = typename Compute<S>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* tile = reinterpret_cast<T*>(smem_raw);
   const TileMap map(n * n);
   const long long first = static_cast<long long>(blockIdx.x) * members;
   const long long here = batch - first < members ? batch - first : members;
   const int count = static_cast<int>(here) * n * n;
-  stage_in(k + first * n * n, count, map, tile);
-  copy_async_wait();
+  if constexpr (std::is_same<S, T>::value) {
+    stage_in(k + first * n * n, count, map, tile);
+    copy_async_wait();
+  } else {
+    widen_in(k + first * n * n, count, map, tile);
+  }
   __syncthreads();
   const Lanes<G> lanes;
   if constexpr (G == 1) {
@@ -512,22 +635,38 @@ __global__ void __launch_bounds__(kMaxTileThreads)
   stage_out(tile, count, map, low + first * n * n);
 }
 
+// The operands of K2a and K2c in shared memory: the matrices (K or L) at a,
+// the vectors at v, each staged (S = T) or widened (bf16) into its member
+// slots.
+template <typename S, typename T>
+__device__ void stage_pair(const S* mats, const S* vecs, int here, TileMap mmap, TileMap vmap,
+                           T* a, T* v) {
+  const int n = static_cast<int>(vmap.per);
+  if constexpr (std::is_same<S, T>::value) {
+    stage_in(mats, here * n * n, mmap, a);
+    stage_in(vecs, here * n, vmap, v);
+    copy_async_wait();
+  } else {
+    widen_in(mats, here * n * n, mmap, a);
+    widen_in(vecs, here * n, vmap, v);
+  }
+  __syncthreads();
+}
+
 // K2c: members [blockIdx.x * members, ...) of L (B, n, n) and b (B, n) -> x,
 // on G lanes a member, or (G = 1) one thread a member with n <= NMAX.
-template <typename T, int G, int NMAX>
+template <typename S, int G, int NMAX>
 __global__ void __launch_bounds__(kMaxTileThreads)
-    substitute_lanes_kernel(const T* __restrict__ low, const T* __restrict__ rhs,
-                            T* __restrict__ x, long long batch, int n, int members) {
+    substitute_lanes_kernel(const S* __restrict__ low, const S* __restrict__ rhs,
+                            S* __restrict__ x, long long batch, int n, int members) {
+  using T = typename Compute<S>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const TileMap lmap(n * n), vmap(n);
   T* ltile = reinterpret_cast<T*>(smem_raw);
   T* vtile = ltile + members * lmap.stride();
   const long long first = static_cast<long long>(blockIdx.x) * members;
   const int here = static_cast<int>(batch - first < members ? batch - first : members);
-  stage_in(low + first * n * n, here * n * n, lmap, ltile);
-  stage_in(rhs + first * n, here * n, vmap, vtile);
-  copy_async_wait();
-  __syncthreads();
+  stage_pair(low + first * n * n, rhs + first * n, here, lmap, vmap, ltile, vtile);
   const Lanes<G> lanes;
   const int m = threadIdx.x / G;
   if constexpr (G == 1) {
@@ -542,20 +681,18 @@ __global__ void __launch_bounds__(kMaxTileThreads)
 // K2a: members [blockIdx.x * members, ...) of K (B, n, n) and b (B, n) -> x,
 // factored and solved in place, on G lanes a member, or (G = 1) one thread a
 // member with n <= NMAX.
-template <typename T, int G, int NMAX>
+template <typename S, int G, int NMAX>
 __global__ void __launch_bounds__(kMaxTileThreads)
-    solve_tile_kernel(const T* __restrict__ k, const T* __restrict__ rhs, T* __restrict__ x,
+    solve_tile_kernel(const S* __restrict__ k, const S* __restrict__ rhs, S* __restrict__ x,
                       long long batch, int n, int members) {
+  using T = typename Compute<S>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const TileMap kmap(n * n), vmap(n);
   T* ktile = reinterpret_cast<T*>(smem_raw);
   T* vtile = ktile + members * kmap.stride();
   const long long first = static_cast<long long>(blockIdx.x) * members;
   const int here = static_cast<int>(batch - first < members ? batch - first : members);
-  stage_in(k + first * n * n, here * n * n, kmap, ktile);
-  stage_in(rhs + first * n, here * n, vmap, vtile);
-  copy_async_wait();
-  __syncthreads();
+  stage_pair(k + first * n * n, rhs + first * n, here, kmap, vmap, ktile, vtile);
   const Lanes<G> lanes;
   T* a = ktile + (threadIdx.x / G) * kmap.stride();
   T* v = vtile + (threadIdx.x / G) * vmap.stride();
@@ -596,13 +733,14 @@ struct JacSums {
   }
 
   // Add the products of `rows` rows of one member's sqrt(M) J (row r at
-  // j + r * n in shared memory).
-  __device__ __forceinline__ void add_rows(const T* j, int rows, int n, int g) {
+  // j + r * n in shared memory), each value widened from its stored type.
+  template <typename S>
+  __device__ __forceinline__ void add_rows(const S* j, int rows, int n, int g) {
     using O = Ieee<T>;
     for (int r = 0; r < rows; ++r, j += n) {
       T mine[kCols];
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) mine[c] = g + c * G < n ? j[g + c * G] : T(0);
+      for (int c = 0; c < kCols; ++c) mine[c] = g + c * G < n ? widen(j[g + c * G]) : T(0);
       int s = 0;
 #pragma unroll
       for (int i = 0; i < NMAX; ++i) {
@@ -611,7 +749,7 @@ struct JacSums {
         if constexpr (G == 1) {
           ji = mine[i];
         } else {
-          ji = j[i];
+          ji = widen(j[i]);
         }
 #pragma unroll
         for (int c = 0; c <= i / G; ++c, ++s)
@@ -639,39 +777,55 @@ struct JacSums {
 // while G lanes a member add chunk c's products to their sums; K is written
 // into the member's slot (over the buffers), then factored and solved on
 // one thread a member with n <= NMAX (F = 1) or on the G lanes (F = G).
-template <typename T, int G, int F, int NMAX, bool SOLVE>
+// bf16 (S != T): the tile's whole sqrt(M) J staged at once where the K
+// slots are (K is written after every product is read), K formed from the
+// staged values; b widened into its slots.
+template <typename S, int G, int F, int NMAX, bool SOLVE>
 __global__ void __launch_bounds__(kMaxTileThreads)
-    jac_tile_kernel(const T* __restrict__ js, const T* __restrict__ rhs, T* __restrict__ out,
+    jac_tile_kernel(const S* __restrict__ js, const S* __restrict__ rhs, S* __restrict__ out,
                     long long batch, int n, int m, int rows, int members) {
   static_assert(F == 1 || F == G, "the factor runs on one thread or on the formation's lanes");
+  using T = typename Compute<S>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const TileMap kmap(n * n), vmap(n), cmap(rows * n);
   T* vtile = reinterpret_cast<T*>(smem_raw);  // b and x (SOLVE)
   T* ktile = vtile + (SOLVE ? members * vmap.stride() : 0);
-  const int buffer = members * cmap.stride();  // chunk c at ktile + (c & 1) * buffer
   const long long first = static_cast<long long>(blockIdx.x) * members;
   const int here = static_cast<int>(batch - first < members ? batch - first : members);
   const long long per = static_cast<long long>(m) * n;
-  const T* src = js + first * per;
-  if constexpr (SOLVE) stage_in(rhs + first * n, here * n, vmap, vtile);
-  stage_chunk_in(src, per, here, cmap, ktile);
-  copy_async_commit();
+  const S* src = js + first * per;
   const Lanes<G> lanes;
   const int t = threadIdx.x / G;
   JacSums<T, G, NMAX> sums;
-  for (int r0 = 0, c = 0; r0 < m; r0 += rows, ++c) {
-    const int next = m - r0 - rows < rows ? m - r0 - rows : rows;
-    if (next > 0) {
-      stage_chunk_in(src + (r0 + rows) * n, per, here, TileMap(next * n),
-                     ktile + ((c + 1) & 1) * buffer);
-      copy_async_commit();
-      copy_async_wait_groups<1>();
-    } else {
-      copy_async_wait_groups<0>();
+  if constexpr (std::is_same<S, T>::value) {
+    const int buffer = members * cmap.stride();  // chunk c at ktile + (c & 1) * buffer
+    if constexpr (SOLVE) stage_in(rhs + first * n, here * n, vmap, vtile);
+    stage_chunk_in(src, per, here, cmap, ktile);
+    copy_async_commit();
+    for (int r0 = 0, c = 0; r0 < m; r0 += rows, ++c) {
+      const int next = m - r0 - rows < rows ? m - r0 - rows : rows;
+      if (next > 0) {
+        stage_chunk_in(src + (r0 + rows) * n, per, here, TileMap(next * n),
+                       ktile + ((c + 1) & 1) * buffer);
+        copy_async_commit();
+        copy_async_wait_groups<1>();
+      } else {
+        copy_async_wait_groups<0>();
+      }
+      __syncthreads();
+      const int count = m - r0 < rows ? m - r0 : rows;
+      sums.add_rows(ktile + (c & 1) * buffer + t * odd(count * n), count, n, lanes.g);
+      __syncthreads();
     }
+  } else {
+    // the staging spans every member's values (a lane of a member past the
+    // batch reads what its part holds, unstored)
+    unsigned char* raw_j = smem_raw + align16((SOLVE ? members * vmap.stride() : 0) * sizeof(T));
+    const int shift_j = stage_raw(src, static_cast<int>(here * per), raw_j);
+    if constexpr (SOLVE) widen_in(rhs + first * n, here * n, vmap, vtile);
+    copy_async_wait();
     __syncthreads();
-    const int count = m - r0 < rows ? m - r0 : rows;
-    sums.add_rows(ktile + (c & 1) * buffer + t * odd(count * n), count, n, lanes.g);
+    sums.add_rows(reinterpret_cast<const S*>(raw_j) + shift_j + t * per, m, n, lanes.g);
     __syncthreads();
   }
   sums.store(ktile + t * kmap.stride(), n, lanes.g);
@@ -704,18 +858,19 @@ int sm_count() {
 }
 
 // Launch a tile kernel of G lanes a member: `threads` / G members a block,
-// fewer where a block's shared memory (member_bytes each) or the batch asks
-// (no more than leave every SM a block); the kernel takes the members a
-// block as its last argument.
+// fewer where a block's shared memory (member_bytes each, and `extra` a
+// block) or the batch asks (no more than leave every SM a block); the kernel
+// takes the members a block as its last argument.
 template <int G, typename Kernel, typename... Args>
-int launch_tiles(Kernel kernel, int threads, long long member_bytes, long long batch,
-                 cudaStream_t stream, Args... args) {
+int launch_tiles(Kernel kernel, int threads, long long member_bytes, long long extra,
+                 long long batch, cudaStream_t stream, Args... args) {
   const long long sms = sm_count();
   long long members = threads / G;
-  if (members > kSmemPerBlockMax / member_bytes) members = kSmemPerBlockMax / member_bytes;
+  if (members > (kSmemPerBlockMax - extra) / member_bytes)
+    members = (kSmemPerBlockMax - extra) / member_bytes;
   if (members > batch / sms) members = batch / sms;
   if (members < 1) members = 1;
-  const long long bytes = members * member_bytes;
+  const long long bytes = members * member_bytes + extra;
   if (bytes > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
@@ -728,109 +883,123 @@ int launch_tiles(Kernel kernel, int threads, long long member_bytes, long long b
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch K2b or K2c for a member class C of dtype T as its table says: G
-// lanes a member (the one-thread kernel of the class's largest n if G = 1)
+// A member's bytes of shared memory: `values` slots of its compute type.
+template <typename S>
+constexpr long long slot_bytes(long long values) {
+  return values * static_cast<long long>(sizeof(typename Compute<S>::type));
+}
+
+// The tables' row of a stored type: float's for float and bf16.
+template <typename S>
+constexpr int table_row() {
+  return std::is_same<typename Compute<S>::type, double>::value;
+}
+
+// Launch K2b or K2c for a member class C of stored type S as its table says:
+// G lanes a member (the one-thread kernel of the class's largest n if G = 1)
 // and at most the table's threads a block.
-template <typename T, int C>
-int factor_class(const T* k, T* low, long long batch, int n, cudaStream_t st) {
-  constexpr Shape shape = kFactorShape[std::is_same<T, double>::value][C];
+template <typename S, int C>
+int factor_class(const S* k, S* low, long long batch, int n, cudaStream_t st) {
+  constexpr Shape shape = kFactorShape[table_row<S>()][C];
   constexpr int nmax = shape.lanes == 1 ? kClassMaxN[C] : 0;
-  return launch_tiles<shape.lanes>(factor_lanes_kernel<T, shape.lanes, nmax>, shape.threads,
-                                   static_cast<long long>(odd(n * n)) * sizeof(T), batch, st,
-                                   k, low, batch, n);
+  return launch_tiles<shape.lanes>(factor_lanes_kernel<S, shape.lanes, nmax>, shape.threads,
+                                   slot_bytes<S>(odd(n * n)), 0, batch, st, k, low, batch, n);
 }
 
-template <typename T, int C>
-int substitute_class(const T* low, const T* rhs, T* x, long long batch, int n,
+template <typename S, int C>
+int substitute_class(const S* low, const S* rhs, S* x, long long batch, int n,
                      cudaStream_t st) {
-  constexpr Shape shape = kSubstituteShape[std::is_same<T, double>::value][C];
+  constexpr Shape shape = kSubstituteShape[table_row<S>()][C];
   constexpr int nmax = shape.lanes == 1 ? kClassMaxN[C] : 0;
-  return launch_tiles<shape.lanes>(substitute_lanes_kernel<T, shape.lanes, nmax>,
+  return launch_tiles<shape.lanes>(substitute_lanes_kernel<S, shape.lanes, nmax>,
                                    shape.threads,
-                                   static_cast<long long>(odd(n * n) + odd(n)) * sizeof(T),
-                                   batch, st, low, rhs, x, batch, n);
+                                   slot_bytes<S>(odd(n * n) + odd(n)), 0, batch, st, low, rhs,
+                                   x, batch, n);
 }
 
-template <typename T, int C>
-int solve_class(const T* k, const T* rhs, T* x, long long batch, int n, cudaStream_t st) {
-  constexpr Shape shape = kSolveShape[std::is_same<T, double>::value][C];
+template <typename S, int C>
+int solve_class(const S* k, const S* rhs, S* x, long long batch, int n, cudaStream_t st) {
+  constexpr Shape shape = kSolveShape[table_row<S>()][C];
   constexpr int nmax = shape.lanes == 1 ? kClassMaxN[C] : 0;
-  return launch_tiles<shape.lanes>(solve_tile_kernel<T, shape.lanes, nmax>, shape.threads,
-                                   static_cast<long long>(odd(n * n) + odd(n)) * sizeof(T),
-                                   batch, st, k, rhs, x, batch, n);
+  return launch_tiles<shape.lanes>(solve_tile_kernel<S, shape.lanes, nmax>, shape.threads,
+                                   slot_bytes<S>(odd(n * n) + odd(n)), 0, batch, st, k, rhs, x,
+                                   batch, n);
 }
 
-// K2d (SOLVE) or K2e for a member class C of dtype T, as its table says: a
-// member's slot holds K, or first its two buffers of `rows` rows of
-// sqrt(M) J, and (SOLVE) b.
-template <typename T, int C, bool SOLVE>
-int jac_class(const T* js, const T* rhs, T* out, long long batch, int n, int m,
+// K2d (SOLVE) or K2e for a member class C of stored type S, as its table
+// says: a member's slot holds K, or first its two buffers of `rows` rows of
+// sqrt(M) J, and (SOLVE) b; in bf16 its K slot or its m rows of sqrt(M) J
+// staged there, whichever is larger, and (SOLVE) b.
+template <typename S, int C, bool SOLVE>
+int jac_class(const S* js, const S* rhs, S* out, long long batch, int n, int m,
               cudaStream_t st) {
-  constexpr JacShape shape =
-      (SOLVE ? kJacSolveShape : kJacFactorShape)[std::is_same<T, double>::value][C];
+  constexpr JacShape shape = (SOLVE ? kJacSolveShape : kJacFactorShape)[table_row<S>()][C];
+  constexpr bool kStaged = !std::is_same<S, typename Compute<S>::type>::value;
   int rows = kChunkValues / n;
   rows = rows < 1 ? 1 : rows > m ? m : rows;
-  const long long k_values = odd(n * n), chunk_values = 2LL * odd(rows * n);
+  const long long k_bytes = slot_bytes<S>(odd(n * n));
+  const long long j_bytes = kStaged ? static_cast<long long>(m) * n * sizeof(S)
+                                    : slot_bytes<S>(2LL * odd(rows * n));
   const long long member_bytes =
-      ((k_values > chunk_values ? k_values : chunk_values) + (SOLVE ? odd(n) : 0)) * sizeof(T);
+      (k_bytes > j_bytes ? k_bytes : j_bytes) + (SOLVE ? slot_bytes<S>(odd(n)) : 0);
   return launch_tiles<shape.lanes>(
-      jac_tile_kernel<T, shape.lanes, shape.factor_lanes, kClassMaxN[C], SOLVE>,
-      shape.threads, member_bytes, batch, st, js, rhs, out, batch, n, m, rows);
+      jac_tile_kernel<S, shape.lanes, shape.factor_lanes, kClassMaxN[C], SOLVE>, shape.threads,
+      member_bytes, kStaged ? kRawSlack : 0, batch, st, js, rhs, out, batch, n, m, rows);
 }
 
 bool bad_args(long long batch, int n, int from_j, int m) {
   return batch < 1 || n < 1 || n > kMaxN || (from_j && m < 1);
 }
 
-template <typename T>
+template <typename S>
 int factor_t(int from_j, const void* src, void* low, long long batch, int n, int m,
              cudaStream_t st) {
-  const T* s = static_cast<const T*>(src);
-  T* l = static_cast<T*>(low);
+  const S* s = static_cast<const S*>(src);
+  S* l = static_cast<S*>(low);
   if (from_j) {
     switch (n_class(n)) {
-      case 0: return jac_class<T, 0, false>(s, nullptr, l, batch, n, m, st);
-      case 1: return jac_class<T, 1, false>(s, nullptr, l, batch, n, m, st);
-      default: return jac_class<T, 2, false>(s, nullptr, l, batch, n, m, st);
+      case 0: return jac_class<S, 0, false>(s, nullptr, l, batch, n, m, st);
+      case 1: return jac_class<S, 1, false>(s, nullptr, l, batch, n, m, st);
+      default: return jac_class<S, 2, false>(s, nullptr, l, batch, n, m, st);
     }
   }
   switch (n_class(n)) {
-    case 0: return factor_class<T, 0>(s, l, batch, n, st);
-    case 1: return factor_class<T, 1>(s, l, batch, n, st);
-    default: return factor_class<T, 2>(s, l, batch, n, st);
+    case 0: return factor_class<S, 0>(s, l, batch, n, st);
+    case 1: return factor_class<S, 1>(s, l, batch, n, st);
+    default: return factor_class<S, 2>(s, l, batch, n, st);
   }
 }
 
-template <typename T>
+template <typename S>
 int factor_solve_t(int from_j, const void* src, const void* rhs, void* x, long long batch,
                    int n, int m, cudaStream_t st) {
-  const T* s = static_cast<const T*>(src);
-  const T* r = static_cast<const T*>(rhs);
-  T* out = static_cast<T*>(x);
+  const S* s = static_cast<const S*>(src);
+  const S* r = static_cast<const S*>(rhs);
+  S* out = static_cast<S*>(x);
   if (from_j) {
     switch (n_class(n)) {
-      case 0: return jac_class<T, 0, true>(s, r, out, batch, n, m, st);
-      case 1: return jac_class<T, 1, true>(s, r, out, batch, n, m, st);
-      default: return jac_class<T, 2, true>(s, r, out, batch, n, m, st);
+      case 0: return jac_class<S, 0, true>(s, r, out, batch, n, m, st);
+      case 1: return jac_class<S, 1, true>(s, r, out, batch, n, m, st);
+      default: return jac_class<S, 2, true>(s, r, out, batch, n, m, st);
     }
   }
   switch (n_class(n)) {
-    case 0: return solve_class<T, 0>(s, r, out, batch, n, st);
-    case 1: return solve_class<T, 1>(s, r, out, batch, n, st);
-    default: return solve_class<T, 2>(s, r, out, batch, n, st);
+    case 0: return solve_class<S, 0>(s, r, out, batch, n, st);
+    case 1: return solve_class<S, 1>(s, r, out, batch, n, st);
+    default: return solve_class<S, 2>(s, r, out, batch, n, st);
   }
 }
 
-template <typename T>
+template <typename S>
 int substitute_t(const void* low, const void* rhs, void* x, long long batch, int n,
                  cudaStream_t st) {
-  const T* l = static_cast<const T*>(low);
-  const T* r = static_cast<const T*>(rhs);
-  T* out = static_cast<T*>(x);
+  const S* l = static_cast<const S*>(low);
+  const S* r = static_cast<const S*>(rhs);
+  S* out = static_cast<S*>(x);
   switch (n_class(n)) {
-    case 0: return substitute_class<T, 0>(l, r, out, batch, n, st);
-    case 1: return substitute_class<T, 1>(l, r, out, batch, n, st);
-    default: return substitute_class<T, 2>(l, r, out, batch, n, st);
+    case 0: return substitute_class<S, 0>(l, r, out, batch, n, st);
+    case 1: return substitute_class<S, 1>(l, r, out, batch, n, st);
+    default: return substitute_class<S, 2>(l, r, out, batch, n, st);
   }
 }
 
@@ -839,8 +1008,8 @@ int substitute_t(const void* low, const void* rhs, void* x, long long batch, int
 extern "C" {
 
 // Each entry launches on the given stream without synchronizing.  dtype_code:
-// 0 float32, 1 float64.  Returns 0, -1 for an unknown dtype code, -2 for a
-// bad argument, or the CUDA error code of the launch.
+// 0 float32, 1 float64, 2 bfloat16.  Returns 0, -1 for an unknown dtype code,
+// -2 for a bad argument, or the CUDA error code of the launch.
 
 // L (B, n, n) from K (B, n, n), or (from_j) from sqrt(M) J (B, m, n).
 int hamilton_spd_factor(int dtype_code, int from_j, const void* src, void* low,
@@ -849,6 +1018,7 @@ int hamilton_spd_factor(int dtype_code, int from_j, const void* src, void* low,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype_code == 0) return factor_t<float>(from_j, src, low, batch, n, m, st);
   if (dtype_code == 1) return factor_t<double>(from_j, src, low, batch, n, m, st);
+  if (dtype_code == 2) return factor_t<__nv_bfloat16>(from_j, src, low, batch, n, m, st);
   return -1;
 }
 
@@ -859,6 +1029,7 @@ int hamilton_spd_substitute(int dtype_code, const void* low, const void* rhs, vo
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype_code == 0) return substitute_t<float>(low, rhs, x, batch, n, st);
   if (dtype_code == 1) return substitute_t<double>(low, rhs, x, batch, n, st);
+  if (dtype_code == 2) return substitute_t<__nv_bfloat16>(low, rhs, x, batch, n, st);
   return -1;
 }
 
@@ -869,6 +1040,8 @@ int hamilton_spd_solve(int dtype_code, int from_j, const void* src, const void* 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype_code == 0) return factor_solve_t<float>(from_j, src, rhs, x, batch, n, m, st);
   if (dtype_code == 1) return factor_solve_t<double>(from_j, src, rhs, x, batch, n, m, st);
+  if (dtype_code == 2)
+    return factor_solve_t<__nv_bfloat16>(from_j, src, rhs, x, batch, n, m, st);
   return -1;
 }
 

@@ -52,7 +52,7 @@ import time
 RAMP = " .:-=+*#%@"
 
 
-def make_system(mass=1.0, gravity=9.8, spring_k=30.0, rest_length=1.0, *, device="cpu",
+def make_system(mass=1.0, gravity=9.8, spring_k=30.0, rest_length=1.0, *, device,
                 dtype=None):
     """The elastic-pendulum :class:`~hamilton_tpu_torch.system.System`
     through the public constructor: the library path and the fused family.

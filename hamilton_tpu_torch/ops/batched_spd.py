@@ -19,8 +19,11 @@ hand-written kernel of ``csrc/batched_spd.cu``; on a CPU tensor it runs the
 plain PyTorch version beside it (``*_plain``), which computes the same IEEE
 operations in the same order: the left-looking Cholesky of the reference's
 ``_chol_entries`` and the substitutions of its ``_solve_entries``.  A matrix
-that is not SPD gives NaN in its member only.  bf16 is ROADMAP M10's
-follow-up.  The reference's three layouts (member-major, batch-minor,
+that is not SPD gives NaN in its member only.  bfloat16 operands, which the
+reference's kernels take too (``tiles_eligible``), are a storage type: the
+kernels widen them to float32, run the float32 member chain and round each
+result to bfloat16 once, and the plain versions do the same (float32 plain
+version on the widened operands, then one rounding).  The reference's three layouts (member-major, batch-minor,
 (8, 128) tiles) exist for TPU relayout costs; the port keeps the
 member-major one.
 
@@ -36,6 +39,7 @@ kernel.  Each composes with ``torch.func`` as with ``.backward()``.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Callable, Tuple
 
@@ -63,8 +67,12 @@ __all__ = [
 
 #: The largest n the kernels take (the reference's ``SMALL_LIMIT``).
 MAX_N = 32
+#: The most values of √M·J a member the bfloat16 J entries (K2d, K2e) take:
+#: their kernel stages a tile's whole √M·J at once, and one member's must
+#: fit a block's shared memory beside its float32 K.
+MAX_BF16_JAC_VALUES = 100_000
 
-_DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
 
 # ----------------------------------------------------------------------
@@ -140,27 +148,46 @@ def masked_cholesky(k: torch.Tensor) -> torch.Tensor:
     return a
 
 
+def _bfloat16_in_float32(plain: Callable) -> Callable:
+    """A plain version that takes bfloat16 operands as the kernels do:
+    widened to float32 (exactly), the float32 plain version, the result
+    rounded to bfloat16 once."""
+
+    @functools.wraps(plain)
+    def run(*args):
+        if args[0].dtype != torch.bfloat16:
+            return plain(*args)
+        return plain(*(a.float() for a in args)).to(torch.bfloat16)
+
+    return run
+
+
+@_bfloat16_in_float32
 def spd_solve_plain(k: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """K2a's plain version: K (B, n, n), b (B, n) → x."""
     return _substitute(*_factor(k), b)
 
 
+@_bfloat16_in_float32
 def cholesky_plain(k: torch.Tensor) -> torch.Tensor:
     """K2b's plain version: the lower factor, zeros above the diagonal."""
     return _factor(k)[0]
 
 
+@_bfloat16_in_float32
 def cho_solve_plain(low: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """K2c's plain version: L (B, n, n), b (B, n) → x."""
     inv = torch.reciprocal(torch.diagonal(low, dim1=-2, dim2=-1))
     return _substitute(low, inv, b)
 
 
+@_bfloat16_in_float32
 def spd_solve_jac_plain(js: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """K2d's plain version: √M·J (B, m, n), b (B, n) → x."""
     return spd_solve_plain(_k_from_jac(js), b)
 
 
+@_bfloat16_in_float32
 def cholesky_jac_plain(js: torch.Tensor) -> torch.Tensor:
     """K2e's plain version: √M·J (B, m, n) → L (B, n, n)."""
     return cholesky_plain(_k_from_jac(js))
@@ -222,12 +249,10 @@ def _cholesky_jac_kernel(js):
 
 def _check(name: str, mats: torch.Tensor, vecs=None) -> None:
     dtype = mats.dtype
-    if dtype == torch.bfloat16:
-        raise NotImplementedError(
-            f"{name}: bfloat16 is not ported yet (ROADMAP M10, K2 bf16)"
-        )
     if dtype not in _DTYPE_CODES:
-        raise ValueError(f"{name} takes float32 or float64, not {dtype}")
+        raise ValueError(
+            f"{name} takes float32 or float64, or bfloat16 (computed in float32), not {dtype}"
+        )
     if mats.ndim < 3:
         raise ValueError(
             f"{name} needs one or more batch axes, got shape {tuple(mats.shape)}"
@@ -235,6 +260,10 @@ def _check(name: str, mats: torch.Tensor, vecs=None) -> None:
     n = mats.shape[-1]
     if not 1 <= n <= MAX_N:
         raise ValueError(f"{name} takes 1 <= n <= {MAX_N}, got n={n}")
+    if dtype == torch.bfloat16 and name.endswith("_jac") and \
+            mats.shape[-2] * n > MAX_BF16_JAC_VALUES:
+        raise ValueError(f"{name} takes m·n <= {MAX_BF16_JAC_VALUES} in bfloat16, got "
+                         f"m={mats.shape[-2]}, n={n}")
     if vecs is not None:
         if vecs.dtype != dtype or vecs.device != mats.device:
             raise ValueError(

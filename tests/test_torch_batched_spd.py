@@ -49,6 +49,17 @@ F32_RTOL = 5e-6
 # float64 against the reference's masked-loop factorization (another order
 # of the same sums) on well-conditioned K: rounding, at most ~1e-14.
 F64_ATOL = 1e-12
+# bfloat16: the reference's interpreted kernels round every operation to
+# bfloat16, the port's entries compute in float32 and round the result once,
+# so the two differ by the reference's own rounding, carried through cond(K).
+# Both must sit within the reference's 5e-2 (rtol and atol) of the float64
+# solution (tests/test_pallas.py's bf16 check); to each other, relative to
+# each output's largest value, the readings at n = 4 are 1.1e-2 (x), 5.8e-3
+# (L), 1.3e-2 (cho-solve) and at n = 20 2.3e-2 (x), 1.1e-2 (L), 2.3e-2
+# (cho-solve) (scripts/bf16_reference_check.py: the interpreter compiles
+# the n = 20 kernels for ~8 minutes, so the suite holds n = 4 and 8).
+BF16_REL = 4e-2
+BF16_REF = 5e-2
 
 
 def _spd(rng, b, n, dtype):
@@ -90,6 +101,67 @@ def test_k_entries_match_the_reference_kernels(n):
     _close(jx, bs.spd_solve_batched(tk, tv))
     _close(jl, tl)
     _close(jxc, bs.cho_solve_batched(tl, tv))
+
+
+def _bf16_close(want_f64, ref, port):
+    """Both within the reference's 5e-2 of the float64 answer, and within
+    ``BF16_REL`` of each other relative to the largest value."""
+    ref = np.asarray(jnp.asarray(ref, jnp.float32), dtype=np.float64)
+    got = port.float().numpy().astype(np.float64)
+    assert port.dtype == torch.bfloat16 and ref.shape == got.shape == want_f64.shape
+    np.testing.assert_allclose(ref, want_f64, rtol=BF16_REF, atol=BF16_REF)
+    np.testing.assert_allclose(got, want_f64, rtol=BF16_REF, atol=BF16_REF)
+    assert np.abs(got - ref).max() <= BF16_REL * np.abs(want_f64).max()
+
+
+@pytest.mark.parametrize("n", [4, 8])
+def test_bfloat16_entries_match_the_reference_kernels(n):
+    """K2a-K2c in bfloat16 against the reference's bf16 ``spd_solve_pallas``,
+    ``cholesky_pallas`` and ``cho_solve_pallas`` interpreted (as
+    ``tests/test_pallas.py::test_bf16_path`` runs them), B = 1024; and each
+    equal to the float32 entry on the widened operands, rounded once."""
+    rng = np.random.default_rng(50 + n)
+    b = 1024
+    k = _spd(rng, b, n, np.float32)
+    vec = rng.standard_normal((b, n)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        jk, jv = jnp.asarray(k, jnp.bfloat16), jnp.asarray(vec, jnp.bfloat16)
+        jx = ps.spd_solve_pallas(jk, jv)
+        jl = ps.cholesky_pallas(jk)
+        jxc = ps.cho_solve_pallas(jl, jv)
+    assert jx.dtype == jl.dtype == jnp.bfloat16
+    want_x = np.linalg.solve(k.astype(np.float64), vec.astype(np.float64)[..., None])[..., 0]
+    want_l = np.linalg.cholesky(k.astype(np.float64))
+    tk, tv = torch.tensor(k).bfloat16(), torch.tensor(vec).bfloat16()
+    tl = bs.cholesky_batched(tk)
+    x = bs.spd_solve_batched(tk, tv)
+    _bf16_close(want_x, jx, x)
+    _bf16_close(want_l, jl, tl)
+    _bf16_close(want_x, jxc, bs.cho_solve_batched(tl, tv))
+    assert torch.equal(x, bs.spd_solve_batched(tk.float(), tv.float()).bfloat16())
+    assert torch.equal(tl, bs.cholesky_batched(tk.float()).bfloat16())
+
+
+def test_bfloat16_jac_entries_match_the_reference_kernels():
+    """K2d and K2e in bfloat16 against the reference's bf16
+    ``spd_solve_jac_tiles``/``cholesky_jac_tiles`` interpreted
+    (``tiles_eligible`` lets bf16 through to them, ``pallas_solve.py:252``),
+    n = 3, m = 5, B = 1024."""
+    rng = np.random.default_rng(53)
+    b, n, m = 1024, 3, 5
+    j, inertia = _jac(rng, b, n, m, np.float32)
+    vec = rng.standard_normal((b, n)).astype(np.float32)
+    js = (np.sqrt(inertia)[:, None] * j).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        jt = ps._to_tiles(jnp.asarray(js, jnp.bfloat16), 2)
+        jvt = ps.to_vec_tiles(jnp.asarray(vec, jnp.bfloat16))
+        jx = ps.from_vec_tiles(ps.spd_solve_jac_tiles(jt, jvt, n, m))
+        jl = ps._from_tiles(ps.cholesky_jac_tiles(jt, n, m), (n, n))
+    kj = np.einsum("bmi,bmj->bij", js.astype(np.float64), js.astype(np.float64))
+    want_x = np.linalg.solve(kj, vec.astype(np.float64)[..., None])[..., 0]
+    tjs, tv = torch.tensor(js).bfloat16(), torch.tensor(vec).bfloat16()
+    _bf16_close(want_x, jx, bs.spd_solve_jac(tjs, tv))
+    _bf16_close(np.linalg.cholesky(kj), jl, bs.cholesky_jac(tjs))
 
 
 def test_tile_entries_match_the_reference_kernels():
@@ -180,17 +252,20 @@ def test_batch_axes_and_a_matrix_that_is_not_spd():
 
 
 def test_backward_raises_and_unported_types():
-    """What the entries refuse: bfloat16 (not ported), other dtypes, n > 32,
-    no batch axis, a device with neither kernel nor plain version.  The
-    backward no longer raises: it fills the gradients."""
+    """What the entries refuse: float16 and other dtypes, n > 32, no batch
+    axis, a device with neither kernel nor plain version, a bfloat16 √M·J
+    too large for a block.  bfloat16 is taken (the float32 plain version,
+    rounded once), and the backward fills the gradients."""
     rng = np.random.default_rng(4)
     k = torch.tensor(_spd(rng, 4, 3, np.float64), requires_grad=True)
     vec = torch.tensor(rng.standard_normal((4, 3)))
     x = bs.spd_solve_batched(k, vec)
     x.sum().backward()
     assert k.grad is not None and bool(torch.isfinite(k.grad).all())
-    with pytest.raises(NotImplementedError, match="M10"):
-        bs.cholesky_batched(k.detach().to(torch.bfloat16))
+    kb = k.detach().to(torch.bfloat16)
+    assert torch.equal(bs.cholesky_batched(kb), bs.cholesky_batched(kb.float()).bfloat16())
+    with pytest.raises(ValueError, match="m·n <= 100000"):
+        bs.cholesky_jac(torch.ones(2, 40000, 3, dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="float32 or float64"):
         bs.cholesky_batched(k.detach().half())
     with pytest.raises(ValueError, match="n <= 32"):
@@ -400,6 +475,24 @@ def test_mechanics_take_the_reference_routes(monkeypatch):
 # The kernel source on the host
 # ----------------------------------------------------------------------
 
+#: ``cuda_bf16.h`` for the host build: bfloat16 as its 16 bits, widened
+#: exactly and rounded to nearest even (NaN kept quiet), as the card's
+#: intrinsics do.
+BF16_SHIM = r"""
+#pragma once
+#include <cstring>
+struct __nv_bfloat16 { unsigned short x; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+inline float __bfloat162float(__nv_bfloat16 v) {
+  unsigned u = static_cast<unsigned>(v.x) << 16; float f; std::memcpy(&f, &u, 4); return f; }
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  unsigned u; std::memcpy(&u, &f, 4);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return {static_cast<unsigned short>((u >> 16) | 0x40u)};
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return {static_cast<unsigned short>(u >> 16)}; }
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 v) { return v.x; }
+"""
+
 #: Threads a block for each count of lanes a member that the host build is
 #: run at: a tile of several members, so that a batch of 37 on the host's
 #: four SMs ends in a tile part full.
@@ -430,6 +523,7 @@ def _host_spd_library(where: Path, lanes=None) -> Path:
         pytest.skip("needs g++ for the host build of the kernel source")
     csrc = Path(kernels.__file__).resolve().parent.parent / "csrc"
     (where / "cuda_runtime.h").write_text(HOST_SHIM)
+    (where / "cuda_bf16.h").write_text(BF16_SHIM)
     for h in csrc.glob("*.cuh"):
         (where / h.name).write_text(h.read_text())
     src = (csrc / "batched_spd.cu").read_text()
@@ -574,3 +668,47 @@ def test_jac_tiles_on_the_host(lanes, host_spd_library, monkeypatch):
                 for out in (x, low):
                     nan = torch.isnan(out).flatten(1).any(-1)
                     assert nan.nonzero().flatten().tolist() == [7], (n, m, dtype)
+
+
+@pytest.mark.parametrize("lanes", [None, 4], ids=["shipped", "G4"])
+def test_bfloat16_tiles_on_the_host(lanes, host_spd_library, monkeypatch):
+    """The five entries in bfloat16 (``dtype_code`` 2) built with g++ in the
+    host emulation: the tile staged as bf16 16-byte lines from any start
+    within a line (37 members lying off a 16-byte boundary, n = 3: 18 bytes
+    a member), widened into the float32 slots, the float32 chain, each result
+    rounded once at the store; equal bit for bit to the plain versions
+    (float32 on the widened operands, rounded to bfloat16) at n = 1, 3, 20
+    and 32 (K2a-K2c) and n = 3 and 20 with m = n and 2n (K2d, K2e), at the
+    source's tables and with K2a-K2c and K2d/K2e's formation on 4 lanes."""
+    lib = host_spd_library(lanes)
+    monkeypatch.setattr(torch, "sqrt", _ieee_sqrt)
+    rng = np.random.default_rng(42)
+    batch, bf = 37, torch.bfloat16
+    for n in (1, 3, 20, 32):
+        k = _offset(torch.tensor(_spd(rng, batch, n, np.float64)).to(bf))
+        vec = _offset(torch.tensor(rng.standard_normal((batch, n))).to(bf))
+        low = _offset(torch.zeros_like(k))
+        assert lib.hamilton_spd_factor(2, 0, k.data_ptr(), low.data_ptr(), batch, n, 0,
+                                       None) == 0
+        assert torch.equal(low, bs.cholesky_plain(k)), ("K2b", n)
+        x = _offset(torch.zeros_like(vec))
+        assert lib.hamilton_spd_substitute(2, low.data_ptr(), vec.data_ptr(), x.data_ptr(),
+                                           batch, n, None) == 0
+        assert torch.equal(x, bs.cho_solve_plain(low, vec)), ("K2c", n)
+        x = _offset(torch.zeros_like(vec))
+        assert lib.hamilton_spd_solve(2, 0, k.data_ptr(), vec.data_ptr(), x.data_ptr(), batch,
+                                      n, 0, None) == 0
+        assert torch.equal(x, bs.spd_solve_plain(k, vec)), ("K2a", n)
+    for n in (3, 20):
+        for m in (n, 2 * n):
+            j, inertia = _jac(rng, batch, n, m, np.float64)
+            js = _offset(bs.jac_scaled(torch.tensor(j), torch.tensor(inertia)).to(bf))
+            vec = _offset(torch.tensor(rng.standard_normal((batch, n))).to(bf))
+            low = _offset(torch.zeros((batch, n, n), dtype=bf))
+            assert lib.hamilton_spd_factor(2, 1, js.data_ptr(), low.data_ptr(), batch, n, m,
+                                           None) == 0
+            assert torch.equal(low, bs.cholesky_jac_plain(js)), ("K2e", n, m)
+            x = _offset(torch.zeros_like(vec))
+            assert lib.hamilton_spd_solve(2, 1, js.data_ptr(), vec.data_ptr(), x.data_ptr(),
+                                          batch, n, m, None) == 0
+            assert torch.equal(x, bs.spd_solve_jac_plain(js, vec)), ("K2d", n, m)

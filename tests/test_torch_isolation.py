@@ -6,9 +6,11 @@ takes a fused step of three model families and of the chain's Möbius and
 L⁻¹ forms, differentiates through ``evolve_ham_fixed`` (the fused step's
 replay and the K2 entries' backwards), runs one iteration of the
 ``fit_masses`` example, generates the elastic pendulum's kernel code, runs
-that example's ``main`` at a tiny size and streams a transforming
-observable through an ensemble driver; ``jax`` must stay out of
-``sys.modules``.
+that example's ``main`` at a tiny size, streams a transforming
+observable through an ensemble driver, imports the CLI, the renderer, the
+Poincaré, diagnostics and checkpoint utilities and the hmc, chaos-scan and
+ensemble-sweep examples, and runs the chaos scan's ``main`` at a tiny size;
+``jax`` must stay out of ``sys.modules``.
 """
 
 import os
@@ -50,12 +52,16 @@ fit_masses.main(["--device", "cpu", "--iters", "1", "--steps", "12"])
 from hamilton_tpu_torch.examples import elastic_pendulum
 from hamilton_tpu_torch.ops import fused_codegen
 from hamilton_tpu_torch.utils import observables
-esys = elastic_pendulum.make_system()
+esys = elastic_pendulum.make_system(device="cpu")
 fused_codegen.generate(esys.fused_forms(esys))
 elastic_pendulum.main(["--device", "cpu", "--fused", "--sweep", "8", "--steps", "100"])
 pairs = observables.LyapunovPairs.pair_ensemble(tp.Phase(ph.q[:2], ph.p[:2]), 1e-6)
 tp.evolve_ensemble_final(ex.system, pairs, 1e-3, 4, method="leapfrog", iters=(2, 1),
                          drift_every=2, observable=observables.LyapunovPairs(), obs_every=2)
+import hamilton_tpu_torch.cli, hamilton_tpu_torch.render
+from hamilton_tpu_torch.utils import checkpoint, diagnostics, poincare
+from hamilton_tpu_torch.examples import chaos_scan, ensemble_sweep, hmc
+chaos_scan.main(["--device", "cpu", "--fused", "--rows", "2", "--cols", "4", "--steps", "80"])
 print("jax" in sys.modules, any(m.startswith("hamilton_tpu.") or m == "hamilton_tpu"
                                 for m in sys.modules))
 """

@@ -635,13 +635,15 @@ def _k2_args(entry, k, js, b):
     return (src, b) if entry.solves else (src,)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16],
+                         ids=["f32", "f64", "bf16"])
 @pytest.mark.parametrize("n", [3, 20, 32])
 @pytest.mark.parametrize("entry", bs.ENTRIES, ids=[e.name for e in bs.ENTRIES])
 def test_k2_kernel_matches_plain_version(card, entry, n, dtype):
     """Each entry on a ragged batch of 300 through its public function: one
     launch, and the plain version's result bit for bit (the kernel does the
-    same IEEE operations in the same order, none fused)."""
+    same IEEE operations in the same order, none fused; bfloat16 widened to
+    float32 and rounded once on both sides)."""
     k, js, b = _k2_inputs(card, 300, n, dtype, seed=n)
     args = _k2_args(entry, k, js, b)
     before = entry.launch.launches

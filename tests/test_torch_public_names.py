@@ -1,6 +1,7 @@
 """The port's public names against the JAX package's.
 
-For the top level, ``ops``, ``utils``, ``integrators`` and ``models``, every
+For the top level, ``ops``, ``utils``, ``integrators``, ``models``, the
+Poincaré, diagnostics and checkpoint utilities, ``render`` and ``cli``, every
 name in the reference's ``__all__`` is in the port's ``__all__`` and
 importable from the port, except the names of modules that are not ported
 yet, each listed below with its ROADMAP item.  The port's ``__all__`` names
@@ -17,17 +18,13 @@ import hamilton_tpu_torch
 #: Reference names the port does not have yet: name → ROADMAP §1 item.
 UNPORTED = {
     "evolve_ensemble_sharded": "M13",
-    # diagnostics, Poincaré sections and checkpoints
-    "check_finite_phase": "M12",
-    "checked": "M12",
-    "nan_guard": "M12",
-    "poincare_section": "M12",
-    "coordinate_section": "M12",
-    "save_checkpoint": "M12",
-    "load_checkpoint": "M12",
+    # checkpoints through orbax, a JAX library: with the sharded path
+    "save_orbax": "M13",
+    "load_orbax": "M13",
 }
 
-MODULES = ["", ".ops", ".utils", ".integrators", ".models"]
+MODULES = ["", ".ops", ".utils", ".integrators", ".models", ".utils.poincare",
+           ".utils.diagnostics", ".utils.checkpoint", ".render", ".cli"]
 
 
 @pytest.mark.parametrize("suffix", MODULES, ids=[m or "top" for m in MODULES])

@@ -180,7 +180,8 @@ FAMILIES = {
        for solver in ("semiseparable", "mobius", "linv")},
     "bezier3": (lambda dtype: tp.bezier(THREE_POINTS, device="cpu", dtype=dtype).system,
                 [0.5]),
-    "elastic_pendulum": (lambda dtype: t_example.make_system(dtype=dtype), [0.3, 1.1]),
+    "elastic_pendulum": (lambda dtype: t_example.make_system(device="cpu", dtype=dtype),
+                         [0.3, 1.1]),
     "all_ops": (all_ops_system, [0.2, 1.1]),
     "sincos_recip": (sincos_recip_system, [0.4, 0.7]),
 }
@@ -447,7 +448,7 @@ def test_constants_fold_in_double():
     """With constant shared parameters, ``kspr()·l0()`` folds in double and
     rounds to T once (the plain version's Python floats); with a run-time
     table it is a product in T."""
-    system = t_example.make_system(dtype=torch.float32)
+    system = t_example.make_system(device="cpu", dtype=torch.float32)
     gen = cg.generated(system.fused_forms(system))
     const_ops = gen.const["dhdq"].ops
     assert ("D", "mul", (const_ops.index(("D", "tab", (2,))),
@@ -526,9 +527,10 @@ def test_a_parameter_change_keeps_the_library_key():
     literal in the forms) gives another."""
     keys = set()
     for k in (10.0, 29.4, 60.0):
-        system = t_example.make_system(spring_k=k, rest_length=0.9, dtype=torch.float32)
+        system = t_example.make_system(spring_k=k, rest_length=0.9, device="cpu",
+                                        dtype=torch.float32)
         keys.add(kernels._user_family_paths(cg.generate(system.fused_forms(system)).header)[0])
-    sweep = t_example.make_system(dtype=torch.float32).replace_params(
+    sweep = t_example.make_system(device="cpu", dtype=torch.float32).replace_params(
         tp.params_from_numpy(_params_np(np.random.default_rng(0), 32), device="cpu",
                              dtype=torch.float32))
     keys.add(kernels._user_family_paths(cg.generate(sweep.fused_forms(sweep)).header)[0])
