@@ -7,7 +7,8 @@ Builds the hand-written kernels (``hamilton_tpu_torch/csrc/fused_step.cu``,
 ``csrc/chain_variants.cu``, ``csrc/family_step.cu``, ``csrc/batched_spd.cu``
 and ``csrc/roofline_probes.cu``, one nvcc each or one a part, and
 ``csrc/user_family_step.cu`` around the generated forms of the elastic
-pendulum and a 3-point Bézier, all at once), then runs these phases and
+pendulum and a 3-point Bézier, all at once, and beside them and phases
+1-20 the kernels of phase 21's chain cases), then runs these phases and
 raises as soon as one fails:
 
 1. kernel against its plain PyTorch version: one 50-step call on a ragged
@@ -15,9 +16,11 @@ raises as soon as one fails:
    double pendulum (dense, ``(2,1)``), each in float64 and float32; the
    semiseparable form at chain-20 and chain-5 with shared and per-member
    tables, plain and ``suzuki4``, on 1000, 1, 7 and 16383 members, each in
-   float64 and float32; the chain kernels' float sin/cos, sqrt and
-   reciprocal against ``sinf``/``cosf``, ``sqrtf`` and ``1/x`` on every
-   float; and each semiseparable kernel's layout, registers and spills;
+   float64 and float32 (the cases that differ only in their batch share one
+   plain run on their members put together, each kernel run held against
+   its slice); the chain kernels' float sin/cos, sqrt and reciprocal
+   against ``sinf``/``cosf``, ``sqrtf`` and ``1/x`` on every float; and
+   each semiseparable kernel's layout, registers and spills;
 2. kernel against physics: float64 chain-5 ``(3,2)`` against the port's
    library leapfrog over two steps;
 3. the headline: ``evolve_ensemble_chunked`` on 16384 × chain-20, float32,
@@ -188,7 +191,28 @@ raises as soon as one fails:
     ``torch.cuda.set_sync_debug_mode("error")`` (no host read until
     ``checked`` returns; a poisoned member raises naming its step), and a
     checkpoint of the fused carry saved from the card and resumed bit for
-    bit; and hmc's K2 kernels timed at its shape.
+    bit; and hmc's K2 kernels timed at its shape;
+21. (a) K1's chain cases at the reference's default chain (dense n = 20,
+    ``anchor21``: (2,1), dt = 1e-3, 2000 steps) and its stress chain
+    (``System 40 20``: semiseparable (2,0), dt = 5e-4, 2000 steps; dense
+    (2,0), 1000 steps), 16384 members, float32 Kahan, 50 steps a launch, on
+    the kernel ``KERNEL_INSTANTIATIONS`` routes each to (``csrc/
+    fused_step.cu``'s part, or the generated kernel; built beside the first
+    build and phases 1-20): its nvcc seconds, registers and spills; the
+    kernel against its plain version at 1000 and 7 members in float64 and
+    float32 (dense n = 40 over a 10-step launch; these checks time nothing
+    and run at the end of phase 1, beside phase 19's checks); the run through ``evolve_ensemble_final`` with its exact launches,
+    member-steps/s and ``max|ΔH/H₀|`` sampled in float64 every 1000 steps
+    (< 1e-6 for dense n = 20 and semiseparable n = 40, dense n = 40's
+    recorded); the 50-step launch timed beside its plain version, its bound
+    and share; (b) ``evolve_ensemble_sharded`` on the headline's
+    configuration (2000 steps) on a one-device mesh and 4 shards on the card
+    (and over every card where there are more): final state and per-member
+    drift bitwise ``evolve_ensemble_final``'s, exactly 40 K1 launches a
+    shard; ``reduce_stats`` max and mean through a world-size-1 NCCL group
+    that ``init_distributed`` opens on localhost; the dense chain-20 on 4
+    shards; a ``save_orbax``/``load_orbax`` (DCP) round trip of the 4
+    shards, bitwise.
 
 Every kernel's row gives its launches on its main path, its device time
 and its plain version's, the bound (the larger of its operations over the
@@ -428,6 +452,25 @@ GUARD_STEPS = 50
 GAUSS_CPU_MEMBERS = 8
 GAUSS_CPU_STEPS = 20
 GAUSS_GRAD_STEPS = 5
+# phase 21 (a): K1's chain cases at the reference's default chain (dense,
+# n = 20: leapfrog_fused on chain(), the bench's anchor21 datapoint,
+# bench.py:549-560) and its stress chain (System 40 20, both forms,
+# bench.py:733-806), 16384 members, float32 Kahan, 50 steps a launch,
+# float64 drift every 1000 steps: (label, n, fused_solver, iters, dt, steps,
+# steps of the launch held against the plain version, drift bound or None
+# where it is only recorded).  The dense n = 40 plain version takes ~0.7 s
+# a step on the card (~10^4 PyTorch operations), so its check is a 10-step
+# launch.
+CHAIN_CASES = (
+    ("dense n=20 (2,1)", 20, "dense", (2, 1), 1e-3, 2000, 50, DRIFT_BOUND),
+    ("semiseparable n=40 (2,0)", 40, "semiseparable", (2, 0), 5e-4, 2000, 50, DRIFT_BOUND),
+    ("dense n=40 (2,0)", 40, "dense", (2, 0), 5e-4, 1000, 10, None),
+)
+# the batches each case's kernel is held against its plain version at
+CHAIN_CASE_BATCHES = (1000, 7)
+# phase 21 (b): the sharded driver on the headline configuration, 2000 steps
+SHARD_STEPS = 2000
+SHARD_COUNT = 4
 
 
 def log(msg: str) -> None:
@@ -594,6 +637,46 @@ def semisep_case(dev, n, dtype, batch, swept, composition, seed):
         jittered_phase(ex, batch, dtype, dev, seed))
     state, table = carry if swept else (carry, None)
     return forms, state, table
+
+
+def phase1_semiseparable(dev, cases):
+    """Phase 1's semiseparable rows: each ``(n, swept, composition, batch)``
+    case's kernel against its plain version over one 50-step launch, in
+    float64 and float32.  The cases that differ only in their batch share
+    one plain run on their members put together (the plain arithmetic is
+    member by member, each member's table column with it), and each kernel
+    run is held against its slice.  Logs each row; returns the failures."""
+    import torch
+    from hamilton_tpu_torch.ops.fused_step import fused_step_kernel, fused_step_reference
+
+    groups = {}
+    for n, swept, composition, batch in cases:
+        groups.setdefault((n, swept, composition), []).append(batch)
+    failures = []
+    for (n, swept, composition), batches in groups.items():
+        label = (f"chain-{n} semiseparable (2,0) kahan{' per-member' if swept else ''}"
+                 f"{' suzuki4' if len(composition) > 1 else ''}")
+        for dtype in (torch.float64, torch.float32):
+            dname = str(dtype).split(".")[-1]
+            runs = [semisep_case(dev, n, dtype, batch, swept, composition, 3)
+                    for batch in batches]
+            kw = dict(iters=(2, 0), compensated=True, composition=composition,
+                      steps_per_call=50)
+            plain = fused_step_reference(
+                runs[0][0], torch.cat([state for _, state, _ in runs], dim=2), 5e-4,
+                coef=torch.cat([table for _, _, table in runs], dim=1) if swept else None,
+                **kw)
+            start = 0
+            for batch, (forms, state, table) in zip(batches, runs):
+                k_out = fused_step_kernel(forms, state, 5e-4, coef=table, **kw)
+                torch.cuda.synchronize()
+                _, errs, bad = compare_states(k_out, plain[:, :, start:start + batch], dname,
+                                              semisep_tol(n, dname))
+                start += batch
+                failures.extend(f"{label} {dname} B={batch}: {f}" for f in bad)
+                log(f"phase 1 {'FAILED' if bad else 'ok'}: {label} {dname} B={batch} spc=50: "
+                    + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    return failures
 
 
 def semisep_tol(n, dtype_name):
@@ -2396,6 +2479,335 @@ def phase_tools(dev, entries, summary):
     log(f"phase 20: {time.perf_counter() - t_phase:.1f} s in this process")
 
 
+def _niced(fn, *args):
+    """``fn(*args)`` at a lower priority: on Linux the nice value is the
+    calling thread's, and the threads and nvcc processes it starts inherit
+    it, so these builds take the cores the phases leave idle."""
+    os.nice(10)
+    return fn(*args)
+
+
+def phase21_builds(dev, pool):
+    """Start in ``pool`` the builds that only phase 21 (a) needs, so that
+    they compile beside the first build and phases 1-20, at a lower priority
+    (:func:`_niced`): each case's kernel as ``KERNEL_INSTANTIATIONS`` routes
+    it, its ``csrc/fused_step.cu`` parts or its generated header (six parts,
+    the dense chain-20's ~800 s of nvcc as one build).  Returns ``({label:
+    future}, the fused_step units to leave out of the first build)``."""
+    import torch
+    from hamilton_tpu_torch import kernels
+    from hamilton_tpu_torch.models import chain
+    from hamilton_tpu_torch.ops import fused_codegen
+    from hamilton_tpu_torch.ops.fused_step import KERNEL_INSTANTIATIONS, _kernel_key
+
+    futures, exclude = {}, []
+    for label, n, solver, *_ in CHAIN_CASES:
+        system = chain(n_links=n, fused_solver=solver, device=dev, dtype=torch.float32).system
+        forms = system.fused_forms(system)
+        if _kernel_key(forms) in KERNEL_INSTANTIATIONS:
+            parts = tuple(kernels.PARTS["fused_step"][1](d, n, solver == "semiseparable")
+                          for d in (0, 1))
+            exclude += [("fused_step", part) for part in parts]
+            futures[label] = pool.submit(_niced, kernels.build, "fused_step", parts)
+        else:
+            futures[label] = pool.submit(_niced, kernels.build_user_family,
+                                         fused_codegen.generated(forms).header)
+    return futures, exclude
+
+
+def phase_chain_checks(dev, late_builds):
+    """Phase 21 (a)'s checks, run at the end of phase 1 while phase 19's
+    checks finish in the second process (they time nothing): for each of
+    :data:`CHAIN_CASES`, wait for its kernel as ``KERNEL_INSTANTIATIONS``
+    routes it (``csrc/fused_step.cu``'s parts, or the generated kernel),
+    built beside the first build (``late_builds``, :func:`phase21_builds`),
+    and log its build seconds, registers and spills; hold the kernel
+    against its plain version at :data:`CHAIN_CASE_BATCHES` in float64 and
+    float32 (one plain run on the members of both batches).  Returns
+    ``{label: (launch counter, source, nvcc seconds, largest float32 q/p
+    error)}``."""
+    import torch
+    from hamilton_tpu_torch.models import chain
+    from hamilton_tpu_torch.ops.fused_step import (
+        KERNEL_INSTANTIATIONS, _kernel_key, fused_step_kernel, fused_step_reference,
+        fused_stepper,
+    )
+
+    f32 = torch.float32
+    checked = {}
+    for label, n, solver, iters, dt, steps, spc_check, drift_bound in CHAIN_CASES:
+        system = chain(n_links=n, fused_solver=solver, device=dev, dtype=f32).system
+        hand = _kernel_key(system.fused_forms(system)) in KERNEL_INSTANTIATIONS
+        t_wait = time.perf_counter()
+        build = late_builds[label].result()
+        waited = time.perf_counter() - t_wait
+        if hand:
+            counter, source = "fused_step", SOURCE
+            seconds = list(build.part_seconds)
+            regs = ptxas_report(build.log)
+            built = ("csrc/fused_step.cu's float32 and float64 parts: nvcc "
+                     + " s and ".join(f"{x:.1f}" for x in seconds) + " s")
+        else:
+            counter, source = "user_family", USER_SOURCE
+            key, build = build
+            seconds = [build.seconds]
+            regs = ptxas_report(build.log, _USER_RE, _user_label)
+            built = f"the generated kernel ({key}): nvcc {build.seconds:.1f} s"
+        log(f"phase 21 (a) {label}: {built} (waited {waited:.1f} s for it), {len(regs)} "
+            f"instantiations, registers {min(r[1] for r in regs)}-{max(r[1] for r in regs)}, "
+            f"spill stores {min(r[2] for r in regs)}-{max(r[2] for r in regs)} B")
+        for kname, nreg, st, ld in regs:
+            log(f"ptxas: {label}: {kname:<45} {nreg:3d} registers, spill stores {st} B, "
+                f"spill loads {ld} B")
+
+        # the kernel against its plain version, one plain run for both batches
+        worst = 0.0
+        for dtype in (torch.float64, f32):
+            dname = str(dtype).split(".")[-1]
+            exd = chain(n_links=n, fused_solver=solver, device=dev, dtype=dtype)
+            fd = exd.system.fused_forms(exd.system)
+            st = fused_stepper(fd, iters=iters, compensated=True, steps_per_call=spc_check)
+            states = [st.init(jittered_phase(exd, b, dtype, dev, 21 + i))
+                      for i, b in enumerate(CHAIN_CASE_BATCHES)]
+            kw = dict(iters=iters, compensated=True, steps_per_call=spc_check)
+            t0 = time.perf_counter()
+            plain = fused_step_reference(fd, torch.cat(states, dim=2), dt, **kw)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            start, failures = 0, []
+            for b, state in zip(CHAIN_CASE_BATCHES, states):
+                got = fused_step_kernel(fd, state, dt, **kw)
+                torch.cuda.synchronize()
+                want = plain[:, :, start:start + b]
+                err, errs, bad = compare_states(got, want, dname)
+                start += b
+                worst = max(worst, err) if dtype == f32 else worst
+                failures += bad
+                log(f"phase 21 (a) {'FAILED' if bad else 'ok'}: {label} {dname} B={b} "
+                    f"spc={spc_check}: bitwise {torch.equal(got, want)}, "
+                    + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+            log(f"phase 21 (a): {label} {dname}: one plain run of {spc_check} steps on "
+                f"{sum(CHAIN_CASE_BATCHES)} members took {plain_s:.1f} s")
+            if failures:
+                raise AssertionError(f"{label}: kernel disagrees with its plain version: "
+                                     + "; ".join(failures))
+        checked[label] = (counter, source, max(seconds), worst)
+    return checked
+
+
+def phase_chain_cases(dev, checked, entries, summary):
+    """Phase 21 (a): :data:`CHAIN_CASES` on K1, each on the kernel
+    :func:`phase_chain_checks` built and checked (``checked``): the run
+    through ``evolve_ensemble_final`` with its exact launches, member-steps/s
+    and float64 drift; the 50-step launch's device ms against the plain
+    version's, the bound and its share."""
+    import torch
+    from hamilton_tpu_torch.ensemble import evolve_ensemble_final
+    from hamilton_tpu_torch.models import chain
+    from hamilton_tpu_torch.ops.batched_spd import MAX_N
+    from hamilton_tpu_torch.ops.fused_step import (
+        coef_table, fused_step_kernel, fused_step_reference, fused_stepper,
+    )
+    from hamilton_tpu_torch.utils.profiling import time_queued
+
+    f32, spc = torch.float32, 50
+    for label, n, solver, iters, dt, steps, spc_check, drift_bound in CHAIN_CASES:
+        semi = solver == "semiseparable"
+        ex = chain(n_links=n, fused_solver=solver, device=dev, dtype=f32)
+        forms = ex.system.fused_forms(ex.system)
+        counter, source, nvcc_s, worst = checked[label]
+        hand = counter == "fused_step"
+
+        # the run
+        ph = jittered_phase(ex, BATCH, f32, dev, 0)
+        run_kw = dict(method="leapfrog_fused", iters=iters, compensated=True,
+                      drift_every=1000, drift_dtype=torch.float64, steps_per_call=spc)
+        evolve_ensemble_final(ex.system, ph, dt, 1000, **run_kw)  # the table's upload
+        t0 = time.perf_counter()
+        (final, drift), counts = counted(lambda: evolve_ensemble_final(
+            ex.system, ph, dt, steps, **run_kw))
+        wall = time.perf_counter() - t0
+        # the float64 sampler solves with K2a where n <= MAX_N (else torch.linalg)
+        want = {counter: steps // spc}
+        if n <= MAX_N:
+            want["spd_solve"] = 1 + steps // 1000
+        expect_counts(label, counts, **want)
+        if not all_finite(final.q, final.p, drift) or tuple(final.q.shape) != (BATCH, n):
+            raise AssertionError(f"{label}: output not finite or not ({BATCH}, {n})")
+        rate, max_drift = BATCH * steps / wall, float(drift.max())
+
+        # the launch, timed
+        state = fused_stepper(forms, iters=iters, compensated=True, steps_per_call=spc).init(ph)
+        coef = coef_table(forms, dev, f32)
+        kw = dict(iters=iters, compensated=True, steps_per_call=spc)
+
+        def kern():
+            return fused_step_kernel(forms, state, dt, coef=coef, **kw)
+
+        k_out = kern()
+        p_ms, p_out = time_call(lambda: fused_step_reference(forms, state, dt, **kw), 1)
+        reps = 20 if n == 40 and not semi else 100
+        k1, h1 = time_queued(kern, reps)
+        k2, h2 = time_queued(kern, reps)
+        err, errs, bad = compare_states(k_out, p_out, "float32")
+        if bad:
+            raise AssertionError(f"{label} B={BATCH}: kernel disagrees with its plain version: "
+                                 + "; ".join(bad))
+        ms = (k1 + k2) / 2
+        bound_ms, bound_by, cost = k1_bound(ex.system, "leapfrog_fused", iters, True, BATCH, spc)
+        launches = counts[counter]
+        log(f"phase 21 (a) ok: {label} 16384 float32 kahan dt={dt}, {steps} steps on the "
+            f"{'hand-written' if hand else 'generated'} kernel: {rate:.6e} member-steps/s "
+            f"({wall:.3f} s), max|dH/H0| {max_drift:.6e}"
+            + (f" (bound {drift_bound:.0e})" if drift_bound else " (recorded)")
+            + f", launches {counts}; kernel {ms:.4f} ms a launch ({k1:.4f}, {k2:.4f}), host "
+            f"{(h1 + h2) / 2 * 1e3:.2f} us to issue one, plain {p_ms:.2f} ms, bound "
+            f"{bound_ms:.6f} ms ({bound_by}; {cost['flops_per_member_step']:.2f} flops, "
+            f"{cost['transcendentals_per_member_step']:.2f} transcendentals a member-step), "
+            f"share {bound_ms / ms:.4f}, launches x gap {launches * (ms - bound_ms) / 1e3:.6f} s; "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        if drift_bound is not None and not max_drift < drift_bound:
+            raise AssertionError(f"{label} drift {max_drift:.3e} >= {drift_bound}")
+        tag = f"chain_{solver}{n}"
+        summary.update({f"{tag}_member_steps_per_sec": rate, f"{tag}_max_drift": max_drift,
+                        f"{tag}_steps": steps, f"{tag}_nvcc_s": nvcc_s})
+        entries.append({
+            "name": f"{counter} {solver} n={n} float32 kahan ({iters[0]},{iters[1]}) (phase 21)",
+            "route": "cuda", "source": source, "replaces": REPLACES, "launches": launches,
+            "max_abs_err": max(worst, err), "ms": ms, "plain_ms": p_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        })
+        del state, k_out, p_out, final, drift
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_sharded(dev, summary):
+    """Phase 21 (b): ``evolve_ensemble_sharded`` on the headline's
+    configuration (16384 × chain-20 semiseparable, float32 (2,0) Kahan,
+    dt = 5e-4, :data:`SHARD_STEPS` steps, float64 drift every 1000) on a
+    one-device mesh, on :data:`SHARD_COUNT` shards on the card and, where the
+    machine has more cards, over all of them: bitwise the unsharded
+    ``evolve_ensemble_final``'s final state and drift, with exact launches;
+    ``reduce_stats`` through a world-size-1 NCCL group opened by
+    ``init_distributed`` on localhost; the dense chain-20 (phase 21 (a)'s
+    route) sharded; a DCP round trip of the shards, bitwise."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from hamilton_tpu_torch import parallel
+    from hamilton_tpu_torch.ensemble import evolve_ensemble_final, evolve_ensemble_sharded
+    from hamilton_tpu_torch.models import chain
+    from hamilton_tpu_torch.ops.fused_step import KERNEL_INSTANTIATIONS, _kernel_key
+    from hamilton_tpu_torch.utils import load_orbax, save_orbax
+
+    f32, spc = torch.float32, 50
+    launches = SHARD_STEPS // spc
+    samples = 1 + SHARD_STEPS // 1000
+    kw = dict(method="leapfrog_fused", iters=(2, 0), compensated=True, drift_every=1000,
+              drift_dtype=torch.float64, steps_per_call=spc)
+    ex = chain(n_links=20, fused_solver="semiseparable", device=dev, dtype=f32)
+    ph = jittered_phase(ex, BATCH, f32, dev, 0)
+    t0 = time.perf_counter()
+    (ref, ref_drift), counts = counted(lambda: evolve_ensemble_final(
+        ex.system, ph, 5e-4, SHARD_STEPS, **kw))
+    ref_s = time.perf_counter() - t0
+    expect_counts("unsharded", counts, fused_step=launches, spd_solve=samples)
+
+    def same(final, drift):
+        return (torch.equal(final.q, ref.q) and torch.equal(final.p, ref.p)
+                and torch.equal(drift, ref_drift))
+
+    cards = torch.cuda.device_count()
+    meshes = [("one-device mesh", [dev]), (f"{SHARD_COUNT}-shard mesh on {dev}",
+                                           [dev] * SHARD_COUNT)]
+    if cards > 1:
+        meshes.append((f"mesh over the {cards} cards",
+                       [torch.device("cuda", i) for i in range(cards)]))
+    log(f"phase 21 (b): the machine has {cards} card(s); unsharded run {ref_s:.3f} s")
+    for label, devices in meshes:
+        mesh = parallel.ensemble_mesh(devices)
+        t0 = time.perf_counter()
+        (final, drift), counts = counted(lambda: evolve_ensemble_sharded(
+            ex.system, ph, 5e-4, SHARD_STEPS, mesh=mesh, **kw))
+        el = time.perf_counter() - t0
+        expect_counts(label, counts, fused_step=launches * len(devices),
+                      spd_solve=samples * len(devices))
+        ok = same(final, drift)
+        log(f"phase 21 (b) {'ok' if ok else 'FAILED'}: evolve_ensemble_sharded on the {label} "
+            f"({len(devices)} shards): {el:.3f} s, {BATCH * SHARD_STEPS / el:.6e} member-steps/s, "
+            f"final state and per-member drift bitwise the unsharded run's: {ok}, launches "
+            f"{counts}")
+        if not ok:
+            raise AssertionError(f"sharded on the {label} differs from the unsharded run")
+        summary[f"sharded_{len(devices)}_member_steps_per_sec"] = BATCH * SHARD_STEPS / el
+    summary["sharded_cards"] = cards
+
+    # reduce_stats through a world-size-1 NCCL group
+    torch.cuda.set_device(dev)
+    port = _free_port()
+    if not parallel.init_distributed(f"localhost:{port}", 1, 0, timeout=120):
+        raise AssertionError("init_distributed did not open the group")
+    try:
+        backend = dist.get_backend()
+        mesh4 = parallel.global_ensemble_mesh(devices=[dev] * SHARD_COUNT)
+        (final, dmax), counts = counted(lambda: evolve_ensemble_sharded(
+            ex.system, ph, 5e-4, SHARD_STEPS, mesh=mesh4, reduce_stats="max", **kw))
+        _, dmean = evolve_ensemble_sharded(ex.system, ph, 5e-4, SHARD_STEPS, mesh=mesh4,
+                                           reduce_stats="mean", **kw)
+        want_mean = float(torch.stack([d.mean() for d in ref_drift.chunk(SHARD_COUNT)]).sum()
+                          / SHARD_COUNT)
+        ok = (float(dmax) == float(ref_drift.max()) and dmax.ndim == 0
+              and abs(float(dmean) - want_mean) <= 1e-15 * want_mean)
+        log(f"phase 21 (b) {'ok' if ok else 'FAILED'}: reduce_stats through a world-size-1 "
+            f"{backend} group on localhost:{port}: max {float(dmax):.6e} (unsharded max "
+            f"{float(ref_drift.max()):.6e}), mean {float(dmean):.6e} (the shards' means "
+            f"{want_mean:.6e}), launches {counts}")
+        if not ok or backend != "nccl":
+            raise AssertionError("reduce_stats over NCCL differs from the unsharded drift")
+        # a DCP round trip of the sharded final state, in the group
+        shards = parallel.shard_phase(ref, parallel.ensemble_mesh([dev] * SHARD_COUNT))
+        with tempfile.TemporaryDirectory() as where:
+            t0 = time.perf_counter()
+            save_orbax(os.path.join(where, "final"), shards)
+            back = load_orbax(os.path.join(where, "final"), like=shards)
+            el = time.perf_counter() - t0
+        ok = all(torch.equal(a.q, b.q) and torch.equal(a.p, b.p)
+                 for a, b in zip(shards.shards, back.shards))
+        log(f"phase 21 (b) {'ok' if ok else 'FAILED'}: save_orbax/load_orbax (DCP) of the "
+            f"{SHARD_COUNT} shards of the final state, {el:.3f} s: bitwise {ok}")
+        if not ok:
+            raise AssertionError("the DCP round trip changed the shards")
+    finally:
+        dist.destroy_process_group()
+
+    # the dense chain-20 sharded, on phase 21 (a)'s route
+    label, n, solver, iters, dt, *_ = CHAIN_CASES[0]
+    exd = chain(n_links=n, fused_solver=solver, device=dev, dtype=f32)
+    phd = jittered_phase(exd, BATCH, f32, dev, 0)
+    counter = ("fused_step" if _kernel_key(exd.system.fused_forms(exd.system))
+               in KERNEL_INSTANTIATIONS else "user_family")
+    kwd = dict(kw, iters=iters)
+    ref, ref_drift = evolve_ensemble_final(exd.system, phd, dt, SHARD_STEPS, **kwd)
+    (final, drift), counts = counted(lambda: evolve_ensemble_sharded(
+        exd.system, phd, dt, SHARD_STEPS, mesh=parallel.ensemble_mesh([dev] * SHARD_COUNT),
+        **kwd))
+    expect_counts(f"{label} sharded", counts, **{counter: launches * SHARD_COUNT},
+                  spd_solve=samples * SHARD_COUNT)
+    ok = same(final, drift)
+    log(f"phase 21 (b) {'ok' if ok else 'FAILED'}: {label} on {SHARD_COUNT} shards ({counter}): "
+        f"bitwise the unsharded run's: {ok}, launches {counts}")
+    if not ok:
+        raise AssertionError(f"{label} sharded differs from the unsharded run")
+
+
 def _launch_name(entry):
     """The name an entry's launches are counted under."""
     from hamilton_tpu_torch import kernels
@@ -2449,10 +2861,13 @@ def main() -> int:
 
     t0 = time.perf_counter()
     headers = user_family_headers(dev)
+    # phase 21 (a)'s kernels compile beside phases 1-20 (one takes minutes)
+    late_pool = ThreadPoolExecutor(max_workers=len(CHAIN_CASES))
+    late_builds, late_units = phase21_builds(dev, late_pool)
     with ThreadPoolExecutor(max_workers=len(headers)) as pool:
         user_futures = {label: pool.submit(kernels.build_user_family, header)
                         for label, header in headers.items()}
-        builds = kernels.build_all()
+        builds = kernels.build_all(exclude=late_units)
         user_builds = {label: f.result() for label, f in user_futures.items()}
     log(f"build: {time.perf_counter() - t0:.1f} s for {len(builds)} sources and "
         f"{len(user_builds)} generated families at once (generated: " + ", ".join(
@@ -2517,16 +2932,9 @@ def main() -> int:
             state = st.init(jittered_phase(ex, 1000, dtype, dev, seed))
             phase1(label, forms, state, dt, dict(iters=iters, compensated=comp),
                    str(dtype).split(".")[-1], 1000, 50)
-    for n, swept, composition, batch in semisep_cases:
-        for dtype in (torch.float64, torch.float32):
-            forms, state, table = semisep_case(dev, n, dtype, batch, swept, composition, 3)
-            label = (f"chain-{n} semiseparable (2,0) kahan"
-                     f"{' per-member' if swept else ''}"
-                     f"{' suzuki4' if len(composition) > 1 else ''}")
-            dname = str(dtype).split(".")[-1]
-            phase1(label, forms, state, 5e-4, dict(iters=(2, 0), compensated=True,
-                                                   composition=composition, coef=table),
-                   dname, batch, 50, semisep_tol(n, dname))
+    t_semisep = time.perf_counter()
+    phase1_failures.extend(phase1_semiseparable(dev, semisep_cases))
+    log(f"phase 1: the semiseparable rows took {time.perf_counter() - t_semisep:.1f} s")
     # the K1 and K2 kernels' float sin/cos, sqrt and reciprocal (straight-line,
     # and the library's that take over outside their ranges: the chain's,
     # the families' and the generated forms, the batched factor and solve)
@@ -2557,6 +2965,10 @@ def main() -> int:
     if phase1_failures:
         raise AssertionError("kernel disagrees with its plain version: "
                              + "; ".join(phase1_failures))
+    # phase 21 (a)'s checks time nothing: they run beside phase 19's
+    t_chain = time.perf_counter()
+    chain_checked = phase_chain_checks(dev, late_builds)
+    log(f"phase 1: phase 21 (a)'s checks took {time.perf_counter() - t_chain:.1f} s")
     t_wait = time.perf_counter()
     checks = collect_gauss4_checks(checks)
     log(f"phase 1: waited {time.perf_counter() - t_wait:.1f} s for phase 19's checks")
@@ -3313,6 +3725,14 @@ def main() -> int:
     # ---- phase 20: the tools and examples ------------------------------------------
     stamp(20)
     phase_tools(dev, entries, summary)
+
+    # ---- phase 21: K1's chain cases at 20 and 40 links; the sharded driver -----------
+    stamp(21)
+    phase_chain_cases(dev, chain_checked, entries, summary)
+    late_pool.shutdown()
+    t_sharded = time.perf_counter()
+    phase_sharded(dev, summary)
+    log(f"phase 21 (b) took {time.perf_counter() - t_sharded:.1f} s")
     log(f"phases done {time.perf_counter() - t_main:.1f} s into the run")
 
     if "jax" in sys.modules:

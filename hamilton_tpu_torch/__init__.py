@@ -19,8 +19,11 @@ its fused forms on the card (``csrc/family_step.cu``), the chain's Möbius
 and L⁻¹ forms (``csrc/chain_variants.cu``), the roofline accounting
 (``utils.roofline``, ``utils.profiling``), and gradients through all of it:
 the fused step (its backward replays the plain version), the K2 entries
-(their backwards launch the kernels again) and ``evolve_ham_fixed``; see
-``ROADMAP.md`` for what is still to come.  This package never imports JAX.
+(their backwards launch the kernels again) and ``evolve_ham_fixed``, the
+utilities, the CLI and the examples, and the sharded ensemble over a
+device mesh (:mod:`hamilton_tpu_torch.parallel`,
+``evolve_ensemble_sharded``); see ``ROADMAP.md`` for what is still to
+come.  This package never imports JAX.
 """
 
 from hamilton_tpu_torch.convert import params_from_numpy, phase_from_numpy
@@ -28,6 +31,7 @@ from hamilton_tpu_torch.ensemble import (
     evolve_ensemble,
     evolve_ensemble_chunked,
     evolve_ensemble_final,
+    evolve_ensemble_sharded,
 )
 from hamilton_tpu_torch.integrators.adaptive import GSL_EPS_DEFAULT, gsl_evolve_to
 from hamilton_tpu_torch.integrators.evolve import (
@@ -153,6 +157,7 @@ __all__ = [
     "evolve_ensemble",
     "evolve_ensemble_final",
     "evolve_ensemble_chunked",
+    "evolve_ensemble_sharded",
     "params_from_numpy",
     "phase_from_numpy",
     "__version__",

@@ -38,11 +38,22 @@
 // swap sinf/cosf for approximations whose error shows in the drift):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o libfused_step.so fused_step.cu
-// FMA contraction (nvcc's default) stays on; it changes rounding only.
-// Built as six parts at once (kernels.PARTS): part 2*v + dtype_code, with
+// FMA contraction (nvcc's default) stays on; it changes rounding only.  The
+// dense parts at n = 40 build with -fmad=false (kernels.PART_FLAGS), as the
+// dense form at n = 4 in chain_variants.cu and the generated kernel, so that
+// they round each product and sum as the plain version does (with FMA the
+// velocities, good to cond(K) ulps, drift apart from the plain version's as
+// n grows: at n = 40 the float32 semiseparable vdot_est read 0.33 of its
+// largest magnitude off over one step).
+// Built as eight parts at once (kernels.PARTS): part 2*v + dtype_code, with
 // -DHAMILTON_PART set to it, holds variant v (0 semiseparable n=20, 1
-// semiseparable n=5, 2 dense n=2) in one dtype; without it, one library
-// holds all.
+// semiseparable n=5, 2 dense n=2, 3 dense n=40) in one dtype; without it,
+// one library holds all.  At n = 40 the dense factor's loops stay rolled
+// (fused_step.cuh, kDenseUnrollMaxN), the factor in local memory.  The
+// dense chain at n = 20 (the reference's default chain) and the
+// semiseparable one at n = 40 run on the generated kernel, which measured
+// faster than this template there; at dense n = 40 the generated kernel
+// did not build within 14 minutes (PERF.md section 6).
 
 #include "chain_lanes.cuh"
 
@@ -166,6 +177,7 @@ int dispatch(int n, int semiseparable, F&& f) {
   if (semiseparable && n == 20) return f(Variant<0, 20, true>{});
   if (semiseparable && n == 5) return f(Variant<1, 5, true>{});
   if (!semiseparable && n == 2) return f(Variant<2, 2, false>{});
+  if (!semiseparable && n == 40) return f(Variant<3, 40, false>{});
   return -1;
 }
 

@@ -45,6 +45,12 @@
 //
 // Build: as family_step.cu, with -fmad=false: no FMA contraction, so each
 // product and sum rounds as in the plain version (kernels.SOURCE_FLAGS).
+// Built as six parts at once (kernels.build_user_family): part
+// 3 * dtype_code + table, with -DHAMILTON_PART set to it, holds one dtype's
+// instantiations on one table (four each: compensated or not, composed or
+// not); without it, one library holds all.  A large family's header (the
+// dense chain at n = 20: 24 instantiations took 809 s of nvcc as one build)
+// compiles on as many cores.
 
 #include "fused_step.cuh"
 
@@ -160,11 +166,21 @@ int launch(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+#ifndef HAMILTON_PART
+#define HAMILTON_PART -1
+#endif
+
 template <typename T, int TABLE>
 int launch_modes(int compensated, const Args& a) {
-  if (compensated)
-    return a.n_weights > 1 ? launch<T, TABLE, true, true>(a) : launch<T, TABLE, true, false>(a);
-  return a.n_weights > 1 ? launch<T, TABLE, false, true>(a) : launch<T, TABLE, false, false>(a);
+  if constexpr (HAMILTON_PART >= 0 &&
+                HAMILTON_PART != 3 * (std::is_same<T, double>::value ? 1 : 0) + TABLE) {
+    return -1;  // in another part
+  } else {
+    if (compensated)
+      return a.n_weights > 1 ? launch<T, TABLE, true, true>(a) : launch<T, TABLE, true, false>(a);
+    return a.n_weights > 1 ? launch<T, TABLE, false, true>(a)
+                           : launch<T, TABLE, false, false>(a);
+  }
 }
 
 // The constant table when the forms were generated for it; the run-time

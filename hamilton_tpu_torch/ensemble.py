@@ -27,23 +27,32 @@ exists because the TPU emulates f64, is not ported).
 loop (:mod:`hamilton_tpu_torch.utils.observables`): every ``obs_every``
 dt-steps ``observable.update(obs_state, phase, step)`` runs on the current
 phase, and a transforming observable's replacement phase re-inits the
-stepper carry.  Not ported yet: ``evolve_ensemble_sharded`` (M13).
+stepper carry.
+
+``evolve_ensemble_sharded`` splits the members over a device mesh
+(:mod:`hamilton_tpu_torch.parallel`): each shard runs the final-state loop
+on its own device, the shards' launches issued in turn at every loop
+iteration, and only the statistics cross processes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from hamilton_tpu_torch.integrators.evolve import evolve_ham_fixed
 from hamilton_tpu_torch.integrators.fixed import make_stepper
 from hamilton_tpu_torch.mechanics import hamiltonian
+from hamilton_tpu_torch.parallel.mesh import EnsembleMesh, ShardedPhase
 from hamilton_tpu_torch.state import Phase
 from hamilton_tpu_torch.system import System
 
-__all__ = ["evolve_ensemble", "evolve_ensemble_final", "evolve_ensemble_chunked"]
+__all__ = ["evolve_ensemble", "evolve_ensemble_final", "evolve_ensemble_chunked",
+           "evolve_ensemble_sharded"]
 
 
 def evolve_ensemble(
@@ -235,6 +244,26 @@ def evolve_ensemble_final(
     the stepper's substeps) it streams that reduction through the loop and
     returns ``(final_phase, max_drift, obs_state)``.
     """
+    stepper, body, state, n_iter = _final_setup(
+        system, phase0, dt, n_steps, method=method, iters=iters, omega=omega,
+        track_drift=track_drift, drift_every=drift_every, compensated=compensated,
+        drift_dtype=drift_dtype, steps_per_call=steps_per_call, observable=observable,
+        obs_every=obs_every,
+    )
+    for i in range(n_iter):
+        state = body(i, state)
+    carry, drift, obs = state
+    if observable is not None:
+        return stepper.extract(carry), drift, obs
+    return stepper.extract(carry), drift
+
+
+def _final_setup(system, phase0, dt, n_steps, *, method, iters, omega, track_drift,
+                 drift_every, compensated, drift_dtype, steps_per_call, observable,
+                 obs_every):
+    """The final-state loop of :func:`evolve_ensemble_final`, not yet run:
+    ``(stepper, body, state, iterations)``, ``body(i, state)`` one
+    iteration of it."""
     if n_steps % drift_every != 0:
         raise ValueError(f"{n_steps=} not divisible by {drift_every=}")
     stepper = make_stepper(
@@ -252,13 +281,7 @@ def evolve_ensemble_final(
         observable=observable, obs_every=obs_every,
     )
     obs = observable.init(phase0) if observable is not None else 0
-    state = (stepper.init(phase0), drift, obs)
-    for i in range(n_steps // sub):
-        state = body(i, state)
-    carry, drift, obs = state
-    if observable is not None:
-        return stepper.extract(carry), drift, obs
-    return stepper.extract(carry), drift
+    return stepper, body, (stepper.init(phase0), drift, obs), n_steps // sub
 
 
 def evolve_ensemble_chunked(
@@ -353,3 +376,193 @@ def evolve_ensemble_chunked(
     if observable is not None:
         return stepper.extract(carry), drift, obs
     return stepper.extract(carry), drift
+
+
+def _on(device: torch.device):
+    """The block's kernels launch on ``device``: its CUDA context, or
+    nothing to do on the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def _shard_system(system: System, sl: slice, device: torch.device) -> System:
+    """The system of the members ``sl`` on ``device``: batched params split
+    with the members, everything else (the inertia) replicated."""
+    pb = system.param_batch_ndim()
+    if pb > 1:
+        raise ValueError(f"sharded parameter sweeps support one params batch axis, got {pb}")
+    if system.member_batch_ndim() > pb:
+        raise ValueError("a per-member inertia (System.replace_inertia) is not sharded; "
+                         "sweep the params, or use evolve_ensemble(system_batched=True)")
+    local = system.to(device=device)
+    if pb == 1:
+        local = local.replace_params({k: v[sl] for k, v in local.params.items()})
+    return local
+
+
+def _combine(parts, spec, device, what):
+    """One observable state from the shards' ``parts`` (dicts of tensors,
+    nested or not): a leaf whose ``spec`` names a mesh axis is per-member,
+    the shards' leaves concatenated; a leaf whose spec is None must agree on
+    every shard and is taken once."""
+    if isinstance(parts[0], dict):
+        return {k: _combine([p[k] for p in parts], spec[k] if isinstance(spec, dict) else spec,
+                            device, f"{what}[{k!r}]") for k in parts[0]}
+    leaves = [torch.as_tensor(p).to(device) for p in parts]
+    if spec is None:
+        if not all(torch.equal(leaves[0], x) for x in leaves[1:]):
+            raise ValueError(f"observable state {what} differs between shards; its "
+                             f"shard_specs replicate it")
+        return leaves[0]
+    return torch.cat(leaves, dim=0)
+
+
+def _reduce(value: torch.Tensor, op) -> torch.Tensor:
+    """``all_reduce`` a scalar across the processes of the open process
+    group (outside one, the value itself): on the current card under NCCL,
+    on the CPU under gloo."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return value
+    at = (torch.device("cuda", torch.cuda.current_device())
+          if dist.get_backend() == "nccl" else torch.device("cpu"))
+    buf = value.to(at).clone()
+    dist.all_reduce(buf, op=op)
+    return buf.to(value.device)
+
+
+def evolve_ensemble_sharded(
+    system: System,
+    phase0,
+    dt: float,
+    n_steps: int,
+    *,
+    mesh: EnsembleMesh,
+    axis: str = "ensemble",
+    method: str = "gauss4",
+    emit_every: Optional[int] = None,
+    iters=6,
+    omega: float = 20.0,
+    track_drift: bool = True,
+    drift_every: int = 100,
+    reduce_stats: Optional[str] = None,
+    compensated: bool = False,
+    steps_per_call: int = 1,
+    group_unroll: int = 1,
+    observable=None,
+    obs_every: Optional[int] = None,
+    drift_dtype=None,
+):
+    """Evolve the members split over ``mesh`` axis ``axis``.
+
+    ``phase0`` (a ``(B, n)`` :class:`Phase`, or the shards of
+    :func:`~hamilton_tpu_torch.parallel.shard_phase`) holds this process's
+    members: the whole batch in one process, its
+    :func:`~hamilton_tpu_torch.parallel.local_batch_slice` in a process
+    group with a global mesh.  They split into equal contiguous blocks, one
+    per shard of the axis that this process drives (the device at index 0
+    of the other axes); the batch must divide.  Each shard runs
+    :func:`evolve_ensemble_final`'s loop on its device with its own
+    stepper: every loop iteration issues each shard's launches in turn, and
+    nothing in the loop reads back to the host, so shards on different
+    cards run at once (shards on one card queue on its stream).  Nothing in
+    the loop crosses shards or processes.
+
+    Returns ``(final, drift)`` as :func:`evolve_ensemble_final` does,
+    gathered onto ``phase0``'s device (the first shard's): ``drift``
+    per-member, or with ``reduce_stats`` ``"max"``/``"mean"`` a 0-d tensor
+    reduced over the shards (the mean of the shards' means) and then with
+    one ``all_reduce`` across the processes.  With ``emit_every``, the
+    gathered ``(time, batch, n)`` trajectory of :func:`evolve_ensemble`,
+    the shards run one after another.  With ``observable`` also its state:
+    per-member leaves concatenated, a leaf that ``observable.shard_specs
+    (axis)`` maps to None taken once (the shards must agree).
+
+    Batched params (one leading batch axis, :meth:`System.replace_params`)
+    split with their members; the inertia is replicated.  ``group_unroll``
+    belongs to the TPU kernel's tiling and must be 1; ``drift_dtype`` is
+    :func:`evolve_ensemble_final`'s."""
+    if reduce_stats not in (None, "max", "mean"):
+        raise ValueError(f"unknown {reduce_stats=}; use 'max' or 'mean'")
+    if group_unroll != 1:
+        raise ValueError(
+            f"group_unroll={group_unroll}: the port's kernel takes any batch, "
+            f"one thread a member; only 1 is accepted"
+        )
+    n_shards = mesh.shape[axis]
+    rank = dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+    plan = [(k, d) for k, (d, r) in enumerate(mesh.axis_devices(axis)) if r == rank]
+    if not plan:
+        raise ValueError(f"the mesh's {axis!r} axis has no device of this process (rank {rank})")
+    if isinstance(phase0, ShardedPhase):
+        shards = list(phase0.shards)
+        if len(phase0.grid) != 1 or list(phase0.devices) != [d for _, d in plan]:
+            phase0 = phase0.gather()
+            shards = None
+        else:
+            phase0 = shards[0]
+    else:
+        shards = None
+    device = phase0.q.device
+    batch = (sum(s.q.shape[0] for s in shards) if shards is not None
+             else phase0.q.shape[0])
+    if batch % len(plan) != 0:
+        raise ValueError(f"batch {batch} not divisible by mesh axis {axis}={len(plan)}"
+                         + (f" (this process's shards of {n_shards})"
+                            if len(plan) != n_shards else ""))
+    per = batch // len(plan)
+    locals_ = []
+    for i, (_, dev) in enumerate(plan):
+        sl = slice(i * per, (i + 1) * per)
+        ph = shards[i] if shards is not None else Phase(
+            phase0.q[sl].to(dev).contiguous(), phase0.p[sl].to(dev).contiguous())
+        locals_.append((dev, _shard_system(system, sl, dev), ph))
+
+    if emit_every is not None:
+        trajs = []
+        for dev, sys_k, ph_k in locals_:
+            with _on(dev):
+                trajs.append(evolve_ensemble(
+                    sys_k, ph_k, dt, n_steps, method=method, emit_every=emit_every,
+                    iters=iters, omega=omega, compensated=compensated,
+                    steps_per_call=steps_per_call,
+                ))
+        return Phase(torch.cat([t.q.to(device) for t in trajs], dim=1),
+                     torch.cat([t.p.to(device) for t in trajs], dim=1))
+
+    runs = []
+    for dev, sys_k, ph_k in locals_:
+        with _on(dev):
+            runs.append(list(_final_setup(
+                sys_k, ph_k, dt, n_steps, method=method, iters=iters, omega=omega,
+                track_drift=track_drift, drift_every=drift_every, compensated=compensated,
+                drift_dtype=drift_dtype, steps_per_call=steps_per_call,
+                observable=observable, obs_every=obs_every,
+            )) + [dev])
+    for i in range(runs[0][3]):
+        for run in runs:
+            with _on(run[4]):
+                run[2] = run[1](i, run[2])
+
+    finals, drifts, obs_parts = [], [], []
+    for stepper, _, (carry, drift, obs), _, dev in runs:
+        with _on(dev):
+            finals.append(stepper.extract(carry))
+        drifts.append(drift)
+        obs_parts.append(obs)
+    final = Phase(torch.cat([f.q.to(device) for f in finals]),
+                  torch.cat([f.p.to(device) for f in finals]))
+    if track_drift:
+        if reduce_stats == "max":
+            drift = _reduce(torch.stack([d.max().to(device) for d in drifts]).max(),
+                            dist.ReduceOp.MAX)
+        elif reduce_stats == "mean":
+            total = _reduce(torch.stack([d.mean().to(device) for d in drifts]).sum(),
+                            dist.ReduceOp.SUM)
+            drift = total / n_shards
+        else:
+            drift = torch.cat([d.to(device) for d in drifts])
+    else:
+        drift = None
+    if observable is None:
+        return final, drift
+    spec = observable.shard_specs(axis) if hasattr(observable, "shard_specs") else axis
+    return final, drift, _combine(obs_parts, spec, device, "")

@@ -6,9 +6,12 @@ ensemble sweeping initial conditions (and optionally the second mass),
 evolved with a symplectic integrator, producing chaos statistics — the
 largest-Lyapunov-exponent estimate per member from twin-trajectory
 separation, plus energy-drift bounds as the correctness check.  It runs in
-float32, as the reference does (which never enables x64), on one device:
-the reference's mesh over several devices waits for the port's sharded path
-(ROADMAP M13), so ``"devices"`` is 1.
+float32, as the reference does (which never enables x64).  As the
+reference shards over every visible device, the sweep splits its members
+over a mesh of every card the process sees when there is more than one
+and they divide the batch (``evolve_ensemble_sharded``); ``--shards K``
+asks for K shards of ``--device`` instead (``--device cpu --shards 4``:
+four shards on the CPU).  ``"devices"`` reports the mesh's size.
 
 Usage:
     python -m hamilton_tpu_torch.examples.ensemble_sweep --batch 16384 --steps 20000
@@ -25,8 +28,9 @@ import time
 import numpy as np
 import torch
 
-from hamilton_tpu_torch import Phase, evolve_ensemble
+from hamilton_tpu_torch import Phase, evolve_ensemble, evolve_ensemble_sharded
 from hamilton_tpu_torch.models import double_pendulum
+from hamilton_tpu_torch.parallel import ensemble_mesh
 from hamilton_tpu_torch.utils import energy_drift, lyapunov_estimate
 
 
@@ -48,6 +52,9 @@ def main(argv=None) -> int:
                     "an (IC × parameter) grid with per-member physics")
     ap.add_argument("--mass-range", type=float, nargs=2, default=(0.5, 2.0))
     ap.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="split the members into this many shards on --device "
+                    "(default: one a card when the process sees several)")
     ap.add_argument("--json", action="store_true", help="machine-readable output")
     args = ap.parse_args(argv)
 
@@ -86,7 +93,26 @@ def main(argv=None) -> int:
     q_twin[:, 0] += args.twin_eps
     ph_twin = Phase(q_twin, torch.zeros_like(q0))
 
+    # the mesh over every card (the reference's, over every device it sees)
+    if args.shards is not None:
+        devices = [device] * args.shards
+    elif device.type == "cuda":
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    else:
+        devices = [device]
+    mesh = None
+    if len(devices) > 1:
+        if b % len(devices) == 0:
+            mesh = ensemble_mesh(devices)
+        elif args.shards is not None:
+            raise SystemExit(f"--batch {b} must be divisible by --shards {args.shards}")
+        else:
+            devices = [device]
+
     def run(p):
+        if mesh is not None:
+            return evolve_ensemble_sharded(system, p, args.dt, args.steps, mesh=mesh,
+                                           method=args.method, emit_every=emit)
         return evolve_ensemble(system, p, args.dt, args.steps, method=args.method,
                                emit_every=emit)
 
@@ -114,7 +140,7 @@ def main(argv=None) -> int:
         "lyapunov_max": float(lam.max()),
         "chaotic_fraction": float((lam > 0.05).mean()),
         "max_energy_drift": float(drift.max()),
-        "devices": 1,
+        "devices": len(devices),
     }
     if m2_grid is not None:
         # member i carries mass m2_grid[i % G] → (IC, mass) reshape
@@ -129,7 +155,7 @@ def main(argv=None) -> int:
     print(f"double-pendulum ensemble sweep: {b} members × {args.steps} steps "
           f"({args.method}, dt={args.dt})")
     print(f"  throughput           {out['member_steps_per_sec']:.3e} member-steps/s "
-          f"on 1 device(s)")
+          f"on {len(devices)} device(s)")
     print(f"  max |ΔH/H₀|          {out['max_energy_drift']:.3e}")
     print(f"  λ̂ (largest Lyapunov) mean {out['lyapunov_mean']:.3f}, "
           f"max {out['lyapunov_max']:.3f}")

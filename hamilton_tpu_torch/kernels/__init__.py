@@ -11,10 +11,10 @@ nvcc's stderr.
 
 ``csrc/user_family_step.cu`` is a template: it includes the header that
 ``ops.fused_codegen`` generates from a family's forms, and
-:func:`build_user_family` compiles it at first use for each header, named
-by a hash of the header, the template, the shared headers and the flags
-(a family's parameter values are not in the header, so they rebuild
-nothing).
+:func:`build_user_family` compiles it at first use for each header, in
+:data:`USER_FAMILY_PARTS` parts at once, named by a hash of the header, the
+template, the shared headers and the flags (a family's parameter values are
+not in the header, so they rebuild nothing).
 
 Each launch function counts its launches in ``<function>.launches`` (a plain
 integer: :func:`reset_launches` sets them all to 0 before a run,
@@ -42,9 +42,13 @@ __all__ = [
     "SOURCE_FLAGS",
     "SOURCES",
     "PARTS",
+    "PART_FLAGS",
+    "FUSED_STEP_VARIANTS",
     "build",
     "build_all",
     "build_user_family",
+    "USER_FAMILY_PARTS",
+    "user_family_part",
     "fused_step_launch",
     "chain_variants_launch",
     "lane_layout",
@@ -88,17 +92,31 @@ NVCC_FLAGS = (
 SOURCE_FLAGS = {"family_step": ("-fmad=false",), "chain_variants": ("-fmad=false",),
                 "user_family_step": ("-fmad=false",)}
 
+#: ``csrc/fused_step.cu``'s variants, ``(n, semiseparable)`` → the variant
+#: of its dispatch (a launch's code is n; the forms pick semiseparable).
+FUSED_STEP_VARIANTS = {(20, True): 0, (5, True): 1, (2, False): 2, (40, False): 3}
+
 #: Sources built as several libraries at once: name → (number of parts, the
-#: part that holds a launch's ``(dtype_code, code)``).  Part ``i`` is the
-#: source compiled with ``-DHAMILTON_PART=i`` and holds that share of its
-#: dispatch: one part per variant and dtype, so the instantiations compile
-#: on as many cores.  As one nvcc each, ``chain_variants``' 80 took 560 s
-#: and ``fused_step``'s 48 up to 311 s on the card's machine (PERF.md §6).
-#: ``fused_step``'s code is n: 20 and 5 semiseparable, 2 dense.
-PARTS: Dict[str, Tuple[int, Callable[[int, int], int]]] = {
-    "fused_step": (6, lambda dtype_code, n: 2 * {20: 0, 5: 1, 2: 2}.get(n, 3) + dtype_code),
-    "chain_variants": (10, lambda dtype_code, code: 2 * code + dtype_code),
+#: part that holds a launch's ``(dtype_code, code, semiseparable)``).  Part
+#: ``i`` is the source compiled with ``-DHAMILTON_PART=i`` and holds that
+#: share of its dispatch: one part per variant and dtype, so the
+#: instantiations compile on as many cores.  As one nvcc each,
+#: ``chain_variants``' 80 took 560 s and ``fused_step``'s 48 up to 311 s on
+#: the card's machine (PERF.md §6).
+PARTS: Dict[str, Tuple[int, Callable[[int, int, bool], int]]] = {
+    "fused_step": (2 * len(FUSED_STEP_VARIANTS),
+                   lambda dtype_code, n, semiseparable: 2 * FUSED_STEP_VARIANTS.get(
+                       (n, bool(semiseparable)), len(FUSED_STEP_VARIANTS)) + dtype_code),
+    "chain_variants": (10, lambda dtype_code, code, semiseparable: 2 * code + dtype_code),
 }
+
+#: Flags of one part beside its source's: ``fused_step``'s dense chain at
+#: n = 40 without FMA contraction, as the dense form at n = 4 in
+#: ``chain_variants`` and the generated kernel, so that it rounds as the
+#: plain version does (with FMA the velocities, good to cond(K) ulps, drift
+#: apart from the plain version's as n grows).
+PART_FLAGS = {("fused_step", 2 * FUSED_STEP_VARIANTS[(40, False)] + dtype_code): ("-fmad=false",)
+              for dtype_code in (0, 1)}
 
 @dataclass(frozen=True)
 class KernelBuild:
@@ -149,7 +167,8 @@ def _paths(name: str, part: Optional[int]):
 
 def _flags(name: str, part: Optional[int]):
     part_flag = () if part is None else (f"-DHAMILTON_PART={part}",)
-    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ()) + part_flag
+    return (NVCC_FLAGS + SOURCE_FLAGS.get(name, ()) + PART_FLAGS.get((name, part), ())
+            + part_flag)
 
 
 #: Finished builds by unit, ``(name, part)``: ``(library, seconds, report)``.
@@ -225,12 +244,13 @@ def build(name: str, parts: Optional[Tuple[int, ...]] = None) -> KernelBuild:
     return _merged(_build_units(units))
 
 
-def build_all() -> Dict[str, KernelBuild]:
-    """Build every source (every part) at once, one nvcc process each;
-    raises on the first failure after all have ended."""
-    units = [unit for name in SOURCES for unit in _units(name)]
+def build_all(exclude=()) -> Dict[str, KernelBuild]:
+    """Build every source (every part but the ``(name, part)`` units in
+    ``exclude``) at once, one nvcc process each; raises on the first failure
+    after all have ended."""
+    units = [unit for name in SOURCES for unit in _units(name) if unit not in set(exclude)]
     built = dict(zip(units, _build_units(units)))
-    return {name: _merged([built[u] for u in _units(name)]) for name in SOURCES}
+    return {name: _merged([built[u] for u in _units(name) if u in built]) for name in SOURCES}
 
 
 #: The template of the generated families' kernel.
@@ -247,27 +267,53 @@ def _user_family_paths(header: str):
     return key, _BUILD_DIR / f"user_family-{key}", flags
 
 
-def build_user_family(header: str) -> Tuple[str, KernelBuild]:
-    """Build (or reuse) ``csrc/user_family_step.cu`` around a generated
-    header (``ops.fused_codegen``): ``(key, build)``, the key naming the
-    library for :func:`user_family_launch`.  The header is written
-    atomically into its own directory of ``_build/``, beside the library and
-    nvcc's ``-Xptxas -v`` report.  Raises with nvcc's report on failure."""
-    key, where, flags = _user_family_paths(header)
-    unit = ("user_family", key)
+#: The parts of a generated family's build: part ``3 * dtype_code + table``
+#: (:func:`user_family_part`) holds one dtype's kernels on one table (0 the
+#: float64 constant table, 1 a run-time shared table, 2 per member).
+USER_FAMILY_PARTS = 6
+
+
+def user_family_part(dtype_code: int, table: int) -> int:
+    """The part of a generated family's build that holds ``dtype_code``'s
+    kernels on ``table`` (0 constant, 1 run-time shared, 2 per member)."""
+    return 3 * dtype_code + table
+
+
+def _user_family_unit(key: str, where: Path, flags, part: int) -> tuple:
+    """Reuse or build one part of a generated family from the header in
+    ``where``."""
+    unit = ("user_family", key, part)
     if unit not in _BUILT:
-        lib, log = where / "libuser_family.so", where / "build.log"
+        lib, log = where / f"libuser_family-p{part}.so", where / f"build-p{part}.log"
         if lib.exists() and log.exists():
             _BUILT[unit] = (lib, 0.0, log.read_text())
         else:
-            where.mkdir(parents=True, exist_ok=True)
-            tmp = where / f"user_family.h.{os.getpid()}.tmp"
-            tmp.write_text(header)
-            os.replace(tmp, where / "user_family.h")
-            _BUILT[unit] = _compile(USER_FAMILY_TEMPLATE, lib, log, flags + ("-I", str(where)),
-                                    f"csrc/user_family_step.cu for {where / 'user_family.h'}")
-    lib, seconds, report = _BUILT[unit]
-    return key, KernelBuild((lib,), seconds, report, (seconds,))
+            _BUILT[unit] = _compile(USER_FAMILY_TEMPLATE, lib, log,
+                                    flags + ("-I", str(where), f"-DHAMILTON_PART={part}"),
+                                    f"csrc/user_family_step.cu part {part} for "
+                                    f"{where / 'user_family.h'}")
+    return _BUILT[unit]
+
+
+def build_user_family(header: str) -> Tuple[str, KernelBuild]:
+    """Build (or reuse) ``csrc/user_family_step.cu`` around a generated
+    header (``ops.fused_codegen``), every part at once: ``(key, build)``, the
+    key naming the libraries for :func:`user_family_launch`.  The header is
+    written into its own directory of ``_build/``, beside the libraries and
+    nvcc's ``-Xptxas -v`` reports.  Raises with nvcc's report on failure."""
+    key, where, flags = _user_family_paths(header)
+    if any(("user_family", key, part) not in _BUILT for part in range(USER_FAMILY_PARTS)):
+        where.mkdir(parents=True, exist_ok=True)
+        tmp = where / f"user_family.h.{os.getpid()}.tmp"
+        tmp.write_text(header)
+        os.replace(tmp, where / "user_family.h")
+    with ThreadPoolExecutor(max_workers=USER_FAMILY_PARTS) as pool:
+        futures = [pool.submit(_user_family_unit, key, where, flags, part)
+                   for part in range(USER_FAMILY_PARTS)]
+    failures = [str(f.exception()) for f in futures if f.exception() is not None]
+    if failures:
+        raise RuntimeError("\n\n".join(failures))
+    return key, _merged([f.result() for f in futures])
 
 
 _VP, _INT, _LL, _DBL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
@@ -327,10 +373,10 @@ def _library(name: str, part: Optional[int] = None) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _user_library(key: str) -> ctypes.CDLL:
-    """The loaded library of a generated family, built by
+def _user_library(key: str, part: int) -> ctypes.CDLL:
+    """The loaded library of one part of a generated family, built by
     :func:`build_user_family` in this process."""
-    lib = ctypes.CDLL(str(_BUILT[("user_family", key)][0]))
+    lib = ctypes.CDLL(str(_BUILT[("user_family", key, part)][0]))
     lib.hamilton_user_family_step.argtypes = _SIGNATURES["family_step"]["hamilton_family_step"]
     lib.hamilton_user_family_step.restype = ctypes.c_int
     lib.hamilton_cuda_error_string.argtypes = [ctypes.c_int]
@@ -340,8 +386,9 @@ def _user_library(key: str) -> ctypes.CDLL:
 
 def _call(name: str, fn: str, what: str, *args, part=None) -> None:
     """Call a C entry point (of one part of a source built in parts, or of
-    the generated family ``part`` names); raise unless it launched (0)."""
-    lib = _user_library(part) if name == "user_family" else _library(name, part)
+    the generated family's ``part``, ``(key, part)``); raise unless it
+    launched (0)."""
+    lib = _user_library(*part) if name == "user_family" else _library(name, part)
     code = getattr(lib, fn)(*args)
     if code == -1:
         raise ValueError(f"{what} kernel not instantiated for these arguments: {args}")
@@ -386,7 +433,7 @@ def _k1_launcher(source: str, entry: str, what: str):
         flags = int(semiseparable) | int(compensated) << 1 | int(per_member) << 2
         _call(source, entry, what, dtype_code, code, flags, coef, state_in, state_out,
               batch, dt, iters_p, iters_q, steps_per_call, len(weights), _weights(weights),
-              stream, part=None if part_of is None else part_of(dtype_code, code))
+              stream, part=None if part_of is None else part_of(dtype_code, code, semiseparable))
         launch.launches += 1
 
     return launch
@@ -412,7 +459,7 @@ chain_variants_launch = _k1_launcher("chain_variants", "hamilton_chain_variant_s
 def lane_layout(source: str, dtype_code: int, code: int, compensated: bool = True,
                 per_member: bool = False) -> Tuple[int, int, int, int]:
     """The kernel that launches K1's ``code`` of ``source`` (``"fused_step"``:
-    code n, the semiseparable form at 20 and 5, dense at 2;
+    code n, the semiseparable form at 20 and 5, dense at 2 and 40;
     ``"chain_variants"``: its case) as its library was built: ``(lanes a
     member, threads a block, dynamic shared bytes a block, blocks an SM)``,
     lanes 1 for a one-thread kernel, the last the blocks of its
@@ -422,10 +469,10 @@ def lane_layout(source: str, dtype_code: int, code: int, compensated: bool = Tru
     if source not in ("fused_step", "chain_variants"):
         raise ValueError(f"no K1 chain source {source!r}")
     out = (_INT * 4)()
-    semiseparable = source == "fused_step" and code in (20, 5)
+    semiseparable = source == "fused_step" and (code, True) in FUSED_STEP_VARIANTS
     flags = int(semiseparable) | int(compensated) << 1 | int(per_member) << 2
     _call(source, "hamilton_lane_layout", f"{source} layout", dtype_code, code, flags, out,
-          part=PARTS[source][1](dtype_code, code))
+          part=PARTS[source][1](dtype_code, code, semiseparable))
     return tuple(out)
 
 
@@ -461,9 +508,11 @@ def user_family_launch(
     the state's dtype, shared or (``per_member``) ``(L, B)``.  Raises if the
     launch fails."""
     flags = int(compensated) << 1 | int(per_member) << 2
+    table = 2 if per_member else (0 if const_table else 1)
     _call("user_family", "hamilton_user_family_step", "generated family step", dtype_code,
           0 if const_table else 1, flags, coef, state_in, state_out, batch, dt, iters_p,
-          iters_q, steps_per_call, len(weights), _weights(weights), stream, part=key)
+          iters_q, steps_per_call, len(weights), _weights(weights), stream,
+          part=(key, user_family_part(dtype_code, table)))
     user_family_launch.launches += 1
 
 

@@ -13,7 +13,12 @@ from hamilton_tpu_torch.utils.observables import (
     hamiltonian_trajectory,
     lyapunov_estimate,
 )
-from hamilton_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from hamilton_tpu_torch.utils.checkpoint import (
+    load_checkpoint,
+    load_orbax,
+    save_checkpoint,
+    save_orbax,
+)
 from hamilton_tpu_torch.utils.diagnostics import check_finite_phase, checked, nan_guard
 from hamilton_tpu_torch.utils.poincare import coordinate_section, poincare_section
 from hamilton_tpu_torch.utils.profiling import benchmark_fn
@@ -25,6 +30,8 @@ __all__ = [
     "lyapunov_estimate",
     "save_checkpoint",
     "load_checkpoint",
+    "save_orbax",
+    "load_orbax",
     "check_finite_phase",
     "checked",
     "nan_guard",

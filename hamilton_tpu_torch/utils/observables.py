@@ -160,6 +160,13 @@ class LyapunovPairs:
         ``n_steps``)."""
         return state["sum_log"] / total_time
 
+    def shard_specs(self, axis: str):
+        """How ``evolve_ensemble_sharded`` puts the shards' states together:
+        the per-pair log-growth splits with the members over mesh axis
+        ``axis``; the renormalization count (None) is every shard's own,
+        the same on each."""
+        return {"sum_log": axis, "n_renorms": None}
+
 
 class PoincareSections:
     """Streaming Poincaré sections: upward crossings of ``section(phase) ->

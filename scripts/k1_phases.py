@@ -146,7 +146,7 @@ def _launch(form, dev):
     rng = np.random.default_rng(16)
     if form in CHAINS:
         source, code = CHAINS[form]
-        lib = kernels.build(source, parts=(kernels.PARTS[source][1](0, code),)).paths[0]
+        lib = kernels.build(source, parts=(kernels.PARTS[source][1](0, code, form == "semiseparable"),)).paths[0]
         ex = tp.chain(n_links=20, fused_solver=form, device=dev, dtype=f32)
         forms = ex.system.fused_forms(ex.system)
         q = ex.init_phase.q.cpu().numpy() + 0.01 * rng.standard_normal((BATCH, 20))
@@ -169,7 +169,8 @@ def _launch(form, dev):
         q0 = torch.stack([torch.full((BATCH,), 0.01, dtype=f32, device=dev),
                           1.0 + 9.8 / k_grid + 0.15], dim=-1)
         state, table = fused_stepper(forms, iters=(2, 1)).init(tp.Phase(q0, torch.zeros_like(q0)))
-        lib = kernels.build_user_family(fused_codegen.generated(forms).header)[1].paths[0]
+        lib = kernels.build_user_family(fused_codegen.generated(forms).header)[1].paths[
+            kernels.user_family_part(0, 2)]  # float32, per-member table
         kw = dict(iters=(2, 1), compensated=False, steps_per_call=1, coef=table)
         return lib, lambda: fused_step_kernel(forms, state, 5e-3, **kw), 1
     make = {"spherical": tp.spherical_pendulum, "two_body": tp.two_body, "room": tp.room,
@@ -183,7 +184,8 @@ def _launch(form, dev):
         cs.family_phase(make(device=dev, dtype=f64), BATCH, scale, rng, dev))
     kw = dict(iters=(2, 0), compensated=True, steps_per_call=SPC)
     if form == "bezier3":
-        lib = kernels.build_user_family(fused_codegen.generated(forms).header)[1].paths[0]
+        lib = kernels.build_user_family(fused_codegen.generated(forms).header)[1].paths[
+            kernels.user_family_part(0, 0)]  # float32, the constant table
     else:
         lib = kernels.build("family_step").paths[0]
         kw["coef"] = coef_table(forms, dev, f32)

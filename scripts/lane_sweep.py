@@ -112,7 +112,8 @@ def build(variant: str, where: str) -> dict:
     kernels = _kernels(where)
     source, codes = FORMS[_parse(variant)[0]]
     part_of = kernels.PARTS[source][1]
-    b = kernels.build(source, parts=tuple(part_of(0, code) for code in codes.values()))
+    b = kernels.build(source, parts=tuple(part_of(0, code, source == "fused_step")
+                                           for code in codes.values()))
     return {"seconds": b.seconds, "part_seconds": list(b.part_seconds), "log": b.log}
 
 

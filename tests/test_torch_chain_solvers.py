@@ -288,15 +288,20 @@ def test_against_semiseparable_over_steps(solver):
 
 def test_kernel_instantiations_accepted_and_refused():
     """The card's hand-written sizes: Möbius and L⁻¹ at n = 20 and 5, the
-    dense forms at n = 4 (``fit_masses --fused``); any other n is taken by
-    the kernel generated from the forms (``ops.fused_codegen``).  What is
-    refused before a launch: another dtype or a state of the wrong shape."""
+    dense forms at n = 4 (``fit_masses --fused``) and 40; any other n, and
+    the dense chain at 20 links and the semiseparable one at 40 (faster
+    there), is taken by the kernel generated from the forms
+    (``ops.fused_codegen``).  What is refused before a launch: another dtype
+    or a state of the wrong shape."""
     for solver, n in (("mobius", 20), ("mobius", 5), ("linv", 20), ("linv", 5),
-                      ("dense", 4)):
+                      ("dense", 4), ("dense", 40)):
         sysx = tp.chain(n_links=n, fused_solver=solver, device="cpu", dtype=F64).system
         forms = sysx.fused_forms(sysx)
         assert t_step._kernel_key(forms) in t_step.KERNEL_INSTANTIATIONS
         t_step.check_kernel_args("cuda", torch.float32, forms, (6, n, 100))
+    for solver, n in (("dense", 20), ("semiseparable", 40)):
+        sysx = tp.chain(n_links=n, fused_solver=solver, device="cpu", dtype=F64).system
+        assert t_step._kernel_key(sysx.fused_forms(sysx)) not in t_step.KERNEL_INSTANTIATIONS
     sys7 = tp.chain(n_links=7, fused_solver="mobius", device="cpu", dtype=F64).system
     forms7 = sys7.fused_forms(sys7)
     assert t_step._kernel_key(forms7) not in t_step.KERNEL_INSTANTIATIONS
@@ -610,8 +615,12 @@ def _layout_query(lib, source):
     return query
 
 
-def _flags(source, code, compensated, per_member):
-    semiseparable = source == "fused_step" and code in (20, 5)
+def _flags(source, code, compensated, per_member, semiseparable=None):
+    """A launch's flags; ``fused_step``'s code is n, semiseparable at 20 and
+    5 unless ``semiseparable`` says otherwise."""
+    if semiseparable is None:
+        semiseparable = code in (20, 5)
+    semiseparable = source == "fused_step" and semiseparable
     return int(semiseparable) | int(compensated) << 1 | int(per_member) << 2
 
 
@@ -667,12 +676,15 @@ def test_lane_layout_of_every_lane_split_case(source, tmp_path):
                     slots = n * (n + 1) // 2 + 8 * n
                     assert slots * (block // lanes) * (4, 8)[dtype_code] < smem <= 232448
                     assert blocks == 0
-    one_thread = ([(20, 60), (5, 15), (2, 0)] if source == "fused_step"
-                  else [(0, 100), (1, 25), (4, 0)])  # (code, a staged column's entries)
-    for code, staged in one_thread:
+    # (code, a staged column's entries, semiseparable)
+    one_thread = ([(20, 60, True), (5, 15, True), (2, 0, False), (40, 0, False)]
+                  if source == "fused_step"
+                  else [(0, 100, False), (1, 25, False), (4, 0, False)])
+    for code, staged, semisep in one_thread:
         for dtype_code in (0, 1):
             for swept in (False, True):
-                assert query(dtype_code, code, _flags(source, code, True, swept), out) == 0
+                assert query(dtype_code, code, _flags(source, code, True, swept, semisep),
+                             out) == 0
                 item = (4, 8)[dtype_code]
                 assert tuple(out) == (1, 128, staged * 128 * item if swept else 0, 0)
 
@@ -698,10 +710,11 @@ def _float32_failures(got, want):
             if not float(e) <= F32_TOL[name]]
 
 
-def _host_step_matches_plain(lib, source, code, solver, n, on_lanes=True, dtype=F64):
+def _host_step_matches_plain(lib, source, code, solver, n, on_lanes=True, dtype=F64,
+                             steps=2):
     """The host build's C entry against the plain version on CPU tensors: a
     ragged batch (37 members), shared and per-member tables, (2,0) Kahan and
-    Suzuki-composed (3,1), two steps; float64 to 1e-13 (vdot_est as
+    Suzuki-composed (3,1), ``steps`` steps; float64 to 1e-13 (vdot_est as
     dt·vdot_est, the velocity difference it is made from; the host's libm
     and PyTorch's sin differ by ulps), float32 within :data:`F32_TOL`."""
     import ctypes
@@ -712,8 +725,9 @@ def _host_step_matches_plain(lib, source, code, solver, n, on_lanes=True, dtype=
                     else "hamilton_chain_variant_step")
     entry.argtypes = kernels._SIGNATURES[source][entry.__name__]
     layout = (ctypes.c_int * 4)()
-    assert _layout_query(lib, source)(dtype_code, code, _flags(source, code, True, False),
-                                      layout) == 0
+    semisep = solver == "semiseparable"
+    assert _layout_query(lib, source)(dtype_code, code,
+                                      _flags(source, code, True, False, semisep), layout) == 0
     assert (layout[0] > 1 or layout[2] > 0) == on_lanes  # the lane kernel, or one thread
     assert layout[3] == 1  # the host emulation's blocks an SM, from the part that holds it
     rng = np.random.default_rng(17)
@@ -737,12 +751,13 @@ def _host_step_matches_plain(lib, source, code, solver, n, on_lanes=True, dtype=
             coef = table if swept else t_step.coef_table(forms, "cpu", dtype)
             with torch.no_grad():
                 want = t_step.fused_step_reference(forms, state, dt, iters=iters,
-                                                   compensated=comp, steps_per_call=2,
+                                                   compensated=comp, steps_per_call=steps,
                                                    composition=weights, coef=table)
             got = torch.full_like(state, float("nan"))
-            code_ = entry(dtype_code, code, _flags(source, code, comp, swept), coef.data_ptr(),
-                          state.data_ptr(), got.data_ptr(), batch, dt, iters[0], iters[1], 2,
-                          len(weights), (ctypes.c_double * len(weights))(*weights), None)
+            code_ = entry(dtype_code, code, _flags(source, code, comp, swept, semisep),
+                          coef.data_ptr(), state.data_ptr(), got.data_ptr(), batch, dt,
+                          iters[0], iters[1], steps, len(weights),
+                          (ctypes.c_double * len(weights))(*weights), None)
             assert code_ == 0
             if dtype == torch.float32:
                 assert not _float32_failures(got, want), (swept, iters,
@@ -777,7 +792,7 @@ def test_one_thread_chain_kernel_source_on_the_host(solver, n, tmp_path):
 
     source, code = (("fused_step", n) if solver == "semiseparable"
                     else ("chain_variants", 0 if n == 20 else 1))
-    part = kernels.PARTS[source][1](1, code)
+    part = kernels.PARTS[source][1](1, code, solver == "semiseparable")
     lib = ctypes.CDLL(str(_host_kernel_source(source, part, tmp_path)))
     _host_step_matches_plain(lib, source, code, solver, n, on_lanes=False)
 
@@ -795,7 +810,34 @@ def test_float32_chain_kernel_source_on_the_host(solver, n, tmp_path):
 
     source, code = (("fused_step", n) if solver == "semiseparable"
                     else ("chain_variants", 0 if n == 20 else 1))
-    part = kernels.PARTS[source][1](0, code)
+    part = kernels.PARTS[source][1](0, code, solver == "semiseparable")
     lib = ctypes.CDLL(str(_host_kernel_source(source, part, tmp_path)))
     _host_step_matches_plain(lib, source, code, solver, n, on_lanes=False,
                              dtype=torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [F64, torch.float32], ids=["f64", "f32"])
+def test_chain_kernel_at_40_links_on_the_host(dtype, tmp_path, monkeypatch):
+    """The dense chain at n = 40 (the reference's stress chain) in
+    ``csrc/fused_step.cu`` (its own part, its loops rolled), built with g++
+    in the host
+    emulation and run through the source's C entry on CPU tensors against
+    the plain version (:func:`_host_step_matches_plain`, one step: the
+    plain version's dense factor at n = 40 is ~10⁴ PyTorch operations), the
+    plain version's sin, cos and sqrt the host build's own
+    (:func:`host_fm`): float64 to 1e-13, float32 within :data:`F32_TOL`."""
+    import ctypes
+
+    solver, n, semisep = "dense", 40, False
+    part = kernels.PARTS["fused_step"][1](int(dtype == F64), n, semisep)
+    assert part == 2 * kernels.FUSED_STEP_VARIANTS[(n, semisep)] + int(dtype == F64)
+    csrc = Path(kernels.__file__).resolve().parent.parent / "csrc"
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for header in csrc.glob("*.cuh"):
+        (src / header.name).write_text(header.read_text())
+    (src / "fused_step.cu").write_text((csrc / "fused_step.cu").read_text() + HOST_ELEMENTARY)
+    lib = ctypes.CDLL(str(_host_kernel_source("fused_step", part, tmp_path, csrc=src)))
+    host_fm(lib, monkeypatch)
+    _host_step_matches_plain(lib, "fused_step", n, solver, n, on_lanes=False, dtype=dtype,
+                             steps=1)

@@ -47,9 +47,9 @@ def test_sweep_fields_match_the_reference(capsys):
     assert set(got) == set(want)
     for key in ("batch", "steps", "dt", "method", "chaotic_fraction"):
         assert got[key] == want[key], key
-    # one device: the reference's mesh (over every device JAX sees) waits for
-    # the port's sharded path
-    assert got["devices"] == 1
+    # one device each: the reference runs on the one CPU device its
+    # subprocess sees, the port on --device cpu (a mesh of one)
+    assert got["devices"] == want["devices"] == 1
     assert abs(got["max_energy_drift"] - want["max_energy_drift"]) <= DRIFT_TOL
     for key in ("lyapunov_mean", "lyapunov_max"):
         assert abs(got[key] - want[key]) <= LAMBDA_TOL, (key, got[key], want[key])
@@ -69,3 +69,21 @@ def test_fused_sweep_with_a_mass_grid(capsys):
     assert len(got["chaotic_fraction_by_mass"]) == 8 and got["max_energy_drift"] < 1e-4
     with pytest.raises(SystemExit, match="divisible"):
         ensemble_sweep.main(["--batch", "12", "--mass-grid", "8", "--device", "cpu"])
+
+
+def test_sharded_sweep_matches_one_device(capsys):
+    """``--shards 4`` on the CPU: the members split over a mesh of four
+    shards (``evolve_ensemble_sharded``) with the mass grid's per-member m₂
+    split with them; every statistic equals the one-device run's."""
+    argv = ["--batch", "16", "--steps", "100", "--method", "leapfrog_fused", "--mass-grid",
+            "4", "--json", "--device", "cpu"]
+    assert ensemble_sweep.main(argv) == 0
+    one = _last_json(capsys.readouterr().out)
+    assert ensemble_sweep.main(argv + ["--shards", "4"]) == 0
+    four = _last_json(capsys.readouterr().out)
+    assert one["devices"] == 1 and four["devices"] == 4
+    for key in ("lyapunov_mean", "lyapunov_max", "chaotic_fraction", "max_energy_drift",
+                "chaotic_fraction_by_mass"):
+        assert four[key] == one[key], key
+    with pytest.raises(SystemExit, match="divisible"):
+        ensemble_sweep.main(["--batch", "18", "--shards", "4", "--device", "cpu"])

@@ -257,6 +257,39 @@ def test_plain_version_matches_library_leapfrog(case):
     _close(a.p, b.p, 1e-12)
 
 
+#: The chain at the reference's default (dense, n = 20: ``leapfrog_fused``
+#: on ``chain()``) and its stress chain's semiseparable form (n = 40),
+#: which the card runs on ``csrc/fused_step.cu``'s variants 3 and 4:
+#: name → (n, solver).
+REFERENCE_LIBRARY_CASES = {"chain20-dense": (20, "dense"),
+                           "chain40-semiseparable": (40, "semiseparable")}
+
+
+@pytest.mark.parametrize("case", sorted(REFERENCE_LIBRARY_CASES))
+def test_plain_version_matches_reference_library_leapfrog(case):
+    """The port's plain fused step against the reference's library
+    leapfrog on the same chain and inputs: at converged (3,2) iterations
+    both reach the same fixed points, float64, two steps, 1e-12."""
+    n, solver = REFERENCE_LIBRARY_CASES[case]
+    jex = jmodels.chain(n_links=n, fused_solver=solver)
+    tsys = tp.chain(n_links=n, fused_solver=solver, device="cpu", dtype=F64).system
+    tsys = tsys.replace_params(params_from_numpy(
+        {k: np.asarray(v) for k, v in jex.system.params.items()}, device="cpu", dtype=F64))
+    rng = np.random.default_rng(21)
+    q = np.asarray(jex.init_config.q) + 0.01 * rng.standard_normal((16, n))
+    p = 0.05 * rng.standard_normal((16, n))
+    jst = j_make_stepper(jex.system, "leapfrog", iters=(3, 2))
+    tst = tp.make_stepper(tsys, "leapfrog_fused", iters=(3, 2))
+    jc = jst.init(JPhase(jnp.asarray(q), jnp.asarray(p)))
+    tc = tst.init(phase_from_numpy(q, p, device="cpu", dtype=F64))
+    for _ in range(2):
+        jc = jst.step(jc, jnp.asarray(1e-3))
+        tc = tst.step(tc, torch.tensor(1e-3, dtype=F64))
+    want, got = jst.extract(jc), tst.extract(tc)
+    _close(want.q, got.q, 1e-12)
+    _close(want.p, got.p, 1e-12)
+
+
 @pytest.mark.parametrize("case", ["chain5-semiseparable", "double_pendulum"])
 def test_block_equals_single_steps_bitwise(case):
     """A steps_per_call=5 block carries the end-of-step factor and aux to

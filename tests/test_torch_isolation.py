@@ -9,8 +9,9 @@ replay and the K2 entries' backwards), runs one iteration of the
 that example's ``main`` at a tiny size, streams a transforming
 observable through an ensemble driver, imports the CLI, the renderer, the
 Poincaré, diagnostics and checkpoint utilities and the hmc, chaos-scan and
-ensemble-sweep examples, and runs the chaos scan's ``main`` at a tiny size;
-``jax`` must stay out of ``sys.modules``.
+ensemble-sweep examples, runs the chaos scan's ``main`` at a tiny size,
+imports ``hamilton_tpu_torch.parallel`` and runs a 2-shard CPU
+``evolve_ensemble_sharded``; ``jax`` must stay out of ``sys.modules``.
 """
 
 import os
@@ -62,6 +63,10 @@ import hamilton_tpu_torch.cli, hamilton_tpu_torch.render
 from hamilton_tpu_torch.utils import checkpoint, diagnostics, poincare
 from hamilton_tpu_torch.examples import chaos_scan, ensemble_sweep, hmc
 chaos_scan.main(["--device", "cpu", "--fused", "--rows", "2", "--cols", "4", "--steps", "80"])
+from hamilton_tpu_torch import parallel
+ph4 = tp.Phase(ex.init_config.q.expand(4, 4).contiguous(), torch.zeros(4, 4, dtype=torch.float64))
+tp.evolve_ensemble_sharded(ex.system, ph4, 1e-3, 4, mesh=parallel.ensemble_mesh(["cpu"] * 2),
+                           method="leapfrog_fused", iters=(2, 0), drift_every=2)
 print("jax" in sys.modules, any(m.startswith("hamilton_tpu.") or m == "hamilton_tpu"
                                 for m in sys.modules))
 """

@@ -201,6 +201,24 @@ def test_uninstantiated_size_raises_on_the_card(card):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("batch", [300, 7])
+@pytest.mark.parametrize("solver,n", [("dense", 20), ("semiseparable", 40), ("dense", 40)])
+def test_chain_at_20_and_40_links_matches_plain_version(card, solver, n, batch):
+    """The reference's default chain (dense, n = 20) and both forms of its
+    stress chain (n = 40) on the kernel ``KERNEL_INSTANTIATIONS`` routes
+    them to (the generated one but at dense n = 40), float64 (2,0) Kahan,
+    two steps a launch: the plain version's state to float64 rounding
+    (vdot_est as dt·vdot_est)."""
+    ex = tp.chain(n_links=n, fused_solver=solver, device=card, dtype=torch.float64)
+    forms, state = _state(ex, (2, 0), True, batch, card)
+    kw = dict(iters=(2, 0), compensated=True, steps_per_call=2)
+    got = t_step.fused_step_kernel(forms, state, 5e-4, **kw)
+    want = t_step.fused_step_reference(forms, state, 5e-4, **kw)
+    scale = torch.ones(state.shape[0], 1, 1, dtype=torch.float64, device=card)
+    scale[-1] = 5e-4
+    assert float(((got - want) * scale).abs().max()) < 1e-11
+
+
 # ----------------------------------------------------------------------
 # The chain's other forms (csrc/chain_variants.cu)
 # ----------------------------------------------------------------------

@@ -1,11 +1,11 @@
 """The port's public names against the JAX package's.
 
-For the top level, ``ops``, ``utils``, ``integrators``, ``models``, the
-Poincaré, diagnostics and checkpoint utilities, ``render`` and ``cli``, every
-name in the reference's ``__all__`` is in the port's ``__all__`` and
-importable from the port, except the names of modules that are not ported
-yet, each listed below with its ROADMAP item.  The port's ``__all__`` names
-all exist, and its ``__version__`` is the reference's.
+For the top level, ``ops``, ``utils``, ``integrators``, ``models``,
+``parallel``, the Poincaré, diagnostics and checkpoint utilities, ``render``
+and ``cli``, every name in the reference's ``__all__`` is in the port's
+``__all__`` and importable from the port; no reference name is left
+unported (``UNPORTED`` is empty).  The port's ``__all__`` names all exist,
+and its ``__version__`` is the reference's.
 """
 
 import importlib
@@ -16,15 +16,11 @@ import hamilton_tpu
 import hamilton_tpu_torch
 
 #: Reference names the port does not have yet: name → ROADMAP §1 item.
-UNPORTED = {
-    "evolve_ensemble_sharded": "M13",
-    # checkpoints through orbax, a JAX library: with the sharded path
-    "save_orbax": "M13",
-    "load_orbax": "M13",
-}
+#: Empty since the sharded path (M13) was ported.
+UNPORTED = {}
 
-MODULES = ["", ".ops", ".utils", ".integrators", ".models", ".utils.poincare",
-           ".utils.diagnostics", ".utils.checkpoint", ".render", ".cli"]
+MODULES = ["", ".ops", ".utils", ".integrators", ".models", ".parallel",
+           ".utils.poincare", ".utils.diagnostics", ".utils.checkpoint", ".render", ".cli"]
 
 
 @pytest.mark.parametrize("suffix", MODULES, ids=[m or "top" for m in MODULES])

@@ -714,3 +714,59 @@ def test_generated_source_equals_plain_on_the_host(gxx, name, dtype, tmp_path, m
             assert code == 0
             assert torch.isfinite(want).all(), (mode, kw)
             assert torch.equal(got, want), (mode, kw, float((got - want).abs().max()))
+
+
+#: The chains ``KERNEL_INSTANTIATIONS`` leaves on the generated kernel,
+#: where it measured faster than the hand-written template: the reference's
+#: default chain (dense, n = 20, (2,1) as the bench's ``anchor21``) and its
+#: stress chain's semiseparable form (n = 40, (2,0)): (solver, n, iters).
+GENERATED_CHAINS = {"dense20": ("dense", 20, (2, 1)),
+                    "semiseparable40": ("semiseparable", 40, (2, 0))}
+
+
+@pytest.fixture(scope="module", params=sorted(GENERATED_CHAINS))
+def generated_chain_host(request, tmp_path_factory):
+    """A generated chain's source, built once with g++ in the host emulation
+    with ``HOST_ELEMENTARY``: ``(case, library)``."""
+    import ctypes
+
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ for the host build of the generated source")
+    solver, n, _ = GENERATED_CHAINS[request.param]
+    system = tp.chain(n_links=n, fused_solver=solver, device="cpu", dtype=F64).system
+    forms = system.fused_forms(system)
+    assert t_step._kernel_key(forms) not in t_step.KERNEL_INSTANTIATIONS
+    where = tmp_path_factory.mktemp(request.param)
+    return request.param, ctypes.CDLL(str(_host_library(cg.generate(forms).header, where,
+                                                        HOST_ELEMENTARY)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_generated_chain_equals_plain_on_the_host(generated_chain_host, dtype, monkeypatch):
+    """The chain's generated kernel (its route on the card) run through its
+    C entry, equal bit for bit to the plain version on the host build's
+    elementary functions: Kahan, the float64 constant table, one step, 37
+    members."""
+    import ctypes
+
+    case, lib = generated_chain_host
+    solver, n, iters = GENERATED_CHAINS[case]
+    host_fm(lib, monkeypatch)
+    entry = lib.hamilton_user_family_step
+    entry.argtypes = kernels._SIGNATURES["family_step"]["hamilton_family_step"]
+    ex = tp.chain(n_links=n, fused_solver=solver, device="cpu", dtype=dtype)
+    forms = ex.system.fused_forms(ex.system)
+    rng = np.random.default_rng(9)
+    q = ex.init_config.q + torch.as_tensor(0.01 * rng.standard_normal((37, n)), dtype=dtype)
+    p = torch.as_tensor(0.05 * rng.standard_normal((37, n)), dtype=dtype)
+    kw = dict(iters=iters, compensated=True)
+    state = t_step.fused_stepper(forms, **kw).init(tp.Phase(q, p))
+    with torch.no_grad():
+        want = t_step.fused_step_reference(forms, state, 1e-3, **kw)
+    coef = torch.tensor([v for t in forms.consts for v in t], dtype=F64)
+    got = torch.full_like(state, float("nan"))
+    code = entry(int(dtype == F64), 0, 1 << 1, coef.data_ptr(), state.data_ptr(),
+                 got.data_ptr(), 37, 1e-3, iters[0], iters[1], 1, 1,
+                 (ctypes.c_double * 1)(1.0), None)
+    assert code == 0
+    assert torch.equal(got, want), float((got - want).abs().max())
