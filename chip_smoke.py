@@ -196,12 +196,16 @@ raises as soon as one fails:
     ``anchor21``: (2,1), dt = 1e-3, 2000 steps) and its stress chain
     (``System 40 20``: semiseparable (2,0), dt = 5e-4, 2000 steps; dense
     (2,0), 1000 steps), 16384 members, float32 Kahan, 50 steps a launch, on
-    the kernel ``KERNEL_INSTANTIATIONS`` routes each to (``csrc/
-    fused_step.cu``'s part, or the generated kernel; built beside the first
-    build and phases 1-20): its nvcc seconds, registers and spills; the
-    kernel against its plain version at 1000 and 7 members in float64 and
-    float32 (dense n = 40 over a 10-step launch; these checks time nothing
-    and run at the end of phase 1, beside phase 19's checks); the run through ``evolve_ensemble_final`` with its exact launches,
+    the kernel ``KERNEL_INSTANTIATIONS`` routes each to (the dense chain on
+    G lanes a member, ``csrc/fused_step.cu``'s parts of
+    ``csrc/dense_lanes.cuh``, or the generated kernel; built beside the
+    first build and phases 1-20): its nvcc seconds, layout, registers, stack
+    frames and spills; the kernel against its plain version at 1000 and 7
+    members in float64 and float32 (bit for bit on the lanes; dense n = 40
+    over a 10-step launch) and the dense n = 20 lanes with a per-member
+    table and with a composition on 37 members, bit for bit (these checks
+    time nothing and run at the end of phase 1, beside phase 19's checks);
+    the run through ``evolve_ensemble_final`` with its exact launches,
     member-steps/s and ``max|ΔH/H₀|`` sampled in float64 every 1000 steps
     (< 1e-6 for dense n = 20 and semiseparable n = 40, dense n = 40's
     recorded); the 50-step launch timed beside its plain version, its bound
@@ -285,6 +289,7 @@ DP_STEPS = 10_000
 DP_REPEATS = 20
 REPLACES = "hamilton_tpu/ops/pallas_step.py:585"
 SOURCE = "hamilton_tpu_torch/csrc/fused_step.cu"
+DENSE_SOURCE = "hamilton_tpu_torch/csrc/dense_lanes.cuh"
 K2_SOURCE = "hamilton_tpu_torch/csrc/batched_spd.cu"
 # The K2 kernels compute their plain versions' IEEE operations in the same
 # order (round-to-nearest intrinsics, never fused into an FMA), so the two
@@ -458,9 +463,11 @@ GAUSS_GRAD_STEPS = 5
 # bench.py:733-806), 16384 members, float32 Kahan, 50 steps a launch,
 # float64 drift every 1000 steps: (label, n, fused_solver, iters, dt, steps,
 # steps of the launch held against the plain version, drift bound or None
-# where it is only recorded).  The dense n = 40 plain version takes ~0.7 s
-# a step on the card (~10^4 PyTorch operations), so its check is a 10-step
-# launch.
+# where it is only recorded).  The dense chain runs on G lanes a member
+# (csrc/dense_lanes.cuh), the semiseparable one at n = 40 on the generated
+# kernel (KERNEL_INSTANTIATIONS).  The dense n = 40 plain version takes
+# ~0.7 s a step on the card (~10^4 PyTorch operations), so its check is a
+# 10-step launch.
 CHAIN_CASES = (
     ("dense n=20 (2,1)", 20, "dense", (2, 1), 1e-3, 2000, 50, DRIFT_BOUND),
     ("semiseparable n=40 (2,0)", 40, "semiseparable", (2, 0), 5e-4, 2000, 50, DRIFT_BOUND),
@@ -468,6 +475,12 @@ CHAIN_CASES = (
 )
 # the batches each case's kernel is held against its plain version at
 CHAIN_CASE_BATCHES = (1000, 7)
+# the dense chain at n = 20 in its other modes, bitwise against the plain
+# version: members, steps a launch, and (label, iters, compensated, swept,
+# composition)
+DENSE_MODE_BATCH, DENSE_MODE_STEPS = 37, 5
+DENSE_MODES = (("per-member tables (2,1) kahan", (2, 1), True, True, (1.0,)),
+               ("suzuki4 composition (3,1)", (3, 1), False, False, "suzuki4"))
 # phase 21 (b): the sharded driver on the headline configuration, 2000 steps
 SHARD_STEPS = 2000
 SHARD_COUNT = 4
@@ -486,8 +499,11 @@ def card_line() -> str:
 
 
 # fused_step_kernel<T, n, semiseparable, compensated, per-member, composed>
+# (one thread a member) or lane_kernel<T, n, lanes, compensated, per-member,
+# composed, kDenseForm> (the dense chain on lanes, csrc/dense_lanes.cuh)
 _KERNEL_RE = re.compile(
-    r"fused_step_kernelI(?P<t>[fd])Li(?P<n>\d+)ELb(?P<semi>[01])E"
+    r"(?:fused_step_kernelI(?P<t>[fd])Li(?P<n>\d+)ELb(?P<semi>[01])E"
+    r"|lane_kernelI(?P<lt>[fd])Li(?P<ln>\d+)ELi(?P<lanes>\d+)E(?=(?:Lb[01]E){3}Li1E))"
     r"Lb(?P<comp>[01])ELb(?P<pm>[01])ELb(?P<composed>[01])E")
 # solve_tile_kernel<T, lanes, nmax> (K2a), factor_lanes_kernel<T, lanes, nmax>
 # (K2b), substitute_lanes_kernel<T, lanes, nmax> (K2c) (nmax: the one-thread
@@ -512,6 +528,8 @@ def _modes(m):
 
 
 def _k1_label(m):
+    if m["lt"]:  # the dense chain on lanes
+        return f"{'float' if m['lt'] == 'f' else 'double'} n={m['ln']} dense{_modes(m)}"
     return (f"{'float' if m['t'] == 'f' else 'double'} n={m['n']} "
             f"{'semiseparable' if m['semi'] == '1' else 'dense'}{_modes(m)}")
 
@@ -580,6 +598,23 @@ def ptxas_report(log_text: str, pattern=_KERNEL_RE, label=_k1_label):
             rows.append((current, int(r.group(1))) + (spills or (0, 0)))
             current = None
     return rows
+
+
+def ptxas_frames(log_text: str, pattern=_KERNEL_RE, label=_k1_label):
+    """nvcc's ``-Xptxas -v`` function properties of each function that
+    ``pattern`` matches: ``{name: (stack frame, spill stores, spill loads)}``
+    in bytes (a factor in local memory shows in the first)."""
+    frames, current = {}, None
+    for line in log_text.splitlines():
+        m = pattern.search(line)
+        if m and "Function properties" in line:
+            current = label(m)
+        s = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if s and current:
+            frames[current] = tuple(int(x) for x in s.groups())
+            current = None
+    return frames
 
 
 def jittered_phase(example, batch, dtype, device, seed):
@@ -2491,9 +2526,10 @@ def phase21_builds(dev, pool):
     """Start in ``pool`` the builds that only phase 21 (a) needs, so that
     they compile beside the first build and phases 1-20, at a lower priority
     (:func:`_niced`): each case's kernel as ``KERNEL_INSTANTIATIONS`` routes
-    it, its ``csrc/fused_step.cu`` parts or its generated header (six parts,
-    the dense chain-20's ~800 s of nvcc as one build).  Returns ``({label:
-    future}, the fused_step units to leave out of the first build)``."""
+    it, its ``csrc/fused_step.cu`` parts (the dense chain's lane kernels,
+    under a minute each) or its generated header (six parts, the
+    semiseparable chain-40's several minutes).  Returns ``({label: future},
+    the fused_step units to leave out of the first build)``."""
     import torch
     from hamilton_tpu_torch import kernels
     from hamilton_tpu_torch.models import chain
@@ -2521,12 +2557,14 @@ def phase_chain_checks(dev, late_builds):
     :data:`CHAIN_CASES`, wait for its kernel as ``KERNEL_INSTANTIATIONS``
     routes it (``csrc/fused_step.cu``'s parts, or the generated kernel),
     built beside the first build (``late_builds``, :func:`phase21_builds`),
-    and log its build seconds, registers and spills; hold the kernel
-    against its plain version at :data:`CHAIN_CASE_BATCHES` in float64 and
-    float32 (one plain run on the members of both batches).  Returns
-    ``{label: (launch counter, source, nvcc seconds, largest float32 q/p
-    error)}``."""
+    and log its build seconds, registers, stack frames and spills; hold the
+    kernel against its plain version at :data:`CHAIN_CASE_BATCHES` in
+    float64 and float32 (one plain run on the members of both batches), bit
+    for bit on the dense chain's lanes; the dense chain at n = 20 also in
+    :data:`DENSE_MODES`.  Returns ``{label: (launch counter, source, nvcc
+    seconds, largest float32 q/p error)}``."""
     import torch
+    from hamilton_tpu_torch import kernels
     from hamilton_tpu_torch.models import chain
     from hamilton_tpu_torch.ops.fused_step import (
         KERNEL_INSTANTIATIONS, _kernel_key, fused_step_kernel, fused_step_reference,
@@ -2542,9 +2580,10 @@ def phase_chain_checks(dev, late_builds):
         build = late_builds[label].result()
         waited = time.perf_counter() - t_wait
         if hand:
-            counter, source = "fused_step", SOURCE
+            counter, source = "fused_step", SOURCE if solver != "dense" else DENSE_SOURCE
             seconds = list(build.part_seconds)
             regs = ptxas_report(build.log)
+            frames = ptxas_frames(build.log)
             built = ("csrc/fused_step.cu's float32 and float64 parts: nvcc "
                      + " s and ".join(f"{x:.1f}" for x in seconds) + " s")
         else:
@@ -2552,13 +2591,21 @@ def phase_chain_checks(dev, late_builds):
             key, build = build
             seconds = [build.seconds]
             regs = ptxas_report(build.log, _USER_RE, _user_label)
+            frames = ptxas_frames(build.log, _USER_RE, _user_label)
             built = f"the generated kernel ({key}): nvcc {build.seconds:.1f} s"
+        if hand and solver == "dense":
+            layouts = [kernels.lane_layout("fused_step", d, n, semiseparable=False)
+                       for d in (0, 1)]
+            built += ", " + ", ".join(
+                f"{t}: {lanes} lanes a member, {block} threads and {smem} B of shared memory "
+                f"a block, {blocks} blocks an SM" for t, (lanes, block, smem, blocks)
+                in zip(("float", "double"), layouts))
         log(f"phase 21 (a) {label}: {built} (waited {waited:.1f} s for it), {len(regs)} "
             f"instantiations, registers {min(r[1] for r in regs)}-{max(r[1] for r in regs)}, "
             f"spill stores {min(r[2] for r in regs)}-{max(r[2] for r in regs)} B")
         for kname, nreg, st, ld in regs:
-            log(f"ptxas: {label}: {kname:<45} {nreg:3d} registers, spill stores {st} B, "
-                f"spill loads {ld} B")
+            log(f"ptxas: {label}: {kname:<45} {nreg:3d} registers, stack frame "
+                f"{frames.get(kname, (0,))[0]} B, spill stores {st} B, spill loads {ld} B")
 
         # the kernel against its plain version, one plain run for both batches
         worst = 0.0
@@ -2582,6 +2629,8 @@ def phase_chain_checks(dev, late_builds):
                 err, errs, bad = compare_states(got, want, dname)
                 start += b
                 worst = max(worst, err) if dtype == f32 else worst
+                if hand and solver == "dense" and not torch.equal(got, want):
+                    bad = bad + ["not bitwise"]
                 failures += bad
                 log(f"phase 21 (a) {'FAILED' if bad else 'ok'}: {label} {dname} B={b} "
                     f"spc={spc_check}: bitwise {torch.equal(got, want)}, "
@@ -2591,8 +2640,54 @@ def phase_chain_checks(dev, late_builds):
             if failures:
                 raise AssertionError(f"{label}: kernel disagrees with its plain version: "
                                      + "; ".join(failures))
+        if hand and solver == "dense" and n == 20:
+            dense_mode_checks(dev, n)
         checked[label] = (counter, source, max(seconds), worst)
     return checked
+
+
+def dense_mode_checks(dev, n):
+    """The dense chain's lane kernel at ``n`` in :data:`DENSE_MODES` (a
+    per-member table, a composition), each dtype, on
+    :data:`DENSE_MODE_BATCH` members over :data:`DENSE_MODE_STEPS` steps:
+    bit for bit the plain version, or the run fails."""
+    import numpy as np
+    import torch
+    from hamilton_tpu_torch.convert import params_from_numpy
+    from hamilton_tpu_torch.models import chain
+    from hamilton_tpu_torch.ops.fused_step import (
+        SUZUKI4_COMPOSITION, fused_step_kernel, fused_step_reference, fused_stepper,
+    )
+
+    b = DENSE_MODE_BATCH
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        for mode, iters, comp, swept, composition in DENSE_MODES:
+            composition = SUZUKI4_COMPOSITION if composition == "suzuki4" else composition
+            ex = chain(n_links=n, fused_solver="dense", device=dev, dtype=dtype)
+            system = ex.system
+            if swept:
+                rng = np.random.default_rng(n)
+                system = system.replace_params(params_from_numpy({
+                    "masses": 1.0 + 0.05 * rng.standard_normal((b, n)),
+                    "lengths": 1.0 + 0.1 * rng.random((b, n)),
+                    "gravity": 9.8 + 0.1 * rng.standard_normal(b)}, device=dev, dtype=dtype))
+            forms = system.fused_forms(system)
+            kw = dict(iters=iters, compensated=comp, steps_per_call=DENSE_MODE_STEPS,
+                      composition=composition)
+            carry = fused_stepper(forms, **kw).init(jittered_phase(ex, b, dtype, dev, 22))
+            state, table = carry if swept else (carry, None)
+            got = fused_step_kernel(forms, state, 1e-3, coef=table, **kw)
+            want = fused_step_reference(forms, state, 1e-3, coef=table, **kw)
+            torch.cuda.synchronize()
+            _, errs, bad = compare_states(got, want, dname)
+            bitwise = torch.equal(got, want)
+            log(f"phase 21 (a) {'ok' if bitwise and not bad else 'FAILED'}: dense n={n} "
+                f"{mode} {dname} B={b} spc={DENSE_MODE_STEPS}: bitwise {bitwise}, "
+                + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+            if bad or not bitwise:
+                raise AssertionError(f"dense n={n} {mode} {dname}: the lane kernel differs "
+                                     f"from its plain version: " + "; ".join(bad))
 
 
 def phase_chain_cases(dev, checked, entries, summary):

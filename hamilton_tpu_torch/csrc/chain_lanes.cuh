@@ -1,13 +1,16 @@
-// The serial chain's L^-1 form (chain_variants.cu) as a fused step on G
-// lanes a member (4 at n = 20, 2 at n = 5), and the one-thread chain
+// The lane step template (lane_step, lane_kernel: a member on G lanes of a
+// warp, its factor in shared memory) with the serial chain's L^-1 form
+// (chain_variants.cu; 4 lanes at n = 20, 2 at n = 5), the form that
+// dense_lanes.cuh's dense chain also runs on it, and the one-thread chain
 // kernels' staged per-member table (StagedColumn).  The semiseparable and
 // Moebius forms run on the one-thread step_member: on these lanes every lane
 // repeats their O(n) scans, and they measured slower at every G (PERF.md
 // section 6).
 //
 // A member is a group of G consecutive lanes of a warp (LaneShape below);
-// lane_step runs step_member's step (fused_step.cuh) with the L^-1 form on
-// them, in the same operations and order.  What it splits across the group:
+// lane_step runs step_member's step (fused_step.cuh) on them with a form's
+// routines (LinvLaneForms, DenseLaneForms), in the same operations and
+// order.  What it splits across the group for L^-1:
 //   - the member's n-vectors (q, p, their Kahan compensations, the
 //     warm-start carries and the step's temporaries): lane g holds links
 //     g, g+G, ... in registers, and runs the elementwise work on them, the
@@ -86,10 +89,26 @@ constexpr unsigned lane_bytes(unsigned item, int slots, int table, int threads, 
   return item * (slots * (threads / g + 1) + table);
 }
 
+// A member's group of Sh::G consecutive lanes and its Sh::kSlots slots in
+// the block's dynamic shared memory, member-minor at the stride Sh::S, the
+// shared table after every member's slots (a lane shape derives from it).
+template <class Sh>
+struct LaneMember {
+  // slot 0 of this lane's member, its lane in the group, the group's mask
+  static __device__ __forceinline__ auto* member() { return shared() + threadIdx.x / Sh::G; }
+  static __device__ __forceinline__ auto* table() { return shared() + Sh::kSlots * Sh::S; }
+  static __device__ __forceinline__ auto* shared() { return dynamic_shared<typename Sh::T>(); }
+  static __device__ __forceinline__ int lane() { return threadIdx.x % Sh::G; }
+  static __device__ __forceinline__ unsigned mask() {
+    constexpr int G = Sh::G;
+    return G == 32 ? 0xffffffffu : ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
+  }
+};
+
 // The member's layout at size N_ on G_ lanes: kBlock threads a block
 // (kThreads where its shared memory fits, else fewer), J links a lane.
 template <typename T_, int N_, int G_>
-struct LaneShape {
+struct LaneShape : LaneMember<LaneShape<T_, N_, G_>> {
   using T = T_;
   static constexpr int N = N_, G = G_;
   static constexpr int J = (N_ + G - 1) / G;  // links a lane: g, g+G, ...
@@ -116,14 +135,6 @@ struct LaneShape {
   static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0 && G <= W, "G: a power of two <= W");
   static_assert(kBytes <= kMaxShared && kMembers >= 1, "a member's slots fit a block");
 
-  // slot 0 of this lane's member, its lane in the group, the group's mask
-  static __device__ __forceinline__ T* member() { return shared() + threadIdx.x / G; }
-  static __device__ __forceinline__ T* table() { return shared() + kSlots * S; }
-  static __device__ __forceinline__ T* shared() { return dynamic_shared<T>(); }
-  static __device__ __forceinline__ int lane() { return threadIdx.x % G; }
-  static __device__ __forceinline__ unsigned mask() {
-    return G == 32 ? 0xffffffffu : ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
-  }
   // the first entry of column a of the column-major lower triangle
   static __host__ __device__ constexpr int col(int a) { return a * N_ - a * (a - 1) / 2; }
 };
@@ -418,36 +429,54 @@ struct LaneDhdq {
 
 // ---- the step ------------------------------------------------------------
 
-// The member's step (step_member's, operation for operation) with the
-// chain's aux and dH/dq and the L^-1 factor and solves, on the G lanes of
-// the member: v[j] is link g + G*j of an n-vector.
-template <class Sh, bool COMP, bool COMPOSED, class C>
-__device__ __forceinline__ void lane_step(const C& cf, const typename Sh::T* __restrict__ in,
-                                          typename Sh::T* __restrict__ out, long long batch,
-                                          long long b, const Substeps<typename Sh::T>& subs,
-                                          int iters_p, int iters_q, int steps_per_call) {
+// The chain's trig aux on a member's lanes: each lane the sin and cos of its
+// links into the member's aux slots (Sh::kS, Sh::kC), and their first-order
+// shift to q_new from q_base in float32 (re-evaluated in float64).  With
+// SINCOS (the dense form), in float each lane's pairs through the
+// straight-line sincos_fast where every angle of the lane is in its range,
+// else through the library's one reduction (both are sinf and cosf bit for
+// bit, csrc/libm_check.cu); otherwise (L^-1) sin and cos one by one.
+template <class Sh, bool SINCOS>
+struct LaneTrig {
   using T = typename Sh::T;
-  constexpr int N = Sh::N, G = Sh::G, J = Sh::J, S = Sh::S, NSV = COMP ? 6 : 4;
-  T* mem = Sh::member();
-  const int g = Sh::lane();
-  const unsigned mask = Sh::mask();
-  auto link = [g](int j) { return g + G * j; };
-  auto mine = [g](int j) { return g + G * j < N; };
+  static constexpr int N = Sh::N, G = Sh::G, J = Sh::J, S = Sh::S;
+  T* mem;
+  int g;
+  unsigned mask;
 
-  // the aux (sin, cos of each link) at q, each lane its links'
-  auto aux = [&](const T (&x)[J]) {
+  __device__ __forceinline__ LaneTrig() : mem(Sh::member()), g(Sh::lane()), mask(Sh::mask()) {}
+  __device__ __forceinline__ int link(int j) const { return g + G * j; }
+  __device__ __forceinline__ bool mine(int j) const { return g + G * j < N; }
+
+  __device__ __forceinline__ void aux(const T (&x)[J]) {
     __syncwarp(mask);
+    if constexpr (SINCOS && std::is_same<T, float>::value) {
+      bool fast = true;
 #pragma unroll
-    for (int j = 0; j < J; ++j) {
-      if (mine(j)) {
-        mem[(Sh::kS + link(j)) * S] = dsin(x[j]);
-        mem[(Sh::kC + link(j)) * S] = dcos(x[j]);
+      for (int j = 0; j < J; ++j) fast = fast && (!mine(j) || sincos_fast_range(x[j]));
+      if (fast) {
+#pragma unroll
+        for (int j = 0; j < J; ++j)
+          if (mine(j))
+            sincos_fast(x[j], &mem[(Sh::kS + link(j)) * S], &mem[(Sh::kC + link(j)) * S]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < J; ++j)
+          if (mine(j)) dsincos(x[j], &mem[(Sh::kS + link(j)) * S], &mem[(Sh::kC + link(j)) * S]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        if (mine(j)) {
+          mem[(Sh::kS + link(j)) * S] = dsin(x[j]);
+          mem[(Sh::kC + link(j)) * S] = dcos(x[j]);
+        }
       }
     }
     __syncwarp(mask);
-  };
-  // the aux moved to q_new: the first-order shift from q_base in float32
-  auto aux_at = [&](const T (&q_new)[J], const T (&q_base)[J]) {
+  }
+
+  __device__ __forceinline__ void aux_at(const T (&q_new)[J], const T (&q_base)[J]) {
     if constexpr (std::is_same<T, float>::value) {
       __syncwarp(mask);
 #pragma unroll
@@ -465,28 +494,55 @@ __device__ __forceinline__ void lane_step(const C& cf, const typename Sh::T* __r
     } else {
       aux(q_new);
     }
-  };
-  auto factor = [&]() { lane_call<LinvFactorLanes<Sh, C>, N>(cf); };
-  // x = K^-1 b into the x slots
-  auto solve = [&](const T (&rhs)[J]) {
-    __syncwarp(mask);
+  }
+};
+
+// The L^-1 form's routines on the member's lanes, for lane_step: the aux, the
+// factor, a solve of rhs (this lane's links) into the x slots, the x slots at
+// this lane's links, and dH/dq at them with w the last solve's x.
+template <class Sh, class C>
+struct LinvLaneForms : LaneTrig<Sh, false> {
+  using T = typename Sh::T;
+  static constexpr int N = Sh::N, J = Sh::J, S = Sh::S;
+  C cf;
+
+  __device__ __forceinline__ explicit LinvLaneForms(C c) : cf(c) {}
+  __device__ __forceinline__ void factor() { lane_call<LinvFactorLanes<Sh, C>, N>(cf); }
+  __device__ __forceinline__ void solve(const T (&rhs)[J]) {
+    __syncwarp(this->mask);
 #pragma unroll
     for (int j = 0; j < J; ++j)
-      if (mine(j)) mem[(Sh::kB + link(j)) * S] = rhs[j];
-    __syncwarp(mask);
+      if (this->mine(j)) this->mem[(Sh::kB + this->link(j)) * S] = rhs[j];
+    __syncwarp(this->mask);
     lane_call<LinvSolveLanes<Sh>, N>();
-  };
-  auto read_x = [&](T (&x)[J]) {
+  }
+  __device__ __forceinline__ void read_x(T (&x)[J]) const {
 #pragma unroll
-    for (int j = 0; j < J; ++j) x[j] = mine(j) ? mem[(Sh::kX + link(j)) * S] : T(0);
-  };
-  // dH/dq with w the last solve's x, this lane's links
-  auto dhdq = [&](T (&res)[J]) {
+    for (int j = 0; j < J; ++j)
+      x[j] = this->mine(j) ? this->mem[(Sh::kX + this->link(j)) * S] : T(0);
+  }
+  __device__ __forceinline__ void dhdq(T (&res)[J]) {
     lane_call<LaneDhdq<Sh, C>, N>(cf);
 #pragma unroll
     for (int j = 0; j < J; ++j)
-      if (mine(j)) res[j] = mem[(Sh::kF + link(j)) * S];
-  };
+      if (this->mine(j)) res[j] = this->mem[(Sh::kF + this->link(j)) * S];
+  }
+};
+
+// The member's step (step_member's, operation for operation) on the G lanes
+// of the member with a lane form's routines (`forms`: LinvLaneForms, or the
+// dense form's DenseLaneForms of dense_lanes.cuh): v[j] is link g + G*j of an
+// n-vector.
+template <class Sh, bool COMP, bool COMPOSED, class F>
+__device__ __forceinline__ void lane_step(F& forms, const typename Sh::T* __restrict__ in,
+                                          typename Sh::T* __restrict__ out, long long batch,
+                                          long long b, const Substeps<typename Sh::T>& subs,
+                                          int iters_p, int iters_q, int steps_per_call) {
+  using T = typename Sh::T;
+  constexpr int N = Sh::N, G = Sh::G, J = Sh::J, NSV = COMP ? 6 : 4;
+  const int g = Sh::lane();
+  auto link = [g](int j) { return g + G * j; };
+  auto mine = [g](int j) { return g + G * j < N; };
 
   // state vectors in the order of the reference's carry: q, p, [cq, cp,]
   // a_est, vdot_est
@@ -509,8 +565,8 @@ __device__ __forceinline__ void lane_step(const C& cf, const typename Sh::T* __r
       const T h = subs.h[sub];
       const T half = subs.half[sub];
       if (st == 0 && sub == 0) {  // peeled: no carried factor at launch entry
-        aux(q);
-        factor();
+        forms.aux(q);
+        forms.factor();
       }
       T ph[J], a_last[J], v0[J], vl[J], q1[J], q1p[J], bt[J];
 #pragma unroll
@@ -519,13 +575,13 @@ __device__ __forceinline__ void lane_step(const C& cf, const typename Sh::T* __r
         a_last[j] = av[j];
       }
       for (int it = 0; it < iters_p; ++it) {
-        solve(ph);
-        dhdq(a_last);
+        forms.solve(ph);
+        forms.dhdq(a_last);
 #pragma unroll
         for (int j = 0; j < J; ++j) ph[j] = p[j] - half * a_last[j];
       }
-      solve(ph);
-      read_x(v0);
+      forms.solve(ph);
+      forms.read_x(v0);
       const T dth = subs.dth[sub];
 #pragma unroll
       for (int j = 0; j < J; ++j) q1[j] = q[j] + h * v0[j] + dth * vd[j];
@@ -533,37 +589,37 @@ __device__ __forceinline__ void lane_step(const C& cf, const typename Sh::T* __r
       if (iters_q == 0) {
         // predictor-factor placement: one factor at the predictor serves the
         // q-refinement and the end-of-step force
-        aux(q1);
-        factor();
-        solve(ph);
-        read_x(vl);
+        forms.aux(q1);
+        forms.factor();
+        forms.solve(ph);
+        forms.read_x(vl);
 #pragma unroll
         for (int j = 0; j < J; ++j) {
           q1p[j] = q1[j];
           q1[j] = q[j] + half * (v0[j] + vl[j]);
         }
-        aux_at(q1, q1p);
-        dhdq(bt);
+        forms.aux_at(q1, q1p);
+        forms.dhdq(bt);
       } else {
         for (int it = 0; it < iters_q; ++it) {
           if (it == 0) {
-            aux(q1);
+            forms.aux(q1);
           } else {
-            aux_at(q1, q1p);
+            forms.aux_at(q1, q1p);
           }
 #pragma unroll
           for (int j = 0; j < J; ++j) q1p[j] = q1[j];
-          factor();
-          solve(ph);
-          read_x(vl);
+          forms.factor();
+          forms.solve(ph);
+          forms.read_x(vl);
 #pragma unroll
           for (int j = 0; j < J; ++j) q1[j] = q[j] + half * (v0[j] + vl[j]);
         }
         // exact end-of-step factor at the converged q1
-        aux_at(q1, q1p);
-        factor();
-        solve(ph);
-        dhdq(bt);
+        forms.aux_at(q1, q1p);
+        forms.factor();
+        forms.solve(ph);
+        forms.dhdq(bt);
       }
       // increments, accumulation, and the warm-start carries
       const T inv_h = subs.inv_h[sub];
@@ -639,39 +695,54 @@ cudaError_t staged_prepare(unsigned* bytes) {
 
 // ---- the kernel, its launch and its layout ---------------------------------
 
-// The L^-1 step at size N on G lanes a member: kMembers members a block.
-template <typename T, int N, int G, bool COMP, bool PM, bool COMPOSED>
-__global__ void __launch_bounds__(LaneShape<T, N, G>::kBlock, LaneShape<T, N, G>::kMinBlocks)
+// The forms a lane kernel runs (its FORM): LaneTraits<T, N, G, FORM> names
+// the member's shape (Sh) and its routines on it (Forms<C>, C the table's
+// accessor).  The dense form's traits are in dense_lanes.cuh.
+constexpr int kLinvForm = 0, kDenseForm = 1;
+template <typename T, int N, int G, int FORM>
+struct LaneTraits;
+template <typename T, int N, int G>
+struct LaneTraits<T, N, G, kLinvForm> {
+  using Sh = LaneShape<T, N, G>;
+  template <class C>
+  using Forms = LinvLaneForms<Sh, C>;
+};
+
+// The step of FORM at size N on G lanes a member: kMembers members a block.
+template <typename T, int N, int G, bool COMP, bool PM, bool COMPOSED, int FORM>
+__global__ void __launch_bounds__(LaneTraits<T, N, G, FORM>::Sh::kBlock,
+                                  LaneTraits<T, N, G, FORM>::Sh::kMinBlocks)
     lane_kernel(const T* __restrict__ coef, const T* __restrict__ in, T* __restrict__ out,
                 long long batch, const __grid_constant__ Substeps<T> subs, int iters_p,
                 int iters_q, int steps_per_call) {
-  using Sh = LaneShape<T, N, G>;
+  using Tr = LaneTraits<T, N, G, FORM>;
+  using Sh = typename Tr::Sh;
   const long long b =
       static_cast<long long>(blockIdx.x) * Sh::kMembers + threadIdx.x / G;
   if constexpr (PM) {
     if (b >= batch) return;
-    using Cf = MemberTable<T>;
-    lane_step<Sh, COMP, COMPOSED>(Cf{coef + b, batch}, in, out, batch, b, subs, iters_p,
-                                  iters_q, steps_per_call);
+    typename Tr::template Forms<MemberTable<T>> forms(MemberTable<T>{coef + b, batch});
+    lane_step<Sh, COMP, COMPOSED>(forms, in, out, batch, b, subs, iters_p, iters_q,
+                                  steps_per_call);
   } else {
     T* cf = Sh::table();
     for (int k = threadIdx.x; k < Sh::kTable; k += blockDim.x) cf[k] = coef[k];
     __syncthreads();
     if (b >= batch) return;
-    using Cf = SharedSlots<Sh>;
-    lane_step<Sh, COMP, COMPOSED>(Cf{}, in, out, batch, b, subs, iters_p, iters_q,
+    typename Tr::template Forms<SharedSlots<Sh>> forms(SharedSlots<Sh>{});
+    lane_step<Sh, COMP, COMPOSED>(forms, in, out, batch, b, subs, iters_p, iters_q,
                                   steps_per_call);
   }
 }
 
 // Lets the lane kernel have its dynamic shared memory where that is more than
 // the default 48 KB, once per instantiation; cudaFuncSetAttribute's code.
-template <typename T, int N, int G, bool COMP, bool PM, bool COMPOSED>
+template <typename T, int N, int G, bool COMP, bool PM, bool COMPOSED, int FORM>
 cudaError_t lane_prepare() {
-  using Sh = LaneShape<T, N, G>;
+  using Sh = typename LaneTraits<T, N, G, FORM>::Sh;
   if constexpr (Sh::kBytes > 48 * 1024) {
     static const cudaError_t attr =
-        cudaFuncSetAttribute(lane_kernel<T, N, G, COMP, PM, COMPOSED>,
+        cudaFuncSetAttribute(lane_kernel<T, N, G, COMP, PM, COMPOSED, FORM>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(Sh::kBytes));
     return attr;
@@ -679,13 +750,13 @@ cudaError_t lane_prepare() {
   return cudaSuccess;
 }
 
-template <typename T, int N, int G, bool COMP, bool PM, bool COMPOSED>
+template <typename T, int N, int G, bool COMP, bool PM, bool COMPOSED, int FORM>
 int lane_launch(const Args& a) {
-  using Sh = LaneShape<T, N, G>;
-  const cudaError_t attr = lane_prepare<T, N, G, COMP, PM, COMPOSED>();
+  using Sh = typename LaneTraits<T, N, G, FORM>::Sh;
+  const cudaError_t attr = lane_prepare<T, N, G, COMP, PM, COMPOSED, FORM>();
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const long long blocks = (a.batch + Sh::kMembers - 1) / Sh::kMembers;
-  lane_kernel<T, N, G, COMP, PM, COMPOSED>
+  lane_kernel<T, N, G, COMP, PM, COMPOSED, FORM>
       <<<static_cast<unsigned int>(blocks), Sh::kBlock, Sh::kBytes, a.stream>>>(
           static_cast<const T*>(a.coef), static_cast<const T*>(a.in), static_cast<T*>(a.out),
           a.batch, make_substeps<T>(a.weights, a.n_weights, a.dt), a.iters_p, a.iters_q,
@@ -707,15 +778,15 @@ int kernel_layout(K kernel, int lanes, int block, unsigned bytes, int* out) {
 
 // The lane kernel's layout in these modes, not composed; where the build
 // does not hold it (HELD false), its shape with 0 blocks an SM.
-template <typename T, int N, int G, bool HELD>
+template <typename T, int N, int G, bool HELD, int FORM>
 int lane_layout(int compensated, int per_member, int* out) {
   auto one = [out](auto comp, auto pm) {
     constexpr bool kComp = decltype(comp)::value, kPm = decltype(pm)::value;
-    using Sh = LaneShape<T, N, G>;
+    using Sh = typename LaneTraits<T, N, G, FORM>::Sh;
     if constexpr (HELD) {
-      const cudaError_t attr = lane_prepare<T, N, G, kComp, kPm, false>();
+      const cudaError_t attr = lane_prepare<T, N, G, kComp, kPm, false, FORM>();
       if (attr != cudaSuccess) return static_cast<int>(attr);
-      return kernel_layout(lane_kernel<T, N, G, kComp, kPm, false>, G, Sh::kBlock,
+      return kernel_layout(lane_kernel<T, N, G, kComp, kPm, false, FORM>, G, Sh::kBlock,
                            Sh::kBytes, out);
     } else {
       out[0] = G;

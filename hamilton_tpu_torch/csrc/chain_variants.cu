@@ -216,7 +216,7 @@ template <typename T, int CASE, bool COMP, bool PM, bool COMPOSED>
 int launch(const Args& a) {
   using V = Variant<T, CASE>;
   if constexpr (V::G > 0) {
-    return lane_launch<T, V::N, V::G, COMP, PM, COMPOSED>(a);
+    return lane_launch<T, V::N, V::G, COMP, PM, COMPOSED, kLinvForm>(a);
   } else {
     unsigned bytes;  // Moebius's per-member table, staged
     const cudaError_t attr = staged_prepare<T, V::P::L, PM && V::kStaged,
@@ -273,7 +273,7 @@ int layout_case(int compensated, int per_member, int* out) {
   using V = Variant<T, CASE>;
   constexpr bool held = in_part(CASE, std::is_same<T, double>::value);
   if constexpr (V::G > 0) {
-    return lane_layout<T, V::N, V::G, held>(compensated, per_member, out);
+    return lane_layout<T, V::N, V::G, held, kLinvForm>(compensated, per_member, out);
   } else {
     constexpr int L = V::P::L;
     out[0] = 1;

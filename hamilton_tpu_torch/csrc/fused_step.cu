@@ -4,25 +4,28 @@
 // Replaces the TPU kernel hamilton_tpu/ops/pallas_step.py::fused_stepper.kernel
 // (launched by its _call through pl.pallas_call) for the serial chain.  One
 // launch advances every ensemble member by steps_per_call dt-steps of the
-// fused leapfrog on the one-thread step template step_member of
-// fused_step.cuh (shared with the model families' kernel, family_step.cu)
-// under one of two policies of the chain's closed forms, SEMISEP (the O(n)
-// semiseparable factorization, serial_chain_forms_on) and dense (the
-// in-register Cholesky of serial_chain_forms).  In float32 the within-step
-// aux re-evaluations rotate the trig aux to first order (the reference's
+// fused leapfrog under one of two policies of the chain's closed forms,
+// SEMISEP (the O(n) semiseparable factorization, serial_chain_forms_on) and
+// dense (the Cholesky of serial_chain_forms): the semiseparable form and the
+// dense form at n = 2 on the one-thread step template step_member of
+// fused_step.cuh (shared with the model families' kernel, family_step.cu),
+// the dense form at n = 20 and 40 on G lanes a member (dense_lanes.cuh, on
+// chain_lanes.cuh's lane template: its header says what bounds it and what
+// its design does about it).  In float32 the within-step aux
+// re-evaluations rotate the trig aux to first order (the reference's
 // aux_shift); in float64 they re-evaluate it.
 //
-// What bounds it on this card: latency.  Each member reads and writes 4 or
-// 6 vectors of n values per launch (O(100) bytes in and out per member per
-// 50 steps) against thousands of dependent flops and 2n-4n transcendentals
-// per step, 16384 members are ~4 warps an SM, one a scheduler, and the
-// semiseparable step is a chain of O(n) sequential scans, its factor with a
-// square root and a reciprocal a link.  What the design does about it: one
-// thread a member, everything over N unrolled at compile time so the
-// per-member lists live in registers (at n = 20 the live set exceeds 255
-// registers and some of it spills to L1-backed local memory), batch-minor
-// x[i*B + b] loads and stores that coalesce, and for the semiseparable form
-// (chain_forms.cuh):
+// What bounds the one-thread step on this card: latency.  Each member reads
+// and writes 4 or 6 vectors of n values per launch (O(100) bytes in and out
+// per member per 50 steps) against thousands of dependent flops and 2n-4n
+// transcendentals per step, 16384 members are ~4 warps an SM, one a
+// scheduler, and the semiseparable step is a chain of O(n) sequential
+// scans, its factor with a square root and a reciprocal a link.  What the
+// design does about it: one thread a member, everything over N unrolled at
+// compile time so the per-member lists live in registers (at n = 20 the
+// live set exceeds 255 registers and some of it spills to L1-backed local
+// memory), batch-minor x[i*B + b] loads and stores that coalesce, and for
+// the semiseparable form (chain_forms.cuh):
 //   - each link's sin and cos from one straight-line reduction, and the
 //     factor's square roots and reciprocals straight-line, the library's
 //     expansions without their branches to the slow paths (which serialized
@@ -32,30 +35,30 @@
 // On G lanes a member, as the L^-1 form runs (chain_lanes.cuh: the factor
 // in shared memory), this form measured slower than one thread a member at
 // every G from 1 to 8, because every lane repeats the O(n) scans (PERF.md
-// section 6).
+// section 6).  The dense form has no such scan: its O(n^3) factor and O(n^2)
+// products split by rows, and on lanes it measured 0.63x the generated
+// kernel at n = 20 and 0.18x the one-thread template (its loops rolled, the
+// factor in local memory) at n = 40 (PERF.md section 6).
 //
 // Build (no fast-math: it would reassociate the Kahan compensation away and
 // swap sinf/cosf for approximations whose error shows in the drift):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o libfused_step.so fused_step.cu
 // FMA contraction (nvcc's default) stays on; it changes rounding only.  The
-// dense parts at n = 40 build with -fmad=false (kernels.PART_FLAGS), as the
-// dense form at n = 4 in chain_variants.cu and the generated kernel, so that
-// they round each product and sum as the plain version does (with FMA the
-// velocities, good to cond(K) ulps, drift apart from the plain version's as
-// n grows: at n = 40 the float32 semiseparable vdot_est read 0.33 of its
-// largest magnitude off over one step).
-// Built as eight parts at once (kernels.PARTS): part 2*v + dtype_code, with
+// dense parts at n = 20 and 40 build with -fmad=false (kernels.PART_FLAGS),
+// as the dense form at n = 4 in chain_variants.cu and the generated kernel,
+// so that they round each product and sum as the plain version does (with
+// FMA the velocities, good to cond(K) ulps, drift apart from the plain
+// version's as n grows: at n = 40 the float32 semiseparable vdot_est read
+// 0.33 of its largest magnitude off over one step).
+// Built as ten parts at once (kernels.PARTS): part 2*v + dtype_code, with
 // -DHAMILTON_PART set to it, holds variant v (0 semiseparable n=20, 1
-// semiseparable n=5, 2 dense n=2, 3 dense n=40) in one dtype; without it,
-// one library holds all.  At n = 40 the dense factor's loops stay rolled
-// (fused_step.cuh, kDenseUnrollMaxN), the factor in local memory.  The
-// dense chain at n = 20 (the reference's default chain) and the
-// semiseparable one at n = 40 run on the generated kernel, which measured
-// faster than this template there; at dense n = 40 the generated kernel
-// did not build within 14 minutes (PERF.md section 6).
+// semiseparable n=5, 2 dense n=2, 3 dense n=40 on lanes, 4 dense n=20 on
+// lanes) in one dtype; without it, one library holds all.  The
+// semiseparable chain at n = 40 runs on the generated kernel, which
+// measured faster than this template there (PERF.md section 6).
 
-#include "chain_lanes.cuh"
+#include "dense_lanes.cuh"
 
 namespace {
 
@@ -87,21 +90,30 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Whether the variant at (N, SEMISEP) runs on the dense lane step
+// (dense_lanes.cuh) rather than the one-thread step_member.
+template <int N, bool SEMISEP>
+constexpr bool kDenseOnLanes = !SEMISEP && N >= 20;
+
 template <typename T, int N, bool SEMISEP, bool COMP, bool PM, bool COMPOSED>
 int launch(const Args& a) {
-  unsigned bytes;  // the semiseparable form's per-member table, staged
-  const cudaError_t attr =
-      staged_prepare<T, CoefLen<N, true>::value, PM && SEMISEP,
-                     fused_step_kernel<T, N, SEMISEP, COMP, PM, COMPOSED>>(&bytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const long long blocks = (a.batch + kThreads - 1) / kThreads;
-  fused_step_kernel<T, N, SEMISEP, COMP, PM, COMPOSED>
-      <<<static_cast<unsigned int>(blocks), kThreads, bytes, a.stream>>>(
-          static_cast<const T*>(a.coef), static_cast<const T*>(a.in),
-          static_cast<T*>(a.out), a.batch,
-          make_substeps<T>(a.weights, a.n_weights, a.dt), a.iters_p, a.iters_q,
-          a.steps_per_call);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (kDenseOnLanes<N, SEMISEP>) {
+    return lane_launch<T, N, DenseLanes<T, N>::value, COMP, PM, COMPOSED, kDenseForm>(a);
+  } else {
+    unsigned bytes;  // the semiseparable form's per-member table, staged
+    const cudaError_t attr =
+        staged_prepare<T, CoefLen<N, true>::value, PM && SEMISEP,
+                       fused_step_kernel<T, N, SEMISEP, COMP, PM, COMPOSED>>(&bytes);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const long long blocks = (a.batch + kThreads - 1) / kThreads;
+    fused_step_kernel<T, N, SEMISEP, COMP, PM, COMPOSED>
+        <<<static_cast<unsigned int>(blocks), kThreads, bytes, a.stream>>>(
+            static_cast<const T*>(a.coef), static_cast<const T*>(a.in),
+            static_cast<T*>(a.out), a.batch,
+            make_substeps<T>(a.weights, a.n_weights, a.dt), a.iters_p, a.iters_q,
+            a.steps_per_call);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <typename T, int N, bool SEMISEP, bool COMP, bool PM>
@@ -141,26 +153,31 @@ int launch_variant(int compensated, int per_member, const Args& a) {
 template <typename T, int V, int N, bool SEMISEP>
 int layout_variant(int compensated, int per_member, int* out) {
   constexpr bool held = in_part(V, std::is_same<T, double>::value);
-  out[0] = 1;
-  out[1] = kThreads;
-  out[2] = per_member && SEMISEP ? sizeof(T) * CoefLen<N, true>::value * kThreads : 0;
-  out[3] = 0;
-  if constexpr (held) {
-    auto one = [out](auto comp, auto pm) {
-      constexpr bool kComp = decltype(comp)::value, kPm = decltype(pm)::value;
-      constexpr auto kernel = fused_step_kernel<T, N, SEMISEP, kComp, kPm, false>;
-      unsigned bytes;
-      const cudaError_t attr =
-          staged_prepare<T, CoefLen<N, true>::value, kPm && SEMISEP, kernel>(&bytes);
-      return attr != cudaSuccess ? static_cast<int>(attr)
-                                 : kernel_layout(kernel, 1, kThreads, bytes, out);
-    };
-    using Y = std::true_type;
-    using No = std::false_type;
-    if (compensated) return per_member ? one(Y{}, Y{}) : one(Y{}, No{});
-    return per_member ? one(No{}, Y{}) : one(No{}, No{});
+  if constexpr (kDenseOnLanes<N, SEMISEP>) {
+    return lane_layout<T, N, DenseLanes<T, N>::value, held, kDenseForm>(compensated, per_member,
+                                                                        out);
+  } else {
+    out[0] = 1;
+    out[1] = kThreads;
+    out[2] = per_member && SEMISEP ? sizeof(T) * CoefLen<N, true>::value * kThreads : 0;
+    out[3] = 0;
+    if constexpr (held) {
+      auto one = [out](auto comp, auto pm) {
+        constexpr bool kComp = decltype(comp)::value, kPm = decltype(pm)::value;
+        constexpr auto kernel = fused_step_kernel<T, N, SEMISEP, kComp, kPm, false>;
+        unsigned bytes;
+        const cudaError_t attr =
+            staged_prepare<T, CoefLen<N, true>::value, kPm && SEMISEP, kernel>(&bytes);
+        return attr != cudaSuccess ? static_cast<int>(attr)
+                                   : kernel_layout(kernel, 1, kThreads, bytes, out);
+      };
+      using Y = std::true_type;
+      using No = std::false_type;
+      if (compensated) return per_member ? one(Y{}, Y{}) : one(Y{}, No{});
+      return per_member ? one(No{}, Y{}) : one(No{}, No{});
+    }
+    return 0;
   }
-  return 0;
 }
 
 template <int V, int N, bool SEMISEP>
@@ -178,6 +195,7 @@ int dispatch(int n, int semiseparable, F&& f) {
   if (semiseparable && n == 5) return f(Variant<1, 5, true>{});
   if (!semiseparable && n == 2) return f(Variant<2, 2, false>{});
   if (!semiseparable && n == 40) return f(Variant<3, 40, false>{});
+  if (!semiseparable && n == 20) return f(Variant<4, 20, false>{});
   return -1;
 }
 

@@ -57,17 +57,6 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kMaxWeights = 5;
 
-// The dense forms' O(n^2) and O(n^3) loops (the Cholesky factor, its
-// solves, the chain's dense dH/dq) unroll up to this n; beyond it they stay
-// rolled, the factor in local memory.  Unrolled at n = 40 the factor alone
-// is ~10^4 operations a copy and a kernel holds eight copies; nvcc did not
-// finish such a build in 40 minutes.  Rolled, each loop runs the same
-// operations in the same order.
-#ifndef HAMILTON_DENSE_UNROLL_MAX_N
-#define HAMILTON_DENSE_UNROLL_MAX_N 24
-#endif
-constexpr int kDenseUnrollMaxN = HAMILTON_DENSE_UNROLL_MAX_N;
-
 __device__ __forceinline__ float dsin(float x) { return sinf(x); }
 __device__ __forceinline__ double dsin(double x) { return sin(x); }
 __device__ __forceinline__ float dcos(float x) { return cosf(x); }
@@ -196,18 +185,12 @@ struct DenseFactor {
 // The Cholesky factor of the entries k_at(i, j), j <= i, in the order of
 // the reference's pallas_solve.py::_chol_entries (and the plain version's),
 // with STRAIGHT's square roots and reciprocals (otherwise the library's
-// sqrt and the division 1/d).
-template <bool STRAIGHT, typename T, int N, class K>
-__device__ __forceinline__ void dense_factor_rolled(const K& k_at, DenseFactor<T, N>& f,
-                                                    bool* ok);
-
+// sqrt and the division 1/d).  Unrolled: the one-thread dense forms are
+// small (n = 2 and 4); the chain at n = 20 and 40 runs on lanes
+// (dense_lanes.cuh).
 template <bool STRAIGHT, typename T, int N, class K>
 __device__ __forceinline__ void dense_factor_pass(const K& k_at, DenseFactor<T, N>& f,
                                                   bool* ok) {
-  if constexpr (N > kDenseUnrollMaxN) {
-    dense_factor_rolled<STRAIGHT>(k_at, f, ok);
-    return;
-  }
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     T acc = k_at(j, j);
@@ -226,34 +209,6 @@ __device__ __forceinline__ void dense_factor_pass(const K& k_at, DenseFactor<T, 
     for (int i = j + 1; i < N; ++i) {
       T e = k_at(i, j);
 #pragma unroll
-      for (int k = 0; k < j; ++k) e = e - f.low[i][k] * f.low[j][k];
-      f.low[i][j] = e * inv_d;
-    }
-  }
-}
-
-// dense_factor_pass's loops, rolled (n > kDenseUnrollMaxN).
-template <bool STRAIGHT, typename T, int N, class K>
-__device__ __forceinline__ void dense_factor_rolled(const K& k_at, DenseFactor<T, N>& f,
-                                                    bool* ok) {
-#pragma unroll 1
-  for (int j = 0; j < N; ++j) {
-    T acc = k_at(j, j);
-#pragma unroll 1
-    for (int k = 0; k < j; ++k) acc = acc - f.low[j][k] * f.low[j][k];
-    const T d = line_sqrt<STRAIGHT>(acc, ok);
-    f.low[j][j] = d;
-    T inv_d;
-    if constexpr (STRAIGHT) {
-      inv_d = line_rcp<true>(d, ok);
-    } else {
-      inv_d = T(1) / d;
-    }
-    f.id[j] = inv_d;
-#pragma unroll 1
-    for (int i = j + 1; i < N; ++i) {
-      T e = k_at(i, j);
-#pragma unroll 1
       for (int k = 0; k < j; ++k) e = e - f.low[i][k] * f.low[j][k];
       f.low[i][j] = e * inv_d;
     }
@@ -275,23 +230,6 @@ template <typename T, int N>
 __device__ __forceinline__ void solve(const DenseFactor<T, N>& f, const T (&b)[N],
                                       T (&x)[N]) {
   T y[N];
-  if constexpr (N > kDenseUnrollMaxN) {  // the same loops, rolled
-#pragma unroll 1
-    for (int i = 0; i < N; ++i) {
-      T acc = b[i];
-#pragma unroll 1
-      for (int k = 0; k < i; ++k) acc = acc - f.low[i][k] * y[k];
-      y[i] = acc * f.id[i];
-    }
-#pragma unroll 1
-    for (int i = N - 1; i >= 0; --i) {
-      T acc = y[i];
-#pragma unroll 1
-      for (int k = i + 1; k < N; ++k) acc = acc - f.low[k][i] * x[k];
-      x[i] = acc * f.id[i];
-    }
-    return;
-  }
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     T acc = b[i];

@@ -93,8 +93,11 @@ SOURCE_FLAGS = {"family_step": ("-fmad=false",), "chain_variants": ("-fmad=false
                 "user_family_step": ("-fmad=false",)}
 
 #: ``csrc/fused_step.cu``'s variants, ``(n, semiseparable)`` → the variant
-#: of its dispatch (a launch's code is n; the forms pick semiseparable).
-FUSED_STEP_VARIANTS = {(20, True): 0, (5, True): 1, (2, False): 2, (40, False): 3}
+#: of its dispatch (a launch's code is n; the forms pick semiseparable).  The
+#: dense chain at n = 40 and 20 (variants 3 and 4) runs on G lanes a member
+#: (``csrc/dense_lanes.cuh``), the others one thread a member.
+FUSED_STEP_VARIANTS = {(20, True): 0, (5, True): 1, (2, False): 2, (40, False): 3,
+                       (20, False): 4}
 
 #: Sources built as several libraries at once: name → (number of parts, the
 #: part that holds a launch's ``(dtype_code, code, semiseparable)``).  Part
@@ -110,13 +113,13 @@ PARTS: Dict[str, Tuple[int, Callable[[int, int, bool], int]]] = {
     "chain_variants": (10, lambda dtype_code, code, semiseparable: 2 * code + dtype_code),
 }
 
-#: Flags of one part beside its source's: ``fused_step``'s dense chain at
-#: n = 40 without FMA contraction, as the dense form at n = 4 in
-#: ``chain_variants`` and the generated kernel, so that it rounds as the
+#: Flags of one part beside its source's: ``fused_step``'s dense chain on
+#: lanes (n = 40 and 20) without FMA contraction, as the dense form at n = 4
+#: in ``chain_variants`` and the generated kernel, so that it rounds as the
 #: plain version does (with FMA the velocities, good to cond(K) ulps, drift
 #: apart from the plain version's as n grows).
-PART_FLAGS = {("fused_step", 2 * FUSED_STEP_VARIANTS[(40, False)] + dtype_code): ("-fmad=false",)
-              for dtype_code in (0, 1)}
+PART_FLAGS = {("fused_step", 2 * FUSED_STEP_VARIANTS[(n, False)] + dtype_code): ("-fmad=false",)
+              for n in (40, 20) for dtype_code in (0, 1)}
 
 @dataclass(frozen=True)
 class KernelBuild:
@@ -457,19 +460,23 @@ chain_variants_launch = _k1_launcher("chain_variants", "hamilton_chain_variant_s
 
 
 def lane_layout(source: str, dtype_code: int, code: int, compensated: bool = True,
-                per_member: bool = False) -> Tuple[int, int, int, int]:
+                per_member: bool = False,
+                semiseparable: Optional[bool] = None) -> Tuple[int, int, int, int]:
     """The kernel that launches K1's ``code`` of ``source`` (``"fused_step"``:
-    code n, the semiseparable form at 20 and 5, dense at 2 and 40;
-    ``"chain_variants"``: its case) as its library was built: ``(lanes a
-    member, threads a block, dynamic shared bytes a block, blocks an SM)``,
-    lanes 1 for a one-thread kernel, the last the blocks of its
-    instantiation in these modes (not composed) that the card holds at once
-    by its registers and shared memory.  Builds the library's part at first
-    use; raises for a code the source does not instantiate."""
+    code n, the semiseparable form at 20 and 5 unless ``semiseparable`` is
+    False, dense at 2, 20 and 40; ``"chain_variants"``: its case) as its
+    library was built: ``(lanes a member, threads a block, dynamic shared
+    bytes a block, blocks an SM)``, lanes 1 for a one-thread kernel, the
+    last the blocks of its instantiation in these modes (not composed) that
+    the card holds at once by its registers and shared memory.  Builds the
+    library's part at first use; raises for a code the source does not
+    instantiate."""
     if source not in ("fused_step", "chain_variants"):
         raise ValueError(f"no K1 chain source {source!r}")
     out = (_INT * 4)()
-    semiseparable = source == "fused_step" and (code, True) in FUSED_STEP_VARIANTS
+    if semiseparable is None:
+        semiseparable = (code, True) in FUSED_STEP_VARIANTS
+    semiseparable = source == "fused_step" and semiseparable
     flags = int(semiseparable) | int(compensated) << 1 | int(per_member) << 2
     _call(source, "hamilton_lane_layout", f"{source} layout", dtype_code, code, flags, out,
           part=PARTS[source][1](dtype_code, code, semiseparable))

@@ -1064,9 +1064,11 @@ KERNEL_INSTANTIATIONS = {
     ("serial_chain_on", 20, 60): ("fused_step", 20),
     ("serial_chain_on", 5, 15): ("fused_step", 5),
     ("serial_chain", 2, 6): ("fused_step", 2),
-    # the reference's stress chain, dense: its loops rolled (PERF.md §6);
-    # the dense chain at n = 20 and the semiseparable one at n = 40 measured
-    # faster on the generated kernel, and run there
+    # the reference's default chain and its stress chain, dense: G lanes a
+    # member, the factor in shared memory (csrc/dense_lanes.cuh, PERF.md §6);
+    # the semiseparable chain at n = 40 measured faster on the generated
+    # kernel, and runs there
+    ("serial_chain", 20, 420): ("fused_step", 20),
     ("serial_chain", 40, 1640): ("fused_step", 40),
     ("serial_chain_mobius", 20, 100): ("chain_variants", 0),
     ("serial_chain_mobius", 5, 25): ("chain_variants", 1),

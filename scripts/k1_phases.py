@@ -9,7 +9,11 @@ FORM is a chain form, ``semiseparable`` (default; ``csrc/fused_step.cu``) or
 ``bezier2``; or a family on the generated kernel (``csrc/user_family_step.cu``
 around the header ``ops/fused_codegen.py`` prints), ``bezier3`` or
 ``elastic``.  All run on the one-thread template ``step_member``
-(``csrc/fused_step.cuh``).  The script copies DIR's package (default: this
+(``csrc/fused_step.cuh``), but ``dense20`` and ``dense40``: the dense chain
+on G lanes a member (``csrc/dense_lanes.cuh``), on the lane template
+``lane_step`` (``csrc/chain_lanes.cuh``), whose calls of the forms' routines
+are wrapped alike, and whose solve's back half (the dependent chain of
+``dense_back_lanes``) is timed on its own.  The script copies DIR's package (default: this
 checkout's; DIR may be a parent unpacked with ``git archive`` into
 ``_archive/parent``) to ``hamilton_tpu_torch/_build/k1_phases/<DIR's
 name>/``, wraps each of ``step_member``'s calls of the policy's ``aux``,
@@ -24,7 +28,11 @@ a short step), builds the form's float32 kernel and runs one launch:
 - the families and ``bezier3``: ``chip_smoke.py`` phase 15 (e)'s and phase
   18 (e)'s row, 16384 members, Kahan (2,0), 50 steps, each family's dt;
 - ``elastic``: phase 18 (f)'s row, the example's sweep of 16384 members
-  with per-member tables, (2,1), one step a launch, dt = 5e-3.
+  with per-member tables, (2,1), one step a launch, dt = 5e-3;
+- ``dense20`` and ``dense40``: ``chip_smoke.py`` phase 21 (a)'s rows
+  (16384 members, Kahan, 50 steps, shared table; (2,1) at dt = 1e-3 and
+  (2,0) at dt = 5e-4), read as aux (and its shift), K and factor, forward
+  solves, back-solve chain and dH/dq.
 
 The package itself is not touched.  ``--sass`` also builds DIR's own
 (unprobed) ``family_step.cu`` and writes ``cuobjdump -sass`` of each family
@@ -34,9 +42,10 @@ global (``LDG``) and local (``LDL``) loads, calls, branches and ``MUFU``
 operations each holds.
 
 Prints the card's name and power limit and, per form, the cycles a warp
-spends a step in each phase, their shares of the step, and the probed
-launch's device ms (the reads cost time: compare shares, not times, with an
-unprobed kernel); a last line of JSON.
+spends a step in each phase (on lanes, lane 0's of each warp: the lanes of a
+member wait for each other at every exchange), their shares of the step, and
+the probed launch's device ms (the reads cost time: compare shares, not
+times, with an unprobed kernel); a last line of JSON.
 """
 
 from __future__ import annotations
@@ -61,6 +70,8 @@ FAMILIES = {"spherical": (0, 0.05, 2.5e-4), "two_body": (1, 0.02, 2.5e-4),
             "ellipse": (4, 0.05, 2.5e-4), "bezier5": (5, 0.05, 2.5e-4),
             "bezier2": (6, 0.05, 2.5e-4)}
 GENERATED = ("bezier3", "elastic")
+# the dense chain on lanes: (n, iters, dt)
+LANE_FORMS = {"dense20": (20, (2, 1), 1e-3), "dense40": (40, (2, 0), 5e-4)}
 SOURCES = ("fused_step", "chain_variants", "family_step", "user_family_step")
 
 PROBE = """
@@ -72,17 +83,17 @@ __device__ __forceinline__ long long phase_clock() {
   return 0;
 #endif
 }
-// A thread's cycles by phase (5: the whole of step_member), in registers;
-// lane 0 of each warp adds them to the device counters once, as
-// step_member ends.
+// A thread's cycles by phase (5: the whole of the step, 6: the dense lane
+// solves' back halves), in registers; lane 0 of each warp adds them to the
+// device counters once, as the step ends.
 struct PhaseCycles {
-  long long c[6] = {0, 0, 0, 0, 0, 0};
+  long long c[7] = {0, 0, 0, 0, 0, 0, 0};
   long long t0;
   __device__ PhaseCycles() { t0 = phase_clock(); }
   __device__ ~PhaseCycles() {
     c[5] = phase_clock() - t0;
     if ((threadIdx.x & 31) == 0)
-      for (int k = 0; k < 6; ++k) atomicAdd(&g_phase_cycles[k], (unsigned long long)c[k]);
+      for (int k = 0; k < 7; ++k) atomicAdd(&g_phase_cycles[k], (unsigned long long)c[k]);
   }
 };
 struct PhaseClock {
@@ -108,9 +119,11 @@ SASS_OPS = ("LDS", "LDG", "LDL", "CALL", "BRA", "MUFU")
 def _copy(tree: Path) -> Path:
     where = WORK / tree.resolve().name
     pkg = where / "hamilton_tpu_torch"
-    if pkg.exists():
-        shutil.rmtree(pkg)
-    shutil.copytree(tree / "hamilton_tpu_torch", pkg,
+    if pkg.exists():  # its builds, named by a hash of what they were built from, stay
+        for child in pkg.iterdir():
+            if child.name != "_build":
+                shutil.rmtree(child) if child.is_dir() else child.unlink()
+    shutil.copytree(tree / "hamilton_tpu_torch", pkg, dirs_exist_ok=True,
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     header = pkg / "csrc" / "fused_step.cuh"
     text = header.read_text().replace("namespace {\n", "namespace {\n" + PROBE, 1)
@@ -124,10 +137,51 @@ def _copy(tree: Path) -> Path:
     if count < 10 or n != 1:
         raise RuntimeError(f"{header}: {count} phase calls and {n} step clocks wrapped")
     header.write_text(text)
+    _wrap_lanes(pkg / "csrc")
     for source in SOURCES:
         src = pkg / "csrc" / f"{source}.cu"
         src.write_text(src.read_text() + ENTRIES)
     return where
+
+
+def _wrap_lanes(csrc: Path) -> None:
+    """The lane step's probes: ``lane_step``'s calls of its forms' routines
+    wrapped as ``step_member``'s, and the dense solve's back half timed into
+    the forms' ``back_cycles``, read into phase 6 as the step ends."""
+    lanes = csrc / "chain_lanes.cuh"
+    text = lanes.read_text()
+    count = 0
+    for k, phase in enumerate(PHASES):
+        text, n = re.subn(rf"(forms\.{phase}\([^;]*\);)",
+                          rf"{{ PhaseClock clock_(phase_cycles_.c[{k}]); \1 }}", text)
+        count += n
+    edits = [("  const int g = Sh::lane();\n  auto link = [g](int j)",
+              "  PhaseCycles phase_cycles_;\n"
+              "  const int g = Sh::lane();\n  auto link = [g](int j)"),
+             ("#pragma unroll\n  for (int j = 0; j < J; ++j) {\n    if (!mine(j)) continue;",
+              "  phase_cycles_.c[6] = forms.back_cycles;\n#pragma unroll\n"
+              "  for (int j = 0; j < J; ++j) {\n    if (!mine(j)) continue;"),
+             ("struct LinvLaneForms : LaneTrig<Sh, false> {\n",
+              "struct LinvLaneForms : LaneTrig<Sh, false> {\n  long long back_cycles = 0;\n")]
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise RuntimeError(f"{lanes}: {old!r} not found once")
+        text = text.replace(old, new)
+    if count != 18:
+        raise RuntimeError(f"{lanes}: {count} of lane_step's 18 routine calls wrapped")
+    lanes.write_text(text)
+    dense = csrc / "dense_lanes.cuh"
+    text = dense.read_text()
+    for old, new in (("  T x[J];  // the last solve's x at this lane's rows\n",
+                      "  T x[J];  // the last solve's x at this lane's rows\n"
+                      "  long long back_cycles = 0;\n"),
+                     ("    dense_back_lanes<Sh>(y, x);\n",
+                      "    { const long long t0_ = phase_clock(); dense_back_lanes<Sh>(y, x); "
+                      "back_cycles += phase_clock() - t0_; }\n")):
+        if text.count(old) != 1:
+            raise RuntimeError(f"{dense}: {old!r} not found once")
+        text = text.replace(old, new)
+    dense.write_text(text)
 
 
 def _launch(form, dev):
@@ -144,6 +198,17 @@ def _launch(form, dev):
 
     f32, f64 = torch.float32, torch.float64
     rng = np.random.default_rng(16)
+    if form in LANE_FORMS:
+        n, iters, dt = LANE_FORMS[form]
+        part = kernels.PARTS["fused_step"][1](0, n, False)
+        lib = kernels.build("fused_step", parts=(part,)).paths[0]
+        ex = tp.chain(n_links=n, fused_solver="dense", device=dev, dtype=f32)
+        forms = ex.system.fused_forms(ex.system)
+        state = fused_stepper(forms, iters=iters, compensated=True).init(
+            cs.jittered_phase(ex, BATCH, f32, dev, 0))
+        kw = dict(iters=iters, compensated=True, steps_per_call=SPC,
+                  coef=coef_table(forms, dev, f32))
+        return lib, lambda: fused_step_kernel(forms, state, dt, **kw), SPC
     if form in CHAINS:
         source, code = CHAINS[form]
         lib = kernels.build(source, parts=(kernels.PARTS[source][1](0, code, form == "semiseparable"),)).paths[0]
@@ -238,7 +303,8 @@ def main(argv) -> int:
             print(__doc__, file=sys.stderr)
             return 2
     forms = argv or ["semiseparable"]
-    unknown = [f for f in forms if f not in CHAINS and f not in FAMILIES and f not in GENERATED]
+    unknown = [f for f in forms if f not in CHAINS and f not in FAMILIES and f not in GENERATED
+               and f not in LANE_FORMS]
     if unknown:
         print(f"unknown forms {unknown}\n{__doc__}", file=sys.stderr)
         return 2
@@ -272,11 +338,18 @@ def main(argv) -> int:
         torch.cuda.synchronize()
         if lib.hamilton_phase_cycles(out, 0) != 0:
             raise RuntimeError("reading the phase counters failed")
-        warp_steps = BATCH // 32 * spc
+        lanes = (kernels.lane_layout("fused_step", 0, LANE_FORMS[form][0], semiseparable=False)[0]
+                 if form in LANE_FORMS else 1)
+        warp_steps = BATCH * lanes // 32 * spc
         cycles = {name: out[k] / warp_steps for k, name in enumerate(PHASES)}
         cycles["step"] = out[5] / warp_steps
+        if form in LANE_FORMS:  # the dense lane step's phases
+            back = out[6] / warp_steps
+            cycles = {"aux": cycles["aux"] + cycles["aux_at"], "K and factor": cycles["factor"],
+                      "forward solves": cycles["solve"] - back, "back-solve chain": back,
+                      "dH/dq": cycles["dhdq"], "step": cycles["step"]}
         ms, _ = time_queued(launch, 20)
-        rows[form] = {"cycles_per_warp_step": cycles, "probed_ms": ms}
+        rows[form] = {"cycles_per_warp_step": cycles, "probed_ms": ms, "lanes": lanes}
         print(f"{tree} {form}: a warp's step {cycles['step']:.0f} cycles: " + ", ".join(
             f"{k} {v:.0f} ({v / cycles['step']:.3f})" for k, v in cycles.items() if k != "step")
             + f"; probed launch {ms:.4f} ms", flush=True)

@@ -1,47 +1,64 @@
 #!/usr/bin/env python3
-"""K1's chain cases at 20 and 40 links: the hand-written kernel against the
-generated one, in turns on one card.
+"""K1's chain cases at 20 and 40 links: each candidate kernel in turns on one
+card, to route each case to the fastest.
 
-    python3 scripts/k1_route_ab.py [--pairs 10] [--cap 900] [--rolled20] [CASE ...]
+    python3 scripts/k1_route_ab.py [--pairs 10] [--cap 900] [--hand-tree DIR]
+                                   [--lanes N:G,G,...] [--routes KIND,...]
+                                   [--dtype float32|float64] [--outlined] [CASE ...]
 
 CASE is ``dense20`` (the reference's default chain, ``leapfrog_fused``
-(2,1), dt = 1e-3), ``semiseparable40`` or ``dense40`` (its stress chain,
-(2,0), dt = 5e-4); all three by default.  Each runs on 16384 members,
-float32 with Kahan compensation, 50 steps a launch, on these kernels:
+(2,1), dt = 1e-3), ``dense40`` (its stress chain, dense, (2,0), dt = 5e-4)
+or ``semiseparable40`` (the stress chain's other form); ``dense20 dense40``
+by default.  Each runs on 16384 members, float32 (or ``--dtype``) with Kahan
+compensation, 50 steps a launch, on these routes (every build without FMA
+contraction):
 
-- ``hand``: ``csrc/fused_step.cu``'s one-thread template at that n and form
-  (its own part of the build, ``kernels.FUSED_STEP_VARIANTS``; for a case
-  the source does not instantiate, such as ``dense20``, which runs on the
-  generated kernel, a copy of the source under ``_build/k1_route_ab/`` with
-  the case added to its dispatch, built as the others, without FMA
-  contraction);
-- ``generated``: ``csrc/user_family_step.cu`` around the header that
-  ``ops/fused_codegen.py`` makes from the chain's forms (its six parts,
-  ``kernels.USER_FAMILY_PARTS``, each a unit of the build);
-- with ``--rolled20``, ``hand rolled`` for ``dense20``: that copy's float32
-  part built with ``-DHAMILTON_DENSE_UNROLL_MAX_N=16``, its dense loops
-  rolled as they are beyond n = 24.
+- ``lanes G=g`` (the dense cases): ``csrc/fused_step.cu``'s dense chain on
+  g lanes a member (``csrc/dense_lanes.cuh``): the checkout's own part at
+  the lanes it ships, and for each other g that ``--lanes N:...`` lists a
+  copy of the sources under ``_build/k1_route_ab/`` with the constant
+  ``kDenseLanes<N>F`` (``D`` in float64) set to it; with ``--outlined``,
+  ``lanes G=g outlined``, the shipped lanes with the factor called out of
+  line (``lane_call``) as the L^-1 form's routines are;
+- ``generated`` (``dense20``, ``semiseparable40``): the dtype's part on the
+  constant table of ``csrc/user_family_step.cu`` around the header that
+  ``ops/fused_codegen.py`` makes from the chain's forms;
+- ``hand``: the one-thread template ``step_member``: for ``dense40`` the
+  dtype's dense n = 40 part of ``DIR/hamilton_tpu_torch/csrc/fused_step.cu``
+  (``--hand-tree``, a tree whose source holds it, its loops rolled: a
+  parent unpacked with ``git archive`` into ``_archive/parent``); for
+  ``semiseparable40`` a copy of this source with the case added to its
+  dispatch.
+
+``--routes`` keeps the routes of those kinds (``lanes``, ``generated``,
+``hand``; all by default): ``--routes lanes`` sweeps the lanes a member.
 
 Every build runs at once, one nvcc each, each stopped after ``--cap``
-seconds; each logs its seconds and ``-Xptxas -v`` registers and spills as it
-ends (the parts and headers land where ``kernels`` looks for them).  Then
-each kernel that built is held against the plain version over one step on
-1000 members (float32, ``chip_smoke.TOL``), and ``--pairs`` rounds time the
-routes in turn (the order rotating a round), each reading the device ms of
-one launch from CUDA events around launches queued behind a held stream
+seconds; each logs its seconds, ``-Xptxas -v`` registers, stack frame and
+spills as it ends, and a lane route the layout its library reports (lanes,
+threads and shared bytes a block, blocks an SM).  Then each kernel that
+built is held against the plain version over one step on 1000 members and
+on the timed 16384 (``chip_smoke.TOL``, bitwise logged; a route that fails
+is not timed, and the script exits 1), and ``--pairs`` rounds time
+the routes in turn (the order rotating a round), each reading the device ms
+of one launch from CUDA events around launches queued behind a held stream
 (``utils.profiling.time_queued``).  Prints the card's name and power limit,
 a line per build and reading, and a last line of JSON: ``{"card": ...,
-"builds": {unit: {"seconds": s or null, "ptxas": [...]}}, "cases": {case:
-{"max_err": {...}, "ms": {route: [...]}, "median_ms": {...}}}}``.  The log
-also goes to ``chiprun_out/k1_route_ab.log`` line by line.
+"builds": {label: {"seconds": s or null, "ptxas": [...], "frames": {...},
+"layout": [...]}}, "cases": {case: {"max_err": {...}, "bitwise": {...},
+"ms": {route: [...]}, "median_ms": {...}}}}``.  The log also goes,
+line by line, to ``k1_route_ab.log`` in the repository's output
+directory (``_LOG``).
 """
 
 from __future__ import annotations
 
 import argparse
+import ast
 import ctypes
 import json
 import os
+import re
 import signal
 import statistics
 import subprocess
@@ -56,12 +73,13 @@ sys.path.insert(0, str(REPO))
 #: case → (n, fused_solver, iters, dt)
 CASES = {
     "dense20": (20, "dense", (2, 1), 1e-3),
-    "semiseparable40": (40, "semiseparable", (2, 0), 5e-4),
     "dense40": (40, "dense", (2, 0), 5e-4),
+    "semiseparable40": (40, "semiseparable", (2, 0), 5e-4),
 }
 BATCH = 16384
 SPC = 50
 CHECK_BATCH = 1000
+SCRATCH = REPO / "hamilton_tpu_torch" / "_build" / "k1_route_ab"
 
 _LOG = REPO / "chiprun_out" / "k1_route_ab.log"
 
@@ -97,38 +115,87 @@ def _nvcc(cmd, lib: Path, report: Path, cap: float):
     return seconds, text
 
 
-def _source_copy(where: Path, n: int, semi: bool, kernels) -> Path:
-    """A copy of ``csrc/`` in ``where`` whose ``fused_step.cu`` also
-    dispatches ``(n, semi)`` (as the variant after the source's own, where
-    the source lacks it); the copied ``fused_step.cu``."""
+#: ``dense_lanes.cuh``'s factor call, inlined as shipped, and out of line
+OUTLINED = ("DenseFactorLanes<Sh, C>::run(cf);", "lane_call<DenseFactorLanes<Sh, C>, N>(cf);")
+#: the out-of-line dense factor (``chain_lanes.cuh``'s ``lane_outlined``) at
+#: ``DenseShape<T, n, lanes>``, in nvcc's report
+_OUTLINED_RE = re.compile(
+    r"lane_outlinedI.*?DenseFactorLanesI.*?DenseShapeI([fd])Li(\d+)ELi(\d+)E")
+
+
+def _outlined_label(m):
+    t, n, lanes = m.groups()
+    return f"{'float' if t == 'f' else 'double'} n={n} G={lanes} factor (out of line)"
+
+
+def _copy_csrc(where: Path, consts=None, outlined=False) -> Path:
+    """A copy of this checkout's ``csrc/`` in ``where``, each ``name = value``
+    of ``consts`` set in ``dense_lanes.cuh`` (and its factor called out of
+    line where ``outlined``); the copied directory."""
     csrc = REPO / "hamilton_tpu_torch" / "csrc"
     where.mkdir(parents=True, exist_ok=True)
-    for path in csrc.glob("*.cuh"):
-        (where / path.name).write_text(path.read_text())
-    text = (csrc / "fused_step.cu").read_text()
-    if (n, semi) not in kernels.FUSED_STEP_VARIANTS:
-        v = len(kernels.FUSED_STEP_VARIANTS)
-        cond = "semiseparable" if semi else "!semiseparable"
-        line = (f"  if ({cond} && n == {n}) return f(Variant<{v}, {n}, "
-                f"{'true' if semi else 'false'}>{{}});\n")
-        anchor = "  return -1;\n}\n\ntemplate <typename T>\nint launch_dispatch"
-        if anchor not in text:
-            raise RuntimeError("fused_step.cu's dispatch has changed: update _source_copy")
-        text = text.replace(anchor, line + anchor)
-    target = where / f"fused_step_{n}{'s' if semi else 'd'}.cu"
-    target.write_text(text)
-    return target
+    for path in list(csrc.glob("*.cuh")) + [csrc / "fused_step.cu"]:
+        text = path.read_text()
+        if path.name == "dense_lanes.cuh":
+            for name, value in (consts or {}).items():
+                text, count = re.subn(rf"\b{name} = \d+", f"{name} = {value}", text)
+                if count != 1:
+                    raise RuntimeError(f"{path}: {name} set {count} times, expected once")
+            if outlined:
+                if text.count(OUTLINED[0]) != 1:
+                    raise RuntimeError(f"{path}: the factor's call has changed")
+                text = text.replace(*OUTLINED)
+        (where / path.name).write_text(text)
+    return where
+
+
+def _add_variant(src: Path, n: int, semi: bool, variants) -> int:
+    """Add ``(n, semi)`` to the dispatch of ``src`` (a copied
+    ``fused_step.cu``) as the variant after its own; that variant."""
+    v = len(variants)
+    cond = "semiseparable" if semi else "!semiseparable"
+    line = (f"  if ({cond} && n == {n}) return f(Variant<{v}, {n}, "
+            f"{'true' if semi else 'false'}>{{}});\n")
+    anchor = "  return -1;\n}\n\ntemplate <typename T>\nint launch_dispatch"
+    text = src.read_text()
+    if anchor not in text:
+        raise RuntimeError("fused_step.cu's dispatch has changed: update _add_variant")
+    src.write_text(text.replace(anchor, line + anchor))
+    return v
+
+
+def _tree_variants(tree: Path) -> dict:
+    """``FUSED_STEP_VARIANTS`` of the tree's ``kernels/__init__.py``."""
+    text = (tree / "hamilton_tpu_torch" / "kernels" / "__init__.py").read_text()
+    m = re.search(r"^FUSED_STEP_VARIANTS = (\{[^}]*\})", text, flags=re.M)
+    if m is None:
+        raise RuntimeError(f"{tree}: no FUSED_STEP_VARIANTS")
+    return ast.literal_eval(m.group(1))
+
+
+def _parse_lanes(specs):
+    """``["20:2,4,8", ...]`` → ``{20: [2, 4, 8], ...}``."""
+    out = {}
+    for spec in specs:
+        n, gs = spec.split(":")
+        out[int(n)] = [int(g) for g in gs.split(",") if g]
+    return out
 
 
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--cap", type=float, default=900.0)
-    ap.add_argument("--rolled20", action="store_true")
-    ap.add_argument("cases", nargs="*", default=list(CASES))
+    ap.add_argument("--hand-tree", type=Path, default=None)
+    ap.add_argument("--lanes", action="append", default=[])
+    ap.add_argument("--routes", default="lanes,generated,hand")
+    ap.add_argument("--dtype", choices=("float32", "float64"), default="float32")
+    ap.add_argument("--outlined", action="store_true")
+    ap.add_argument("cases", nargs="*", default=["dense20", "dense40"])
     args = ap.parse_args(argv)
     _LOG.parent.mkdir(exist_ok=True)
     _LOG.write_text("")
+    extra_lanes = _parse_lanes(args.lanes)
 
     import torch
 
@@ -144,149 +211,202 @@ def main(argv) -> int:
     dev = torch.device("cuda", 0)
     card = cs.card_line()
     log(f"card: {card}")
-    f32 = torch.float32
+    dtype = getattr(torch, args.dtype)
+    dcode, letter = (0, "F") if dtype == torch.float32 else (1, "D")
     nvcc = kernels._nvcc()
+    shipped = {}  # n → the lanes a member this checkout ships in the dtype
+    for n in (20, 40):
+        text = (REPO / "hamilton_tpu_torch" / "csrc" / "dense_lanes.cuh").read_text()
+        shipped[n] = int(re.search(rf"\bkDenseLanes{n}{letter} = (\d+)", text).group(1))
 
     forms = {}
     for case in args.cases:
         n, solver, _, _ = CASES[case]
-        system = tp.chain(n_links=n, fused_solver=solver, device=dev, dtype=f32).system
+        system = tp.chain(n_links=n, fused_solver=solver, device=dev, dtype=dtype).system
         forms[case] = system.fused_forms(system)
 
     # ---- every build at once, each stopped at the cap --------------------------
-    units = {}  # label → (nvcc command, library, report, ptxas parser)
-    copies = {}  # label → the library of a case built from a copy of the source
-    scratch = REPO / "hamilton_tpu_torch" / "_build" / "k1_route_ab"
+    # label → (nvcc command, library, report, ptxas pattern and label, entry kind)
+    units = {}
     for case in args.cases:
         n, solver, _, _ = CASES[case]
         semi = solver == "semiseparable"
-        extras = [("", ())] + ([(" rolled", ("-DHAMILTON_DENSE_UNROLL_MAX_N=16",))]
-                               if args.rolled20 and case == "dense20" else [])
-        for dtype_code, tname in ((0, "float32"), (1, "float64")):
-            for suffix, extra in extras:
-                label = f"{case} hand{suffix} {tname}"
-                if suffix and dtype_code:
-                    continue
-                if (n, semi) in kernels.FUSED_STEP_VARIANTS and not extra:
-                    part = kernels.PARTS["fused_step"][1](dtype_code, n, semi)
+        k1 = (cs._KERNEL_RE, cs._k1_label)
+        if not semi:
+            part = kernels.PARTS["fused_step"][1](dcode, n, False)
+            lanes = [(g, False) for g in sorted({shipped[n], *extra_lanes.get(n, [])})]
+            for g, outlined in lanes + ([(shipped[n], True)] if args.outlined else []):
+                label = f"{case} lanes G={g}" + (" outlined" if outlined else "")
+                if g == shipped[n] and not outlined:
                     src, lib, report = kernels._paths("fused_step", part)
-                    cmd = [nvcc, *kernels._flags("fused_step", part), str(src)]
                 else:
-                    src = _source_copy(scratch / "csrc", n, semi, kernels)
-                    v = (kernels.FUSED_STEP_VARIANTS.get((n, semi))
-                         if (n, semi) in kernels.FUSED_STEP_VARIANTS
-                         else len(kernels.FUSED_STEP_VARIANTS))
-                    lib = scratch / f"lib{case}{suffix.strip()}-{tname}.so"
-                    report = lib.with_suffix(".log")
-                    cmd = [nvcc, *kernels.NVCC_FLAGS, "-fmad=false",
-                           f"-DHAMILTON_PART={2 * v + dtype_code}", *extra, str(src)]
-                    copies[label] = lib
-                units[label] = (cmd, lib, report, (cs._KERNEL_RE, cs._k1_label))
-        key, where, flags = kernels._user_family_paths(fused_codegen.generated(forms[case]).header)
-        where.mkdir(parents=True, exist_ok=True)
-        (where / "user_family.h").write_text(fused_codegen.generated(forms[case]).header)
-        for part in range(kernels.USER_FAMILY_PARTS):
-            units[f"{case} generated p{part}"] = (
+                    tag = f"{n}g{g}{'o' if outlined else ''}{letter}"
+                    where = _copy_csrc(SCRATCH / f"lanes{tag}", {f"kDenseLanes{n}{letter}": g},
+                                       outlined)
+                    src = where / "fused_step.cu"
+                    lib, report = where / f"lib{tag}.so", where / f"lib{tag}.log"
+                units[label] = ([nvcc, *kernels._flags("fused_step", part), str(src)], lib,
+                                report, k1, "fused_step")
+        if case == "dense40" and args.hand_tree is not None:
+            variants = _tree_variants(args.hand_tree)
+            part = 2 * variants[(n, False)] + dcode
+            src = args.hand_tree / "hamilton_tpu_torch" / "csrc" / "fused_step.cu"
+            lib = SCRATCH / f"lib{case}-hand{letter}.so"
+            units[f"{case} hand"] = ([nvcc, *kernels.NVCC_FLAGS, "-fmad=false",
+                                      f"-DHAMILTON_PART={part}", str(src)], lib,
+                                     lib.with_suffix(".log"), k1, "fused_step")
+        if semi:
+            where = _copy_csrc(SCRATCH / f"hand{n}s")
+            v = _add_variant(where / "fused_step.cu", n, True, kernels.FUSED_STEP_VARIANTS)
+            lib = where / f"lib{case}-hand{letter}.so"
+            units[f"{case} hand"] = ([nvcc, *kernels.NVCC_FLAGS, "-fmad=false",
+                                      f"-DHAMILTON_PART={2 * v + dcode}",
+                                      str(where / "fused_step.cu")],
+                                     lib, lib.with_suffix(".log"), k1, "fused_step")
+        if case in ("dense20", "semiseparable40"):
+            header = fused_codegen.generated(forms[case]).header
+            key, where, flags = kernels._user_family_paths(header)
+            where.mkdir(parents=True, exist_ok=True)
+            (where / "user_family.h").write_text(header)
+            part = kernels.user_family_part(dcode, 0)  # the constant table
+            units[f"{case} generated"] = (
                 [nvcc, *flags, "-I", str(where), f"-DHAMILTON_PART={part}",
                  str(kernels.USER_FAMILY_TEMPLATE)],
                 where / f"libuser_family-p{part}.so", where / f"build-p{part}.log",
-                (cs._USER_RE, cs._user_label))
-    builds = {}
+                (cs._USER_RE, cs._user_label), "user_family")
+    kinds = set(args.routes.split(","))
+    units = {label: unit for label, unit in units.items()
+             if label.split()[1] in kinds}
+    if not units:
+        raise SystemExit("k1_route_ab: no route to build")
+    builds, libs = {}, {}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(units)) as pool:
         futures = {pool.submit(_nvcc, cmd, lib, report, args.cap): label
-                   for label, (cmd, lib, report, _) in units.items()}
+                   for label, (cmd, lib, report, _, _) in units.items()}
         for fut in as_completed(futures):
             label = futures[fut]
             seconds, text = fut.result()
-            rows = cs.ptxas_report(text, *units[label][3]) if seconds is not None else []
-            builds[label] = {"seconds": seconds, "ptxas": rows}
+            pattern, namer = units[label][3]
+            rows = cs.ptxas_report(text, pattern, namer) if seconds is not None else []
+            frames = {}
+            if seconds is not None:
+                frames = {**cs.ptxas_frames(text, pattern, namer),
+                          **cs.ptxas_frames(text, _OUTLINED_RE, _outlined_label)}
+            builds[label] = {"seconds": seconds, "ptxas": rows, "frames": frames}
             log(f"build {label}: " + (f"nvcc {seconds:.1f} s" if seconds is not None
                                       else f"stopped at the {args.cap:.0f} s cap")
                 + f" ({time.perf_counter() - t0:.1f} s into the builds)")
             for kname, nreg, st, ld in rows:
-                log(f"  ptxas {kname:<45} {nreg:3d} registers, spill stores {st} B, "
-                    f"spill loads {ld} B")
+                log(f"  ptxas {kname:<45} {nreg:3d} registers, stack frame "
+                    f"{frames.get(kname, (0,))[0]} B, spill stores {st} B, spill loads {ld} B")
+            for fname, (stack, st, ld) in frames.items():
+                if "out of line" in fname:
+                    log(f"  ptxas {fname:<45} stack frame {stack} B, spill stores {st} B, "
+                        f"spill loads {ld} B")
+    for label, (_, lib, _, _, kind) in units.items():
+        if builds[label]["seconds"] is None:
+            continue
+        cdll = ctypes.CDLL(str(lib))
+        entry = cdll.hamilton_fused_step if kind == "fused_step" else \
+            cdll.hamilton_user_family_step
+        entry.argtypes = kernels._SIGNATURES["fused_step"]["hamilton_fused_step"]
+        entry.restype = ctypes.c_int
+        libs[label] = (entry, kind)
+        if kind == "fused_step":
+            query = cdll.hamilton_lane_layout
+            query.argtypes = kernels._SIGNATURES["fused_step"]["hamilton_lane_layout"]
+            n, solver = CASES[label.split()[0]][:2]
+            out = (ctypes.c_int * 4)()
+            if query(dcode, n, int(solver == "semiseparable") | 2, out) == 0:
+                builds[label]["layout"] = list(out)
+                log(f"layout {label}: {out[0]} lanes a member, {out[1]} threads and {out[2]} B "
+                    f"of shared memory a block, {out[3]} blocks ({out[3] * out[1] // 32} warps, "
+                    f"{out[3] * out[1] // out[0]} members) an SM, "
+                    f"{BATCH / (132 * out[3] * out[1] / out[0]):.2f} waves of {BATCH} members")
 
     # ---- each kernel against the plain version, then the rounds --------------
     out = {}
+    weights = (ctypes.c_double * 1)(1.0)
     for case in args.cases:
         n, solver, iters, dt = CASES[case]
         fm = forms[case]
-        ex = tp.chain(n_links=n, fused_solver=solver, device=dev, dtype=f32)
-        semisep = solver == "semiseparable"
-        coef = fs.coef_table(fm, dev, f32)
-        built = {label for label, b in builds.items() if b["seconds"] is not None}
-        routes = [r for r in ("hand", "hand rolled") if f"{case} {r} float32" in built]
-        if all(f"{case} generated p{part}" in built for part in range(kernels.USER_FAMILY_PARTS)):
-            routes.insert(1, "generated")
-        entries = {}
-        for name in routes:
-            lib = copies.get(f"{case} {name} float32")
-            if lib is not None:
-                entry = ctypes.CDLL(str(lib)).hamilton_fused_step
-                entry.argtypes = kernels._SIGNATURES["fused_step"]["hamilton_fused_step"]
-                entry.restype = ctypes.c_int
-                entries[name] = entry
-        weights = (ctypes.c_double * 1)(1.0)
+        ex = tp.chain(n_links=n, fused_solver=solver, device=dev, dtype=dtype)
+        semi = solver == "semiseparable"
+        coef = fs.coef_table(fm, dev, dtype)
+        const = torch.tensor([float(v) for t in fm.consts for v in t], dtype=torch.float64,
+                             device=dev)
+        routes = [label[len(case) + 1:] for label in libs if label.split()[0] == case]
 
         def route(name, state, spc):
-            if name == "generated":
-                return fs._generated_step(fm, state, dt, coef, True, iters[0], iters[1], spc,
-                                          (1.0,))
+            entry, kind = libs[f"{case} {name}"]
             res = torch.empty_like(state)
             stream = torch.cuda.current_stream(dev).cuda_stream
-            if name in entries:
-                code = entries[name](0, n, int(semisep) | 2, coef.data_ptr(), state.data_ptr(),
-                                     res.data_ptr(), state.shape[2], dt, iters[0], iters[1],
-                                     spc, 1, weights, stream)
-                if code != 0:
-                    raise RuntimeError(f"{case} {name}: the kernel returned {code}")
-                return res
-            kernels.fused_step_launch(
-                dtype_code=0, code=n, semiseparable=semisep, compensated=True,
-                per_member=False, coef=coef.data_ptr(), state_in=state.data_ptr(),
-                state_out=res.data_ptr(), batch=state.shape[2], dt=dt, iters_p=iters[0],
-                iters_q=iters[1], steps_per_call=spc, weights=(1.0,), stream=stream)
+            if kind == "fused_step":
+                code = entry(dcode, n, int(semi) | 2, coef.data_ptr(), state.data_ptr(),
+                             res.data_ptr(), state.shape[2], dt, iters[0], iters[1], spc, 1,
+                             weights, stream)
+            else:
+                code = entry(dcode, 0, 2, const.data_ptr(), state.data_ptr(), res.data_ptr(),
+                             state.shape[2], dt, iters[0], iters[1], spc, 1, weights, stream)
+            if code != 0:
+                raise RuntimeError(f"{case} {name}: the kernel returned {code}")
             return res
 
-        rec = out[case] = {"max_err": {}, "ms": {r: [] for r in routes}}
+        rec = out[case] = {"max_err": {}, "bitwise": {}, "ms": {r: [] for r in routes}}
         if not routes:
             log(f"{case}: no kernel built")
             continue
         stepper = fs.fused_stepper(fm, iters=iters, compensated=True, steps_per_call=SPC)
-        small = stepper.init(cs.jittered_phase(ex, CHECK_BATCH, f32, dev, 3))
-        t0 = time.perf_counter()
-        want = fs.fused_step_reference(fm, small, dt, iters=iters, compensated=True)
-        torch.cuda.synchronize()
-        log(f"{case}: the plain version's step on {CHECK_BATCH} members took "
-            f"{time.perf_counter() - t0:.2f} s")
-        for name in routes:
-            got = route(name, small, 1)
+        small = stepper.init(cs.jittered_phase(ex, CHECK_BATCH, dtype, dev, 3))
+        state = stepper.init(cs.jittered_phase(ex, BATCH, dtype, dev, 0))
+        for where, members in (("", small), (" (the timed state)", state)):
+            t0 = time.perf_counter()
+            want = fs.fused_step_reference(fm, members, dt, iters=iters, compensated=True)
             torch.cuda.synchronize()
-            worst, errs, failures = cs.compare_states(got, want, "float32")
-            rec["max_err"][name] = worst
-            log(f"{case}: {name} vs plain, {CHECK_BATCH} members, one step: bitwise "
-                f"{torch.equal(got, want)}, " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
-                + (" FAILED: " + "; ".join(failures) if failures else ""))
-            if failures:
-                raise AssertionError(f"{case}: {name} kernel disagrees with its plain version")
-        state = stepper.init(cs.jittered_phase(ex, BATCH, f32, dev, 0))
-        est, _ = time_queued(lambda: route(routes[0], state, SPC), 3)
-        reps = max(10, min(100, round(300 / max(est, 1e-3))))
+            b = members.shape[2]
+            log(f"{case}: the plain version's step on {b} members took "
+                f"{time.perf_counter() - t0:.2f} s")
+            for name in list(routes):
+                got = route(name, members, 1)
+                torch.cuda.synchronize()
+                worst, errs, failures = cs.compare_states(got, want, args.dtype)
+                rec["max_err"][name] = max(rec["max_err"].get(name, 0.0), worst)
+                rec["bitwise"][name] = rec["bitwise"].get(name, True) and bool(
+                    torch.equal(got, want))
+                differ = ((got != want) & ~(got.isnan() & want.isnan())).any(0).any(0)
+                log(f"{case}: {name} vs plain, {b} members{where}, one step: bitwise "
+                    f"{bool(torch.equal(got, want))}, "
+                    + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                    + f"; {int(differ.sum())} members differ"
+                    + (f" (the first {differ.nonzero()[:8, 0].tolist()})" if differ.any() else "")
+                    + (" FAILED: " + "; ".join(failures) if failures else ""))
+                if failures:
+                    rec.setdefault("failed", []).append(name)
+                    routes.remove(name)
+                    del rec["ms"][name]
+        if not routes:
+            continue
+        reps = {}
+        for name in routes:
+            est, _ = time_queued(lambda: route(name, state, SPC), 3)
+            reps[name] = max(10, min(100, round(300 / max(est, 1e-3))))
         for r in range(args.pairs):
             order = routes[r % len(routes):] + routes[:r % len(routes)]
             for name in order:
-                t, _ = time_queued(lambda: route(name, state, SPC), reps)
+                t, _ = time_queued(lambda: route(name, state, SPC), reps[name])
                 rec["ms"][name].append(t)
             log(f"{case}: round {r}: " + ", ".join(f"{k} {v[-1]:.4f} ms"
-                                                   for k, v in rec["ms"].items())
-                + f" ({reps} launches a window)")
+                                                   for k, v in rec["ms"].items()))
         rec["median_ms"] = {k: statistics.median(v) for k, v in rec["ms"].items()}
-        log(f"{case}: medians " + ", ".join(f"{k} {v:.4f} ms"
-                                            for k, v in rec["median_ms"].items()))
-    log(json.dumps({"card": card, "builds": builds, "cases": out}))
-    return 0
+        rec["spread"] = {k: (max(v) - min(v)) / statistics.median(v)
+                         for k, v in rec["ms"].items()}
+        log(f"{case}: medians " + ", ".join(
+            f"{k} {v:.4f} ms (spread {rec['spread'][k]:.4f})"
+            for k, v in rec["median_ms"].items()) + f"; launches a window {reps}")
+        del state, small, want
+    log(json.dumps({"card": card, "dtype": args.dtype, "builds": builds, "cases": out}))
+    return 1 if any(rec.get("failed") for rec in out.values()) else 0
 
 
 if __name__ == "__main__":

@@ -288,18 +288,20 @@ def test_against_semiseparable_over_steps(solver):
 
 def test_kernel_instantiations_accepted_and_refused():
     """The card's hand-written sizes: Möbius and L⁻¹ at n = 20 and 5, the
-    dense forms at n = 4 (``fit_masses --fused``) and 40; any other n, and
-    the dense chain at 20 links and the semiseparable one at 40 (faster
-    there), is taken by the kernel generated from the forms
+    dense forms at n = 4 (``fit_masses --fused``), and 20 and 40 (on lanes,
+    ``csrc/dense_lanes.cuh``); any other n, and the semiseparable chain at
+    40 links (faster there), is taken by the kernel generated from the forms
     (``ops.fused_codegen``).  What is refused before a launch: another dtype
     or a state of the wrong shape."""
     for solver, n in (("mobius", 20), ("mobius", 5), ("linv", 20), ("linv", 5),
-                      ("dense", 4), ("dense", 40)):
+                      ("dense", 4), ("dense", 20), ("dense", 40)):
         sysx = tp.chain(n_links=n, fused_solver=solver, device="cpu", dtype=F64).system
         forms = sysx.fused_forms(sysx)
         assert t_step._kernel_key(forms) in t_step.KERNEL_INSTANTIATIONS
         t_step.check_kernel_args("cuda", torch.float32, forms, (6, n, 100))
-    for solver, n in (("dense", 20), ("semiseparable", 40)):
+    assert t_step.KERNEL_INSTANTIATIONS[("serial_chain", 20, 420)] == ("fused_step", 20)
+    assert t_step.KERNEL_INSTANTIATIONS[("serial_chain", 40, 1640)] == ("fused_step", 40)
+    for solver, n in (("semiseparable", 40),):
         sysx = tp.chain(n_links=n, fused_solver=solver, device="cpu", dtype=F64).system
         assert t_step._kernel_key(sysx.fused_forms(sysx)) not in t_step.KERNEL_INSTANTIATIONS
     sys7 = tp.chain(n_links=7, fused_solver="mobius", device="cpu", dtype=F64).system
@@ -660,7 +662,8 @@ def test_lane_layout_of_every_lane_split_case(source, tmp_path):
     generators) within a block's 232448 bytes.  The semiseparable, Möbius
     and dense forms report the one-thread kernel: 1 lane, 128 threads, and
     the per-member table staged in shared memory (the semiseparable and
-    Möbius forms) or none."""
+    Möbius forms) or none; the dense chain at n = 20 and 40 its lane kernel
+    (``tests/test_torch_dense_lanes.py`` holds its shape)."""
     import ctypes
 
     query = _layout_query(ctypes.CDLL(str(_host_kernel_source(source, 99, tmp_path))), source)
@@ -677,7 +680,11 @@ def test_lane_layout_of_every_lane_split_case(source, tmp_path):
                     assert slots * (block // lanes) * (4, 8)[dtype_code] < smem <= 232448
                     assert blocks == 0
     # (code, a staged column's entries, semiseparable)
-    one_thread = ([(20, 60, True), (5, 15, True), (2, 0, False), (40, 0, False)]
+    for n in (20, 40) if source == "fused_step" else ():
+        for dtype_code in (0, 1):
+            assert query(dtype_code, n, _flags(source, n, True, False, False), out) == 0
+            assert out[0] > 1 and out[2] > 0 and out[3] == 0  # on lanes, its slots shared
+    one_thread = ([(20, 60, True), (5, 15, True), (2, 0, False)]
                   if source == "fused_step"
                   else [(0, 100, False), (1, 25, False), (4, 0, False)])
     for code, staged, semisep in one_thread:
@@ -711,7 +718,7 @@ def _float32_failures(got, want):
 
 
 def _host_step_matches_plain(lib, source, code, solver, n, on_lanes=True, dtype=F64,
-                             steps=2):
+                             steps=2, batch=37):
     """The host build's C entry against the plain version on CPU tensors: a
     ragged batch (37 members), shared and per-member tables, (2,0) Kahan and
     Suzuki-composed (3,1), ``steps`` steps; float64 to 1e-13 (vdot_est as
@@ -731,7 +738,7 @@ def _host_step_matches_plain(lib, source, code, solver, n, on_lanes=True, dtype=
     assert (layout[0] > 1 or layout[2] > 0) == on_lanes  # the lane kernel, or one thread
     assert layout[3] == 1  # the host emulation's blocks an SM, from the part that holds it
     rng = np.random.default_rng(17)
-    batch, dt = 37, 5e-4
+    dt = 5e-4
     for swept in (False, True):
         system = tp.chain(n_links=n, fused_solver=solver, device="cpu", dtype=dtype).system
         if swept:
@@ -819,8 +826,8 @@ def test_float32_chain_kernel_source_on_the_host(solver, n, tmp_path):
 @pytest.mark.parametrize("dtype", [F64, torch.float32], ids=["f64", "f32"])
 def test_chain_kernel_at_40_links_on_the_host(dtype, tmp_path, monkeypatch):
     """The dense chain at n = 40 (the reference's stress chain) in
-    ``csrc/fused_step.cu`` (its own part, its loops rolled), built with g++
-    in the host
+    ``csrc/fused_step.cu`` (its own part: G lanes a member, the factor in
+    shared memory, ``csrc/dense_lanes.cuh``), built with g++ in the host
     emulation and run through the source's C entry on CPU tensors against
     the plain version (:func:`_host_step_matches_plain`, one step: the
     plain version's dense factor at n = 40 is ~10⁴ PyTorch operations), the
@@ -839,5 +846,5 @@ def test_chain_kernel_at_40_links_on_the_host(dtype, tmp_path, monkeypatch):
     (src / "fused_step.cu").write_text((csrc / "fused_step.cu").read_text() + HOST_ELEMENTARY)
     lib = ctypes.CDLL(str(_host_kernel_source("fused_step", part, tmp_path, csrc=src)))
     host_fm(lib, monkeypatch)
-    _host_step_matches_plain(lib, "fused_step", n, solver, n, on_lanes=False, dtype=dtype,
+    _host_step_matches_plain(lib, "fused_step", n, solver, n, on_lanes=True, dtype=dtype,
                              steps=1)

@@ -206,7 +206,8 @@ def test_uninstantiated_size_raises_on_the_card(card):
 def test_chain_at_20_and_40_links_matches_plain_version(card, solver, n, batch):
     """The reference's default chain (dense, n = 20) and both forms of its
     stress chain (n = 40) on the kernel ``KERNEL_INSTANTIATIONS`` routes
-    them to (the generated one but at dense n = 40), float64 (2,0) Kahan,
+    them to (the dense form on lanes, the semiseparable one at n = 40 the
+    generated one), float64 (2,0) Kahan,
     two steps a launch: the plain version's state to float64 rounding
     (vdot_est as dt·vdot_est)."""
     ex = tp.chain(n_links=n, fused_solver=solver, device=card, dtype=torch.float64)
