@@ -4,8 +4,9 @@
     python3 chip_smoke.py            # from the root of a checkout; needs one card
 
 Builds the hand-written kernels (``hamilton_tpu_torch/csrc/fused_step.cu``,
-``csrc/chain_variants.cu``, ``csrc/family_step.cu``, ``csrc/batched_spd.cu``
-and ``csrc/roofline_probes.cu``, one nvcc each or one a part, and
+``csrc/chain_variants.cu``, ``csrc/family_step.cu``, ``csrc/semisep_wide.cu``,
+``csrc/batched_spd.cu`` and ``csrc/roofline_probes.cu``, one nvcc each or one
+a part, and
 ``csrc/user_family_step.cu`` around the generated forms of the elastic
 pendulum and a 3-point Bézier, all at once, and beside them and phases
 1-20 the kernels of phase 21's chain cases), then runs these phases and
@@ -120,9 +121,10 @@ raises as soon as one fails:
     Cholesky and triangular solves, a solve's backward launching its kernel
     exactly once; (b) float64 (3,2) on 16384 × chain-20: the gradient of a
     final-state loss with respect to (q₀, p₀) and the 20 shared masses
-    through one 50-step fused launch (the kernel forward, the replay
-    backward) against 50 library-leapfrog steps (backward on K2) to 1e-9
-    relative, and against a central difference on one mass; (c) float32
+    through one ``GRAD_STEPS``-step fused launch (the kernel forward, the
+    replay backward) against as many library-leapfrog steps (backward on
+    K2) to 1e-9 relative, and against a central difference on one mass;
+    (c) float32
     (2,0) Kahan: the forward and backward ms of one 50-step launch and the
     peak memory; (d) ``fit_masses --fused`` on the card, cut to
     ``FIT_ITERS`` Adam iterations and gated on its loss falling tenfold,
@@ -198,13 +200,16 @@ raises as soon as one fails:
     (2,0), 1000 steps), 16384 members, float32 Kahan, 50 steps a launch, on
     the kernel ``KERNEL_INSTANTIATIONS`` routes each to (the dense chain on
     G lanes a member, ``csrc/fused_step.cu``'s parts of
-    ``csrc/dense_lanes.cuh``, or the generated kernel; built beside the
+    ``csrc/dense_lanes.cuh``; the semiseparable one at n = 40 on
+    ``csrc/semisep_wide.cu``; or the generated kernel; built beside the
     first build and phases 1-20): its nvcc seconds, layout, registers, stack
     frames and spills; the kernel against its plain version at 1000 and 7
-    members in float64 and float32 (bit for bit on the lanes; dense n = 40
-    over a 10-step launch) and the dense n = 20 lanes with a per-member
-    table and with a composition on 37 members, bit for bit (these checks
-    time nothing and run at the end of phase 1, beside phase 19's checks);
+    members in float64 and float32 (bit for bit on the hand-written ones;
+    dense n = 40 over a 10-step launch), the dense n = 20 lanes with a
+    per-member table and with a composition on 37 members and the
+    semiseparable n = 40 kernel in those modes on 1000 and 7, bit for bit
+    (these checks time nothing and run at the end of phase 1, beside phase
+    19's checks);
     the run through ``evolve_ensemble_final`` with its exact launches,
     member-steps/s and ``max|ΔH/H₀|`` sampled in float64 every 1000 steps
     (< 1e-6 for dense n = 20 and semiseparable n = 40, dense n = 40's
@@ -392,6 +397,10 @@ RAGGED_BATCHES = (1, 7, 16383)
 K2_GRAD_TOL = {"float64": 1e-12, "float32": 1e-4}
 GRAD_TOL = 1e-9
 FD_RTOL = 1e-5
+# the steps of that fused launch and of the library run (the float64 replay
+# backward took 79.5 s over 50 steps at 16384 members on an H100 80GB HBM3
+# host)
+GRAD_STEPS = 10
 # fit_masses --fused (1024 members, 24 steps a launch): its backward replays
 # the plain step (host-bound, ~2 s an iteration on the card), so the run is
 # cut from the example's 200 Adam iterations and gated on its loss falling
@@ -429,14 +438,14 @@ GAUSS_DRIFT_BOUND = 1e-12
 # and in the second process the host-bound ones: the sweep at its gauss4
 # default on 16384 members, cut from 20000 steps to SWEEP_GAUSS4_STEPS (its
 # 7 host-bound ham_eqs a step at n = 2 took 76 ms a step on an H100 80GB
-# HBM3 host: 2 x 350 steps, the run and its twin, fit about a minute), hmc at
+# HBM3 host: 2 x 100 steps, the run and its twin), hmc at
 # 16384 chains, and the CLI headless on the card against the CPU
 CHAOS_ARGV = ["--fused", "--cols", "128", "--rows", "64", "--device", "cuda"]
 CHAOS_LAUNCHES = 100
 SWEEP_ARGV = ["--method", "leapfrog_fused", "--batch", "16384", "--steps", "20000",
               "--mass-grid", "8", "--device", "cuda", "--json"]
 SWEEP_LAUNCHES = 2 * 20000
-SWEEP_GAUSS4_STEPS = 350
+SWEEP_GAUSS4_STEPS = 100
 HMC_ARGV = ["--chains", "16384", "--iters", "100", "--warmup", "25", "--device", "cuda"]
 HMC_ITERS, HMC_L = 100, 16
 # (label, argv, frames) of the CLI on the card against the CPU, to
@@ -464,10 +473,10 @@ GAUSS_GRAD_STEPS = 5
 # float64 drift every 1000 steps: (label, n, fused_solver, iters, dt, steps,
 # steps of the launch held against the plain version, drift bound or None
 # where it is only recorded).  The dense chain runs on G lanes a member
-# (csrc/dense_lanes.cuh), the semiseparable one at n = 40 on the generated
-# kernel (KERNEL_INSTANTIATIONS).  The dense n = 40 plain version takes
-# ~0.7 s a step on the card (~10^4 PyTorch operations), so its check is a
-# 10-step launch.
+# (csrc/dense_lanes.cuh), the semiseparable one at n = 40 on
+# csrc/semisep_wide.cu (KERNEL_INSTANTIATIONS).  The dense n = 40 plain
+# version takes ~0.7 s a step on the card (~10^4 PyTorch operations), so its
+# check is a 10-step launch.
 CHAIN_CASES = (
     ("dense n=20 (2,1)", 20, "dense", (2, 1), 1e-3, 2000, 50, DRIFT_BOUND),
     ("semiseparable n=40 (2,0)", 40, "semiseparable", (2, 0), 5e-4, 2000, 50, DRIFT_BOUND),
@@ -475,12 +484,14 @@ CHAIN_CASES = (
 )
 # the batches each case's kernel is held against its plain version at
 CHAIN_CASE_BATCHES = (1000, 7)
-# the dense chain at n = 20 in its other modes, bitwise against the plain
-# version: members, steps a launch, and (label, iters, compensated, swept,
+# the dense chain at n = 20 and the semiseparable one at n = 40 in their
+# other modes, bitwise against the plain version: (fused_solver, n) → (the
+# batches, steps a launch), and the modes (label, iters, compensated, swept,
 # composition)
-DENSE_MODE_BATCH, DENSE_MODE_STEPS = 37, 5
-DENSE_MODES = (("per-member tables (2,1) kahan", (2, 1), True, True, (1.0,)),
+MODE_CHECKS = {("dense", 20): ((37,), 5), ("semiseparable", 40): (CHAIN_CASE_BATCHES, 2)}
+CHAIN_MODES = (("per-member tables (2,1) kahan", (2, 1), True, True, (1.0,)),
                ("suzuki4 composition (3,1)", (3, 1), False, False, "suzuki4"))
+WIDE_SOURCE = "hamilton_tpu_torch/csrc/semisep_wide.cu"
 # phase 21 (b): the sharded driver on the headline configuration, 2000 steps
 SHARD_STEPS = 2000
 SHARD_COUNT = 4
@@ -558,6 +569,13 @@ def _variant_label(m):
 
 
 _USER_RE = re.compile(r"user_family_kernelI([fd])Li(\d)ELb([01])ELb([01])E")
+# semisep_wide_kernel<T, compensated, per-member, composed> (csrc/semisep_wide.cu)
+_WIDE_RE = re.compile(r"semisep_wide_kernelI(?P<t>[fd])Lb(?P<comp>[01])ELb(?P<pm>[01])E"
+                      r"Lb(?P<composed>[01])E")
+
+
+def _wide_label(m):
+    return f"{'float' if m['t'] == 'f' else 'double'} n=40 semiseparable wide{_modes(m)}"
 
 
 def _user_label(m):
@@ -1459,9 +1477,9 @@ def phase_gradients(dev, ph, entries, summary):
     del k, js, b
 
     # (b) float64 (3,2): the gradient of a final-state loss with respect to
-    # (q₀, p₀) and the 20 shared masses through one 50-step fused launch,
-    # against 50 library-leapfrog steps (their backward on K2) and a central
-    # difference on one mass
+    # (q₀, p₀) and the 20 shared masses through one GRAD_STEPS-step fused
+    # launch, against as many library-leapfrog steps (their backward on K2)
+    # and a central difference on one mass
     ex = chain(n_links=20, fused_solver="semiseparable", device=dev, dtype=f64)
     ph64 = ph.astype(f64)
     m0 = ex.system.params["masses"].detach().clone()
@@ -1470,10 +1488,11 @@ def phase_gradients(dev, ph, entries, summary):
     def loss_of(method, masses, q0, p0):
         system = ex.system.replace_params(dict(ex.system.params, masses=masses))
         fused = method == "leapfrog_fused"
-        st = make_stepper(system, method, iters=(3, 2), steps_per_call=50 if fused else 1)
+        st = make_stepper(system, method, iters=(3, 2),
+                          steps_per_call=GRAD_STEPS if fused else 1)
         carry = st.init(Phase(q0, p0))
         step_dt = dt if fused else torch.tensor(dt, dtype=f64)
-        for _ in range(1 if fused else 50):
+        for _ in range(1 if fused else GRAD_STEPS):
             carry = st.step(carry, step_dt)
         out = st.extract(carry)
         return torch.sum(out.q ** 2) + torch.sum(out.p * out.q)
@@ -1501,8 +1520,9 @@ def phase_gradients(dev, ph, entries, summary):
               - loss_of("leapfrog_fused", m0 - e1, ph64.q, ph64.p)) / (2 * eps)
     g7 = float(grads["leapfrog_fused"][2][7])
     fd_rel = abs(g7 - float(fd)) / abs(float(fd))
-    log(f"phase 17: float64 (3,2) gradient, {BATCH} x chain-20, 50 steps: fused (one launch, "
-        f"the replay backward) vs library leapfrog (50 steps, backward on K2): relative "
+    log(f"phase 17: float64 (3,2) gradient, {BATCH} x chain-20, {GRAD_STEPS} steps: fused (one "
+        f"launch, the replay backward) vs library leapfrog ({GRAD_STEPS} steps, backward on K2): "
+        f"relative "
         f"{rel[0]:.3e} (q0), {rel[1]:.3e} (p0), {rel[2]:.3e} (masses); dL/dm7 {g7:.12e} vs "
         f"central difference {float(fd):.12e} ({fd_rel:.3e}); fused "
         f"{secs['leapfrog_fused']:.3f} s, library {secs['leapfrog']:.3f} s; library launches "
@@ -2526,10 +2546,10 @@ def phase21_builds(dev, pool):
     """Start in ``pool`` the builds that only phase 21 (a) needs, so that
     they compile beside the first build and phases 1-20, at a lower priority
     (:func:`_niced`): each case's kernel as ``KERNEL_INSTANTIATIONS`` routes
-    it, its ``csrc/fused_step.cu`` parts (the dense chain's lane kernels,
-    under a minute each) or its generated header (six parts, the
-    semiseparable chain-40's several minutes).  Returns ``({label: future},
-    the fused_step units to leave out of the first build)``."""
+    it, its source's float32 and float64 parts (``csrc/fused_step.cu``'s
+    dense lane kernels, ``csrc/semisep_wide.cu``: a minute or two each) or
+    its generated header (six parts).  Returns ``({label: future}, the
+    units to leave out of the first build)``."""
     import torch
     from hamilton_tpu_torch import kernels
     from hamilton_tpu_torch.models import chain
@@ -2541,10 +2561,11 @@ def phase21_builds(dev, pool):
         system = chain(n_links=n, fused_solver=solver, device=dev, dtype=torch.float32).system
         forms = system.fused_forms(system)
         if _kernel_key(forms) in KERNEL_INSTANTIATIONS:
-            parts = tuple(kernels.PARTS["fused_step"][1](d, n, solver == "semiseparable")
+            source, code = KERNEL_INSTANTIATIONS[_kernel_key(forms)]
+            parts = tuple(kernels.PARTS[source][1](d, code, solver == "semiseparable")
                           for d in (0, 1))
-            exclude += [("fused_step", part) for part in parts]
-            futures[label] = pool.submit(_niced, kernels.build, "fused_step", parts)
+            exclude += [(source, part) for part in parts]
+            futures[label] = pool.submit(_niced, kernels.build, source, parts)
         else:
             futures[label] = pool.submit(_niced, kernels.build_user_family,
                                          fused_codegen.generated(forms).header)
@@ -2560,8 +2581,9 @@ def phase_chain_checks(dev, late_builds):
     and log its build seconds, registers, stack frames and spills; hold the
     kernel against its plain version at :data:`CHAIN_CASE_BATCHES` in
     float64 and float32 (one plain run on the members of both batches), bit
-    for bit on the dense chain's lanes; the dense chain at n = 20 also in
-    :data:`DENSE_MODES`.  Returns ``{label: (launch counter, source, nvcc
+    for bit on the hand-written kernels; the dense chain at n = 20 and the
+    semiseparable one at n = 40 also in :data:`CHAIN_MODES`
+    (:func:`mode_checks`).  Returns ``{label: (launch counter, source, nvcc
     seconds, largest float32 q/p error)}``."""
     import torch
     from hamilton_tpu_torch import kernels
@@ -2575,16 +2597,21 @@ def phase_chain_checks(dev, late_builds):
     checked = {}
     for label, n, solver, iters, dt, steps, spc_check, drift_bound in CHAIN_CASES:
         system = chain(n_links=n, fused_solver=solver, device=dev, dtype=f32).system
-        hand = _kernel_key(system.fused_forms(system)) in KERNEL_INSTANTIATIONS
+        route = KERNEL_INSTANTIATIONS.get(_kernel_key(system.fused_forms(system)))
+        hand = route is not None
         t_wait = time.perf_counter()
         build = late_builds[label].result()
         waited = time.perf_counter() - t_wait
         if hand:
-            counter, source = "fused_step", SOURCE if solver != "dense" else DENSE_SOURCE
+            counter = route[0]
+            source = {"semisep_wide": WIDE_SOURCE}.get(
+                counter, SOURCE if solver != "dense" else DENSE_SOURCE)
+            pattern, namer = ((_WIDE_RE, _wide_label) if counter == "semisep_wide"
+                              else (_KERNEL_RE, _k1_label))
             seconds = list(build.part_seconds)
-            regs = ptxas_report(build.log)
-            frames = ptxas_frames(build.log)
-            built = ("csrc/fused_step.cu's float32 and float64 parts: nvcc "
+            regs = ptxas_report(build.log, pattern, namer)
+            frames = ptxas_frames(build.log, pattern, namer)
+            built = (f"csrc/{counter}.cu's float32 and float64 parts: nvcc "
                      + " s and ".join(f"{x:.1f}" for x in seconds) + " s")
         else:
             counter, source = "user_family", USER_SOURCE
@@ -2593,8 +2620,8 @@ def phase_chain_checks(dev, late_builds):
             regs = ptxas_report(build.log, _USER_RE, _user_label)
             frames = ptxas_frames(build.log, _USER_RE, _user_label)
             built = f"the generated kernel ({key}): nvcc {build.seconds:.1f} s"
-        if hand and solver == "dense":
-            layouts = [kernels.lane_layout("fused_step", d, n, semiseparable=False)
+        if hand and (solver == "dense" or counter == "semisep_wide"):
+            layouts = [kernels.lane_layout(counter, d, n, semiseparable=solver != "dense")
                        for d in (0, 1)]
             built += ", " + ", ".join(
                 f"{t}: {lanes} lanes a member, {block} threads and {smem} B of shared memory "
@@ -2629,7 +2656,7 @@ def phase_chain_checks(dev, late_builds):
                 err, errs, bad = compare_states(got, want, dname)
                 start += b
                 worst = max(worst, err) if dtype == f32 else worst
-                if hand and solver == "dense" and not torch.equal(got, want):
+                if hand and not torch.equal(got, want):
                     bad = bad + ["not bitwise"]
                 failures += bad
                 log(f"phase 21 (a) {'FAILED' if bad else 'ok'}: {label} {dname} B={b} "
@@ -2640,17 +2667,17 @@ def phase_chain_checks(dev, late_builds):
             if failures:
                 raise AssertionError(f"{label}: kernel disagrees with its plain version: "
                                      + "; ".join(failures))
-        if hand and solver == "dense" and n == 20:
-            dense_mode_checks(dev, n)
+        if hand and (solver, n) in MODE_CHECKS:
+            mode_checks(dev, solver, n)
         checked[label] = (counter, source, max(seconds), worst)
     return checked
 
 
-def dense_mode_checks(dev, n):
-    """The dense chain's lane kernel at ``n`` in :data:`DENSE_MODES` (a
-    per-member table, a composition), each dtype, on
-    :data:`DENSE_MODE_BATCH` members over :data:`DENSE_MODE_STEPS` steps:
-    bit for bit the plain version, or the run fails."""
+def mode_checks(dev, solver, n):
+    """The chain's kernel with ``solver``'s forms at ``n`` in
+    :data:`CHAIN_MODES` (a per-member table, a composition), each dtype, on
+    the batches and over the steps :data:`MODE_CHECKS` gives: bit for bit
+    the plain version, or the run fails."""
     import numpy as np
     import torch
     from hamilton_tpu_torch.convert import params_from_numpy
@@ -2659,35 +2686,36 @@ def dense_mode_checks(dev, n):
         SUZUKI4_COMPOSITION, fused_step_kernel, fused_step_reference, fused_stepper,
     )
 
-    b = DENSE_MODE_BATCH
-    for dtype in (torch.float64, torch.float32):
+    batches, steps = MODE_CHECKS[(solver, n)]
+    cases = [(b, dtype, mode) for b in batches for dtype in (torch.float64, torch.float32)
+             for mode in CHAIN_MODES]
+    for b, dtype, (mode, iters, comp, swept, composition) in cases:
         dname = str(dtype).split(".")[-1]
-        for mode, iters, comp, swept, composition in DENSE_MODES:
-            composition = SUZUKI4_COMPOSITION if composition == "suzuki4" else composition
-            ex = chain(n_links=n, fused_solver="dense", device=dev, dtype=dtype)
-            system = ex.system
-            if swept:
-                rng = np.random.default_rng(n)
-                system = system.replace_params(params_from_numpy({
-                    "masses": 1.0 + 0.05 * rng.standard_normal((b, n)),
-                    "lengths": 1.0 + 0.1 * rng.random((b, n)),
-                    "gravity": 9.8 + 0.1 * rng.standard_normal(b)}, device=dev, dtype=dtype))
-            forms = system.fused_forms(system)
-            kw = dict(iters=iters, compensated=comp, steps_per_call=DENSE_MODE_STEPS,
-                      composition=composition)
-            carry = fused_stepper(forms, **kw).init(jittered_phase(ex, b, dtype, dev, 22))
-            state, table = carry if swept else (carry, None)
-            got = fused_step_kernel(forms, state, 1e-3, coef=table, **kw)
-            want = fused_step_reference(forms, state, 1e-3, coef=table, **kw)
-            torch.cuda.synchronize()
-            _, errs, bad = compare_states(got, want, dname)
-            bitwise = torch.equal(got, want)
-            log(f"phase 21 (a) {'ok' if bitwise and not bad else 'FAILED'}: dense n={n} "
-                f"{mode} {dname} B={b} spc={DENSE_MODE_STEPS}: bitwise {bitwise}, "
-                + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
-            if bad or not bitwise:
-                raise AssertionError(f"dense n={n} {mode} {dname}: the lane kernel differs "
-                                     f"from its plain version: " + "; ".join(bad))
+        composition = SUZUKI4_COMPOSITION if composition == "suzuki4" else composition
+        ex = chain(n_links=n, fused_solver=solver, device=dev, dtype=dtype)
+        system = ex.system
+        if swept:
+            rng = np.random.default_rng(n)
+            system = system.replace_params(params_from_numpy({
+                "masses": 1.0 + 0.05 * rng.standard_normal((b, n)),
+                "lengths": 1.0 + 0.1 * rng.random((b, n)),
+                "gravity": 9.8 + 0.1 * rng.standard_normal(b)}, device=dev, dtype=dtype))
+        forms = system.fused_forms(system)
+        kw = dict(iters=iters, compensated=comp, steps_per_call=steps,
+                  composition=composition)
+        carry = fused_stepper(forms, **kw).init(jittered_phase(ex, b, dtype, dev, 22))
+        state, table = carry if swept else (carry, None)
+        got = fused_step_kernel(forms, state, 1e-3, coef=table, **kw)
+        want = fused_step_reference(forms, state, 1e-3, coef=table, **kw)
+        torch.cuda.synchronize()
+        _, errs, bad = compare_states(got, want, dname)
+        bitwise = torch.equal(got, want)
+        log(f"phase 21 (a) {'ok' if bitwise and not bad else 'FAILED'}: {solver} n={n} "
+            f"{mode} {dname} B={b} spc={steps}: bitwise {bitwise}, "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        if bad or not bitwise:
+            raise AssertionError(f"{solver} n={n} {mode} {dname}: the kernel differs "
+                                 f"from its plain version: " + "; ".join(bad))
 
 
 def phase_chain_cases(dev, checked, entries, summary):
@@ -2711,7 +2739,7 @@ def phase_chain_cases(dev, checked, entries, summary):
         ex = chain(n_links=n, fused_solver=solver, device=dev, dtype=f32)
         forms = ex.system.fused_forms(ex.system)
         counter, source, nvcc_s, worst = checked[label]
-        hand = counter == "fused_step"
+        hand = counter != "user_family"
 
         # the run
         ph = jittered_phase(ex, BATCH, f32, dev, 0)

@@ -55,8 +55,9 @@
 // -DHAMILTON_PART set to it, holds variant v (0 semiseparable n=20, 1
 // semiseparable n=5, 2 dense n=2, 3 dense n=40 on lanes, 4 dense n=20 on
 // lanes) in one dtype; without it, one library holds all.  The
-// semiseparable chain at n = 40 runs on the generated kernel, which
-// measured faster than this template there (PERF.md section 6).
+// semiseparable chain at n = 40 runs on csrc/semisep_wide.cu (its member's
+// working set on the chip), which measured 0.17x this template there
+// (PERF.md section 6).
 
 #include "dense_lanes.cuh"
 

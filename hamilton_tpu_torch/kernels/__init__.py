@@ -51,6 +51,7 @@ __all__ = [
     "user_family_part",
     "fused_step_launch",
     "chain_variants_launch",
+    "semisep_wide_launch",
     "lane_layout",
     "libm_mismatches",
     "family_step_launch",
@@ -90,7 +91,7 @@ NVCC_FLAGS = (
 #: through the explicit inverse factor, whose entries grow with cond(K), so
 #: an ulp there shows at cond(K) times it.
 SOURCE_FLAGS = {"family_step": ("-fmad=false",), "chain_variants": ("-fmad=false",),
-                "user_family_step": ("-fmad=false",)}
+                "user_family_step": ("-fmad=false",), "semisep_wide": ("-fmad=false",)}
 
 #: ``csrc/fused_step.cu``'s variants, ``(n, semiseparable)`` → the variant
 #: of its dispatch (a launch's code is n; the forms pick semiseparable).  The
@@ -111,6 +112,7 @@ PARTS: Dict[str, Tuple[int, Callable[[int, int, bool], int]]] = {
                    lambda dtype_code, n, semiseparable: 2 * FUSED_STEP_VARIANTS.get(
                        (n, bool(semiseparable)), len(FUSED_STEP_VARIANTS)) + dtype_code),
     "chain_variants": (10, lambda dtype_code, code, semiseparable: 2 * code + dtype_code),
+    "semisep_wide": (2, lambda dtype_code, code, semiseparable: dtype_code),
 }
 
 #: Flags of one part beside its source's: ``fused_step``'s dense chain on
@@ -249,11 +251,13 @@ def build(name: str, parts: Optional[Tuple[int, ...]] = None) -> KernelBuild:
 
 def build_all(exclude=()) -> Dict[str, KernelBuild]:
     """Build every source (every part but the ``(name, part)`` units in
-    ``exclude``) at once, one nvcc process each; raises on the first failure
-    after all have ended."""
+    ``exclude``) at once, one nvcc process each: ``{name: build}`` of the
+    sources with a part built; raises on the first failure after all have
+    ended."""
     units = [unit for name in SOURCES for unit in _units(name) if unit not in set(exclude)]
     built = dict(zip(units, _build_units(units)))
-    return {name: _merged([built[u] for u in _units(name) if u in built]) for name in SOURCES}
+    return {name: _merged([built[u] for u in _units(name) if u in built]) for name in SOURCES
+            if any(u in built for u in _units(name))}
 
 
 #: The template of the generated families' kernel.
@@ -332,6 +336,11 @@ _SIGNATURES = {
     "chain_variants": {
         "hamilton_chain_variant_step": [_INT, _INT, _INT, _VP, _VP, _VP, _LL, _DBL, _INT,
                                         _INT, _INT, _INT, ctypes.POINTER(_DBL), _VP],
+        "hamilton_lane_layout": [_INT, _INT, _INT, ctypes.POINTER(_INT)],
+    },
+    "semisep_wide": {
+        "hamilton_semisep_wide_step": [_INT, _INT, _INT, _VP, _VP, _VP, _LL, _DBL, _INT,
+                                       _INT, _INT, _INT, ctypes.POINTER(_DBL), _VP],
         "hamilton_lane_layout": [_INT, _INT, _INT, ctypes.POINTER(_INT)],
     },
     "family_step": {
@@ -458,25 +467,32 @@ fused_step_launch = _k1_launcher("fused_step", "hamilton_fused_step", "fused-ste
 chain_variants_launch = _k1_launcher("chain_variants", "hamilton_chain_variant_step",
                                      "chain-variant step")
 
+#: K1 for the semiseparable chain at n = 40 with its member's working set on
+#: the chip (``csrc/semisep_wide.cu``): as :func:`fused_step_launch`, ``code``
+#: its n (40), ``semiseparable`` True.
+semisep_wide_launch = _k1_launcher("semisep_wide", "hamilton_semisep_wide_step",
+                                   "semiseparable wide step")
+
 
 def lane_layout(source: str, dtype_code: int, code: int, compensated: bool = True,
                 per_member: bool = False,
                 semiseparable: Optional[bool] = None) -> Tuple[int, int, int, int]:
     """The kernel that launches K1's ``code`` of ``source`` (``"fused_step"``:
     code n, the semiseparable form at 20 and 5 unless ``semiseparable`` is
-    False, dense at 2, 20 and 40; ``"chain_variants"``: its case) as its
+    False, dense at 2, 20 and 40; ``"chain_variants"``: its case;
+    ``"semisep_wide"``: n = 40, semiseparable) as its
     library was built: ``(lanes a member, threads a block, dynamic shared
     bytes a block, blocks an SM)``, lanes 1 for a one-thread kernel, the
     last the blocks of its instantiation in these modes (not composed) that
     the card holds at once by its registers and shared memory.  Builds the
     library's part at first use; raises for a code the source does not
     instantiate."""
-    if source not in ("fused_step", "chain_variants"):
+    if source not in ("fused_step", "chain_variants", "semisep_wide"):
         raise ValueError(f"no K1 chain source {source!r}")
     out = (_INT * 4)()
     if semiseparable is None:
-        semiseparable = (code, True) in FUSED_STEP_VARIANTS
-    semiseparable = source == "fused_step" and semiseparable
+        semiseparable = source == "semisep_wide" or (code, True) in FUSED_STEP_VARIANTS
+    semiseparable = source != "chain_variants" and semiseparable
     flags = int(semiseparable) | int(compensated) << 1 | int(per_member) << 2
     _call(source, "hamilton_lane_layout", f"{source} layout", dtype_code, code, flags, out,
           part=PARTS[source][1](dtype_code, code, semiseparable))
@@ -608,6 +624,7 @@ def add_one_launch(*, a, out, elements, blocks, stream) -> None:
 LAUNCHERS = {
     "fused_step": fused_step_launch,
     "chain_variants": chain_variants_launch,
+    "semisep_wide": semisep_wide_launch,
     "family_step": family_step_launch,
     "user_family": user_family_launch,
     "spd_solve": spd_solve_launch,

@@ -6,10 +6,11 @@ whose physics admit *closed forms* states them once, as a
 :class:`FusedForms` contract, against entry accessors ``at`` and a math
 namespace ``fm`` (:data:`FM_TORCH`); the same family code then evaluates on
 ``(B,)`` member columns (the plain version, :func:`fused_step_reference`)
-and runs inside the CUDA kernels — ``csrc/fused_step.cu`` and
-``csrc/chain_variants.cu`` for the serial chain, ``csrc/family_step.cu``
-for the bundled model families (spherical pendulum, two-body, room, spring,
-ellipse, Bézier), and for any other family (a user's own, or a bundled one
+and runs inside the CUDA kernels — ``csrc/fused_step.cu``,
+``csrc/semisep_wide.cu`` and ``csrc/chain_variants.cu`` for the serial
+chain, ``csrc/family_step.cu`` for the bundled model families (spherical
+pendulum, two-body, room, spring, ellipse, Bézier), and for any other
+family (a user's own, or a bundled one
 at a size not compiled) ``csrc/user_family_step.cu`` around code generated
 from the family's forms at first use (:mod:`~hamilton_tpu_torch.ops.
 fused_codegen`), on the one-thread step template of
@@ -1052,7 +1053,8 @@ def fused_step_reference(
 #: The compiled kernels: ``(family name, n, coefficient-table length)`` →
 #: ``(source, code)``.  ``csrc/fused_step.cu`` holds the serial chain (code:
 #: its n; ``serial_chain_on`` the semiseparable forms, ``serial_chain`` the
-#: dense ones), ``csrc/chain_variants.cu`` the chain's Möbius and L⁻¹ forms
+#: dense ones), ``csrc/semisep_wide.cu`` the semiseparable chain at n = 40
+#: (code: 40), ``csrc/chain_variants.cu`` the chain's Möbius and L⁻¹ forms
 #: and the dense one at n = 4, ``csrc/family_step.cu`` the bundled model
 #: families (code: the case of each one's dispatch; the table length tells
 #: Bézier's degrees apart).  Each is compiled in float32 and float64,
@@ -1065,11 +1067,12 @@ KERNEL_INSTANTIATIONS = {
     ("serial_chain_on", 5, 15): ("fused_step", 5),
     ("serial_chain", 2, 6): ("fused_step", 2),
     # the reference's default chain and its stress chain, dense: G lanes a
-    # member, the factor in shared memory (csrc/dense_lanes.cuh, PERF.md §6);
-    # the semiseparable chain at n = 40 measured faster on the generated
-    # kernel, and runs there
+    # member, the factor in shared memory (csrc/dense_lanes.cuh, PERF.md §6)
     ("serial_chain", 20, 420): ("fused_step", 20),
     ("serial_chain", 40, 1640): ("fused_step", 40),
+    # the stress chain's semiseparable form: the member's working set in
+    # shared memory and registers, G lanes a member (PERF.md §6)
+    ("serial_chain_on", 40, 120): ("semisep_wide", 40),
     ("serial_chain_mobius", 20, 100): ("chain_variants", 0),
     ("serial_chain_mobius", 5, 25): ("chain_variants", 1),
     ("serial_chain_linv", 20, 60): ("chain_variants", 2),
@@ -1232,11 +1235,12 @@ def _generated_step(forms, state, dt, coef, compensated, iters_p, iters_q,
     return out
 
 
-# each source's launch function: the chain's library takes n and the
+# each source's launch function: the chain's libraries take n and the
 # semiseparable flag, the others the case of their dispatch
 _LAUNCH = {
     "fused_step": kernels.fused_step_launch,
     "chain_variants": kernels.chain_variants_launch,
+    "semisep_wide": kernels.semisep_wide_launch,
     "family_step": kernels.family_step_launch,
 }
 

@@ -13,7 +13,13 @@ around the header ``ops/fused_codegen.py`` prints), ``bezier3`` or
 on G lanes a member (``csrc/dense_lanes.cuh``), on the lane template
 ``lane_step`` (``csrc/chain_lanes.cuh``), whose calls of the forms' routines
 are wrapped alike, and whose solve's back half (the dependent chain of
-``dense_back_lanes``) is timed on its own.  The script copies DIR's package (default: this
+``dense_back_lanes``) is timed on its own; and ``semiseparable40``: the
+semiseparable chain at n = 40 on ``csrc/semisep_wide.cu`` (its working set
+in shared memory and registers, G lanes a member), whose ``wide_step``'s
+calls of its routines are wrapped alike (the aux's shift to q1,
+``wide_q1_update`` and ``wide_settle``, read as aux_at), and whose named
+barriers' waits, where a lane waits for another's scan, are timed on their
+own (the hand-off).  The script copies DIR's package (default: this
 checkout's; DIR may be a parent unpacked with ``git archive`` into
 ``_archive/parent``) to ``hamilton_tpu_torch/_build/k1_phases/<DIR's
 name>/``, wraps each of ``step_member``'s calls of the policy's ``aux``,
@@ -32,7 +38,10 @@ a short step), builds the form's float32 kernel and runs one launch:
 - ``dense20`` and ``dense40``: ``chip_smoke.py`` phase 21 (a)'s rows
   (16384 members, Kahan, 50 steps, shared table; (2,1) at dt = 1e-3 and
   (2,0) at dt = 5e-4), read as aux (and its shift), K and factor, forward
-  solves, back-solve chain and dH/dq.
+  solves, back-solve chain and dH/dq;
+- ``semiseparable40``: phase 21 (a)'s semiseparable row (16384 members,
+  Kahan (2,0), dt = 5e-4, 50 steps, shared table), read as aux, aux shift,
+  factor, solves, dH/dq and the hand-off.
 
 The package itself is not touched.  ``--sass`` also builds DIR's own
 (unprobed) ``family_step.cu`` and writes ``cuobjdump -sass`` of each family
@@ -72,7 +81,9 @@ FAMILIES = {"spherical": (0, 0.05, 2.5e-4), "two_body": (1, 0.02, 2.5e-4),
 GENERATED = ("bezier3", "elastic")
 # the dense chain on lanes: (n, iters, dt)
 LANE_FORMS = {"dense20": (20, (2, 1), 1e-3), "dense40": (40, (2, 0), 5e-4)}
-SOURCES = ("fused_step", "chain_variants", "family_step", "user_family_step")
+SOURCES = ("fused_step", "chain_variants", "family_step", "user_family_step", "semisep_wide")
+# the semiseparable chain at n = 40 (csrc/semisep_wide.cu): (iters, dt)
+WIDE_FORMS = {"semiseparable40": ((2, 0), 5e-4)}
 
 PROBE = """
 __device__ unsigned long long g_phase_cycles[8];
@@ -138,6 +149,7 @@ def _copy(tree: Path) -> Path:
         raise RuntimeError(f"{header}: {count} phase calls and {n} step clocks wrapped")
     header.write_text(text)
     _wrap_lanes(pkg / "csrc")
+    _wrap_wide(pkg / "csrc" / "semisep_wide.cu")
     for source in SOURCES:
         src = pkg / "csrc" / f"{source}.cu"
         src.write_text(src.read_text() + ENTRIES)
@@ -184,6 +196,45 @@ def _wrap_lanes(csrc: Path) -> None:
     dense.write_text(text)
 
 
+def _wrap_wide(src: Path) -> None:
+    """``semisep_wide.cu``'s probes: ``wide_step``'s calls of its routines
+    wrapped as ``step_member``'s (the trig into aux, the shift to q1 into
+    aux_at), the whole step likewise, and each named barrier's wait summed
+    in the member's ``waited``, read into phase 6 as the step ends."""
+    text = src.read_text()
+    head, rest = text.split("__device__ __forceinline__ void wide_step(", 1)
+    body, tail = rest.split("template <typename T>\nstruct WideLanes", 1)
+    count = 0
+    for k, pattern in ((0, r"wide_trig\("), (1, r"wide_q1_update\(|wide_settle\("),
+                       (2, r"wide_factor\("), (3, r"wide_solve\("), (4, r"wide_dhdq<\w+>\(")):
+        body, n = re.subn(rf"((?:{pattern})[^;]*;)",
+                          rf"{{ PhaseClock clock_(phase_cycles_.c[{k}]); \1 }}", body)
+        count += n
+    edits = [("  const int lo = m.lo();\n\n  // the vectors no scan reads",
+              "  const int lo = m.lo();\n  PhaseCycles phase_cycles_;\n\n"
+              "  // the vectors no scan reads"),
+             ("  if (!active) return;\n",
+              "  phase_cycles_.c[6] = m.waited;\n  if (!active) return;\n")]
+    for old, new in edits:
+        if body.count(old) != 1:
+            raise RuntimeError(f"{src}: {old!r} not found once in wide_step")
+        body = body.replace(old, new)
+    if count != 20:
+        raise RuntimeError(f"{src}: {count} of wide_step's 20 routine calls wrapped")
+    for old, new in (("  int g;   // its lane\n",
+                      "  int g;   // its lane\n  mutable long long waited = 0;\n"),
+                     ("#ifdef __CUDA_ARCH__\n      asm volatile(\"bar.sync",
+                      "#ifdef __CUDA_ARCH__\n      const long long t0_ = phase_clock();\n"
+                      "      asm volatile(\"bar.sync"),
+                     ("                   : \"memory\");\n",
+                      "                   : \"memory\");\n      waited += phase_clock() - t0_;\n")):
+        if head.count(old) != 1:
+            raise RuntimeError(f"{src}: {old!r} not found once")
+        head = head.replace(old, new)
+    src.write_text(head + "__device__ __forceinline__ void wide_step(" + body
+                   + "template <typename T>\nstruct WideLanes" + tail)
+
+
 def _launch(form, dev):
     """``(library path, a launch of the form's row, steps a launch)``,
     building what the form needs."""
@@ -198,6 +249,26 @@ def _launch(form, dev):
 
     f32, f64 = torch.float32, torch.float64
     rng = np.random.default_rng(16)
+    if form in WIDE_FORMS:
+        iters, dt = WIDE_FORMS[form]
+        lib = kernels.build("semisep_wide", parts=(0,)).paths[0]
+        ex = tp.chain(n_links=40, fused_solver="semiseparable", device=dev, dtype=f32)
+        forms = ex.system.fused_forms(ex.system)
+        state = fused_stepper(forms, iters=iters, compensated=True).init(
+            cs.jittered_phase(ex, BATCH, f32, dev, 0))
+        coef = coef_table(forms, dev, f32)
+
+        def wide():  # the kernel itself, whatever KERNEL_INSTANTIATIONS routes
+            out = torch.empty_like(state)
+            kernels.semisep_wide_launch(
+                dtype_code=0, code=40, semiseparable=True, compensated=True,
+                per_member=False, coef=coef.data_ptr(), state_in=state.data_ptr(),
+                state_out=out.data_ptr(), batch=BATCH, dt=dt, iters_p=iters[0],
+                iters_q=iters[1], steps_per_call=SPC, weights=(1.0,),
+                stream=torch.cuda.current_stream(dev).cuda_stream)
+            return out
+
+        return lib, wide, SPC
     if form in LANE_FORMS:
         n, iters, dt = LANE_FORMS[form]
         part = kernels.PARTS["fused_step"][1](0, n, False)
@@ -304,7 +375,7 @@ def main(argv) -> int:
             return 2
     forms = argv or ["semiseparable"]
     unknown = [f for f in forms if f not in CHAINS and f not in FAMILIES and f not in GENERATED
-               and f not in LANE_FORMS]
+               and f not in LANE_FORMS and f not in WIDE_FORMS]
     if unknown:
         print(f"unknown forms {unknown}\n{__doc__}", file=sys.stderr)
         return 2
@@ -339,10 +410,16 @@ def main(argv) -> int:
         if lib.hamilton_phase_cycles(out, 0) != 0:
             raise RuntimeError("reading the phase counters failed")
         lanes = (kernels.lane_layout("fused_step", 0, LANE_FORMS[form][0], semiseparable=False)[0]
-                 if form in LANE_FORMS else 1)
+                 if form in LANE_FORMS else
+                 kernels.lane_layout("semisep_wide", 0, 40)[0] if form in WIDE_FORMS else 1)
         warp_steps = BATCH * lanes // 32 * spc
         cycles = {name: out[k] / warp_steps for k, name in enumerate(PHASES)}
         cycles["step"] = out[5] / warp_steps
+        if form in WIDE_FORMS:  # the shift to q1 and the hand-off
+            cycles = {"aux": cycles["aux"], "aux shift": cycles["aux_at"],
+                      "factor": cycles["factor"], "solves": cycles["solve"],
+                      "dH/dq": cycles["dhdq"], "hand-off": out[6] / warp_steps,
+                      "step": cycles["step"]}
         if form in LANE_FORMS:  # the dense lane step's phases
             back = out[6] / warp_steps
             cycles = {"aux": cycles["aux"] + cycles["aux_at"], "K and factor": cycles["factor"],

@@ -3,8 +3,9 @@
 card, to route each case to the fastest.
 
     python3 scripts/k1_route_ab.py [--pairs 10] [--cap 900] [--hand-tree DIR]
-                                   [--lanes N:G,G,...] [--routes KIND,...]
-                                   [--dtype float32|float64] [--outlined] [CASE ...]
+                                   [--lanes N:G,G,...] [--wide-lanes G[:U],...]
+                                   [--routes KIND,...] [--dtype float32|float64]
+                                   [--outlined] [CASE ...]
 
 CASE is ``dense20`` (the reference's default chain, ``leapfrog_fused``
 (2,1), dt = 1e-3), ``dense40`` (its stress chain, dense, (2,0), dt = 5e-4)
@@ -23,6 +24,13 @@ contraction):
 - ``generated`` (``dense20``, ``semiseparable40``): the dtype's part on the
   constant table of ``csrc/user_family_step.cu`` around the header that
   ``ops/fused_codegen.py`` makes from the chain's forms;
+- ``wide G=g`` (``semiseparable40``): ``csrc/semisep_wide.cu``, the member's
+  working set in shared memory and registers on g lanes a member: the
+  checkout's own part at the lanes it ships, and for each other g that
+  ``--wide-lanes`` lists a copy of the sources under ``_build/k1_route_ab/``
+  with ``kWideLanesF`` (``D`` in float64) set to it; ``g:u`` also sets
+  ``kScanUnrollF`` (``D``), the links a scan's loop unrolls, to u
+  (``wide G=g U=u``);
 - ``hand``: the one-thread template ``step_member``: for ``dense40`` the
   dtype's dense n = 40 part of ``DIR/hamilton_tpu_torch/csrc/fused_step.cu``
   (``--hand-tree``, a tree whose source holds it, its loops rolled: a
@@ -31,7 +39,8 @@ contraction):
   dispatch.
 
 ``--routes`` keeps the routes of those kinds (``lanes``, ``generated``,
-``hand``; all by default): ``--routes lanes`` sweeps the lanes a member.
+``hand``, ``wide``; all by default): ``--routes lanes`` sweeps the lanes a
+member.
 
 Every build runs at once, one nvcc each, each stopped after ``--cap``
 seconds; each logs its seconds, ``-Xptxas -v`` registers, stack frame and
@@ -128,23 +137,23 @@ def _outlined_label(m):
     return f"{'float' if t == 'f' else 'double'} n={n} G={lanes} factor (out of line)"
 
 
-def _copy_csrc(where: Path, consts=None, outlined=False) -> Path:
+def _copy_csrc(where: Path, consts=None, outlined=False, target="dense_lanes.cuh") -> Path:
     """A copy of this checkout's ``csrc/`` in ``where``, each ``name = value``
-    of ``consts`` set in ``dense_lanes.cuh`` (and its factor called out of
-    line where ``outlined``); the copied directory."""
+    of ``consts`` set in ``target`` (and the dense factor called out of line
+    where ``outlined``); the copied directory."""
     csrc = REPO / "hamilton_tpu_torch" / "csrc"
     where.mkdir(parents=True, exist_ok=True)
-    for path in list(csrc.glob("*.cuh")) + [csrc / "fused_step.cu"]:
+    for path in list(csrc.glob("*.cuh")) + [csrc / "fused_step.cu", csrc / "semisep_wide.cu"]:
         text = path.read_text()
-        if path.name == "dense_lanes.cuh":
+        if path.name == target:
             for name, value in (consts or {}).items():
                 text, count = re.subn(rf"\b{name} = \d+", f"{name} = {value}", text)
                 if count != 1:
                     raise RuntimeError(f"{path}: {name} set {count} times, expected once")
-            if outlined:
-                if text.count(OUTLINED[0]) != 1:
-                    raise RuntimeError(f"{path}: the factor's call has changed")
-                text = text.replace(*OUTLINED)
+        if outlined and path.name == "dense_lanes.cuh":
+            if text.count(OUTLINED[0]) != 1:
+                raise RuntimeError(f"{path}: the factor's call has changed")
+            text = text.replace(*OUTLINED)
         (where / path.name).write_text(text)
     return where
 
@@ -188,7 +197,8 @@ def main(argv) -> int:
     ap.add_argument("--cap", type=float, default=900.0)
     ap.add_argument("--hand-tree", type=Path, default=None)
     ap.add_argument("--lanes", action="append", default=[])
-    ap.add_argument("--routes", default="lanes,generated,hand")
+    ap.add_argument("--wide-lanes", default="")
+    ap.add_argument("--routes", default="lanes,generated,hand,wide")
     ap.add_argument("--dtype", choices=("float32", "float64"), default="float32")
     ap.add_argument("--outlined", action="store_true")
     ap.add_argument("cases", nargs="*", default=["dense20", "dense40"])
@@ -218,6 +228,8 @@ def main(argv) -> int:
     for n in (20, 40):
         text = (REPO / "hamilton_tpu_torch" / "csrc" / "dense_lanes.cuh").read_text()
         shipped[n] = int(re.search(rf"\bkDenseLanes{n}{letter} = (\d+)", text).group(1))
+    wide_text = (REPO / "hamilton_tpu_torch" / "csrc" / "semisep_wide.cu").read_text()
+    wide_shipped = int(re.search(rf"\bkWideLanes{letter} = (\d+)", wide_text).group(1))
 
     forms = {}
     for case in args.cases:
@@ -256,6 +268,23 @@ def main(argv) -> int:
                                       f"-DHAMILTON_PART={part}", str(src)], lib,
                                      lib.with_suffix(".log"), k1, "fused_step")
         if semi:
+            specs = {(wide_shipped, None)} | {
+                (int(x.split(":")[0]), int(x.split(":")[1]) if ":" in x else None)
+                for x in args.wide_lanes.split(",") if x}
+            for g, unroll in sorted(specs, key=lambda s: (s[0], s[1] or 0)):
+                label = f"{case} wide G={g}" + (f" U={unroll}" if unroll else "")
+                if (g, unroll) == (wide_shipped, None):
+                    src, lib, report = kernels._paths("semisep_wide", dcode)
+                else:
+                    tag = f"wide{n}g{g}u{unroll or 0}{letter}"
+                    consts = {f"kWideLanes{letter}": g}
+                    if unroll:
+                        consts[f"kScanUnroll{letter}"] = unroll
+                    where = _copy_csrc(SCRATCH / tag, consts, target="semisep_wide.cu")
+                    src = where / "semisep_wide.cu"
+                    lib, report = where / f"lib{tag}.so", where / f"lib{tag}.log"
+                units[label] = ([nvcc, *kernels._flags("semisep_wide", dcode), str(src)], lib,
+                                report, (cs._WIDE_RE, cs._wide_label), "semisep_wide")
             where = _copy_csrc(SCRATCH / f"hand{n}s")
             v = _add_variant(where / "fused_step.cu", n, True, kernels.FUSED_STEP_VARIANTS)
             lib = where / f"lib{case}-hand{letter}.so"
@@ -308,12 +337,13 @@ def main(argv) -> int:
         if builds[label]["seconds"] is None:
             continue
         cdll = ctypes.CDLL(str(lib))
-        entry = cdll.hamilton_fused_step if kind == "fused_step" else \
-            cdll.hamilton_user_family_step
+        entry = getattr(cdll, {"fused_step": "hamilton_fused_step",
+                               "semisep_wide": "hamilton_semisep_wide_step",
+                               "user_family": "hamilton_user_family_step"}[kind])
         entry.argtypes = kernels._SIGNATURES["fused_step"]["hamilton_fused_step"]
         entry.restype = ctypes.c_int
         libs[label] = (entry, kind)
-        if kind == "fused_step":
+        if kind in ("fused_step", "semisep_wide"):
             query = cdll.hamilton_lane_layout
             query.argtypes = kernels._SIGNATURES["fused_step"]["hamilton_lane_layout"]
             n, solver = CASES[label.split()[0]][:2]
@@ -342,7 +372,7 @@ def main(argv) -> int:
             entry, kind = libs[f"{case} {name}"]
             res = torch.empty_like(state)
             stream = torch.cuda.current_stream(dev).cuda_stream
-            if kind == "fused_step":
+            if kind in ("fused_step", "semisep_wide"):
                 code = entry(dcode, n, int(semi) | 2, coef.data_ptr(), state.data_ptr(),
                              res.data_ptr(), state.shape[2], dt, iters[0], iters[1], spc, 1,
                              weights, stream)

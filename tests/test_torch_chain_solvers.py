@@ -289,21 +289,20 @@ def test_against_semiseparable_over_steps(solver):
 def test_kernel_instantiations_accepted_and_refused():
     """The card's hand-written sizes: Möbius and L⁻¹ at n = 20 and 5, the
     dense forms at n = 4 (``fit_masses --fused``), and 20 and 40 (on lanes,
-    ``csrc/dense_lanes.cuh``); any other n, and the semiseparable chain at
-    40 links (faster there), is taken by the kernel generated from the forms
-    (``ops.fused_codegen``).  What is refused before a launch: another dtype
-    or a state of the wrong shape."""
+    ``csrc/dense_lanes.cuh``), the semiseparable chain at 40 links (its
+    working set on the chip, ``csrc/semisep_wide.cu``); any other n is
+    taken by the kernel generated from the forms (``ops.fused_codegen``).
+    What is refused before a launch: another dtype or a state of the wrong
+    shape."""
     for solver, n in (("mobius", 20), ("mobius", 5), ("linv", 20), ("linv", 5),
-                      ("dense", 4), ("dense", 20), ("dense", 40)):
+                      ("dense", 4), ("dense", 20), ("dense", 40), ("semiseparable", 40)):
         sysx = tp.chain(n_links=n, fused_solver=solver, device="cpu", dtype=F64).system
         forms = sysx.fused_forms(sysx)
         assert t_step._kernel_key(forms) in t_step.KERNEL_INSTANTIATIONS
         t_step.check_kernel_args("cuda", torch.float32, forms, (6, n, 100))
     assert t_step.KERNEL_INSTANTIATIONS[("serial_chain", 20, 420)] == ("fused_step", 20)
     assert t_step.KERNEL_INSTANTIATIONS[("serial_chain", 40, 1640)] == ("fused_step", 40)
-    for solver, n in (("semiseparable", 40),):
-        sysx = tp.chain(n_links=n, fused_solver=solver, device="cpu", dtype=F64).system
-        assert t_step._kernel_key(sysx.fused_forms(sysx)) not in t_step.KERNEL_INSTANTIATIONS
+    assert t_step.KERNEL_INSTANTIATIONS[("serial_chain_on", 40, 120)] == ("semisep_wide", 40)
     sys7 = tp.chain(n_links=7, fused_solver="mobius", device="cpu", dtype=F64).system
     forms7 = sys7.fused_forms(sys7)
     assert t_step._kernel_key(forms7) not in t_step.KERNEL_INSTANTIATIONS

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels themselves (``hamilton_tpu_torch/csrc/
-fused_step.cu``, ``csrc/chain_variants.cu``, ``csrc/family_step.cu``,
+fused_step.cu``, ``csrc/semisep_wide.cu``, ``csrc/chain_variants.cu``,
+``csrc/family_step.cu``,
 ``csrc/user_family_step.cu`` around generated forms, ``csrc/batched_spd.cu``
 and ``csrc/roofline_probes.cu``), and the gradients through them.
 
@@ -149,14 +150,18 @@ def test_composition_kernel_matches_plain_version(card, composition, swept, batc
 
 @pytest.mark.parametrize("source,code", [("fused_step", 20), ("fused_step", 5),
                                          ("chain_variants", 0), ("chain_variants", 1),
-                                         ("chain_variants", 2), ("chain_variants", 3)])
+                                         ("chain_variants", 2), ("chain_variants", 3),
+                                         ("semisep_wide", 40)])
 def test_lane_layout_fits_the_card(card, source, code):
-    """Each chain case of K1's two chain sources as built, in both dtypes
-    and every mode: at least one block an SM (the launch would be refused
+    """Each chain case of K1's chain sources as built, in both dtypes and
+    every mode: at least one block an SM (the launch would be refused
     otherwise) within a block's 232448 bytes of shared memory.  L⁻¹ (cases 2
     and 3) on lanes, whole groups in a block, at n = 20 in float32 16 warps
-    an SM; the semiseparable and Möbius forms one thread a member, 128
-    threads a block, with the per-member table staged in shared memory."""
+    an SM; the semiseparable and Möbius forms at n = 20 and 5 one thread a
+    member, 128 threads a block, with the per-member table staged in shared
+    memory; the semiseparable chain at n = 40 on lanes (each lane of a
+    member in another warp), its members' slots in shared memory, in
+    float32 16384 members in one wave on 132 SMs."""
     for dtype_code in (0, 1):
         for comp in (False, True):
             for swept in (False, True):
@@ -167,6 +172,10 @@ def test_lane_layout_fits_the_card(card, source, code):
                     assert lanes > 1 and 32 % lanes == 0 and block % lanes == 0 and smem > 0
                     if dtype_code == 0 and code == 2:
                         assert blocks * block // 32 == 16, (lanes, block, smem, blocks)
+                elif source == "semisep_wide":
+                    assert lanes > 1 and (block // lanes) % 32 == 0 and smem > 0
+                    if dtype_code == 0:
+                        assert 132 * blocks * block // lanes >= 16384, (lanes, block, blocks)
                 else:
                     assert (lanes, block) == (1, 128) and (smem > 0) == swept
 
@@ -206,18 +215,46 @@ def test_uninstantiated_size_raises_on_the_card(card):
 def test_chain_at_20_and_40_links_matches_plain_version(card, solver, n, batch):
     """The reference's default chain (dense, n = 20) and both forms of its
     stress chain (n = 40) on the kernel ``KERNEL_INSTANTIATIONS`` routes
-    them to (the dense form on lanes, the semiseparable one at n = 40 the
-    generated one), float64 (2,0) Kahan,
-    two steps a launch: the plain version's state to float64 rounding
-    (vdot_est as dt·vdot_est)."""
+    them to (the dense form on lanes, the semiseparable one at n = 40
+    ``csrc/semisep_wide.cu``), float64 (2,0) Kahan, two steps a launch,
+    one launch of that source: the plain version's state to float64
+    rounding (vdot_est as dt·vdot_est)."""
     ex = tp.chain(n_links=n, fused_solver=solver, device=card, dtype=torch.float64)
     forms, state = _state(ex, (2, 0), True, batch, card)
     kw = dict(iters=(2, 0), compensated=True, steps_per_call=2)
+    source = t_step.KERNEL_INSTANTIATIONS[t_step._kernel_key(forms)][0]
+    before = kernels.launch_counts()
     got = t_step.fused_step_kernel(forms, state, 5e-4, **kw)
+    assert kernels.launch_counts()[source] == before[source] + 1
     want = t_step.fused_step_reference(forms, state, 5e-4, **kw)
     scale = torch.ones(state.shape[0], 1, 1, dtype=torch.float64, device=card)
     scale[-1] = 5e-4
     assert float(((got - want) * scale).abs().max()) < 1e-11
+
+
+@pytest.mark.parametrize("batch", [300, 7])
+@pytest.mark.parametrize("mode", ["kahan-2-0", "per_member-2-1", "suzuki4-3-1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_semiseparable_40_kernel_equals_plain_version(card, dtype, mode, batch):
+    """The semiseparable chain at n = 40 (``csrc/semisep_wide.cu``, built
+    without FMA contraction) in both dtypes: Kahan (2,0) on the shared table
+    over two steps a launch, (2,1) Kahan on per-member tables, and
+    Suzuki-composed (3,1) without Kahan: the plain version's state bit for
+    bit."""
+    iters, comp, swept, composition = {
+        "kahan-2-0": ((2, 0), True, False, (1.0,)),
+        "per_member-2-1": ((2, 1), True, True, (1.0,)),
+        "suzuki4-3-1": ((3, 1), False, False, t_step.SUZUKI4_COMPOSITION)}[mode]
+    _, forms, carry = _chain_state("semiseparable", 40, card, dtype, iters, comp, swept,
+                                   composition, batch=batch)
+    state, table = carry if swept else (carry, None)
+    kw = dict(iters=iters, compensated=comp, steps_per_call=2, composition=composition)
+    before = kernels.launch_counts()["semisep_wide"]
+    got = t_step.fused_step_kernel(forms, state, 5e-4, coef=table, **kw)
+    assert kernels.launch_counts()["semisep_wide"] == before + 1
+    want = t_step.fused_step_reference(forms, state, 5e-4, coef=table, **kw)
+    assert torch.isfinite(want).all()
+    assert torch.equal(got, want)
 
 
 # ----------------------------------------------------------------------
