@@ -19,9 +19,14 @@ raises as soon as one fails:
    tables, plain and ``suzuki4``, on 1000, 1, 7 and 16383 members, each in
    float64 and float32 (the cases that differ only in their batch share one
    plain run on their members put together, each kernel run held against
-   its slice); the chain kernels' float sin/cos, sqrt and reciprocal
+   its slice); the one-thread dense chain (``DENSE_SMALL``): the double
+   pendulum with per-member masses on 1000, 1, 7 and 16383 members and the
+   chain at n = 4 at ``fit_masses``' (3,1), shared and per-member tables,
+   on 1000 and 7, each in float64 and float32 (whether equal bit for bit
+   logged beside); the chain kernels' float sin/cos, sqrt and reciprocal
    against ``sinf``/``cosf``, ``sqrtf`` and ``1/x`` on every float; and
-   each semiseparable kernel's layout, registers and spills;
+   each semiseparable kernel's and each one-thread dense part's layout,
+   registers and spills;
 2. kernel against physics: float64 chain-5 ``(3,2)`` against the port's
    library leapfrog over two steps;
 3. the headline: ``evolve_ensemble_chunked`` on 16384 × chain-20, float32,
@@ -497,6 +502,17 @@ SHARD_STEPS = 2000
 SHARD_COUNT = 4
 
 
+# phase 1's one-thread dense rows (K1's dense chain at n = 2 in
+# csrc/fused_step.cu, with FMA contraction, and at n = 4 in
+# csrc/chain_variants.cu case 4, without): (n, iters, dt, steps a launch,
+# batches, per-member modes) — the double pendulum at phase 4's (2,1) and
+# dt, with per-member masses on 1000 members and the ragged batches, and the
+# chain at n = 4 at fit_masses --fused' counts, dt and steps, shared and
+# per-member; each under TOL, in both dtypes
+DENSE_SMALL = ((2, (2, 1), 1e-3, 50, (1000,) + RAGGED_BATCHES, (True,)),
+               (4, (3, 1), 1e-2, 24, (1000, 7), (False, True)))
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -515,7 +531,8 @@ def card_line() -> str:
 _KERNEL_RE = re.compile(
     r"(?:fused_step_kernelI(?P<t>[fd])Li(?P<n>\d+)ELb(?P<semi>[01])E"
     r"|lane_kernelI(?P<lt>[fd])Li(?P<ln>\d+)ELi(?P<lanes>\d+)E(?=(?:Lb[01]E){3}Li1E))"
-    r"Lb(?P<comp>[01])ELb(?P<pm>[01])ELb(?P<composed>[01])E")
+    r"Lb(?P<comp>[01])ELb(?P<pm>[01])ELb(?P<composed>[01])E"
+    r"(?:Li(?P<ip>\d+)ELi(?P<iq>\d+)E)?")
 # solve_tile_kernel<T, lanes, nmax> (K2a), factor_lanes_kernel<T, lanes, nmax>
 # (K2b), substitute_lanes_kernel<T, lanes, nmax> (K2c) (nmax: the one-thread
 # form's largest n, 0 on lanes) and jac_tile_kernel<T, lanes, factor lanes,
@@ -534,8 +551,11 @@ _K3_RE = re.compile(r"(fma_probe_kernel|sin_probe_kernel|add_one_kernel)(?:ILi(\
 
 
 def _modes(m):
+    ip, iq = m.groupdict().get("ip"), m.groupdict().get("iq")
+    # the dense kernels' (iters_p, iters_q) as constants
+    counts = f" ({ip},{iq})" if ip not in (None, "0") else ""
     return (f"{' kahan' if m['comp'] == '1' else ''}{' per-member' if m['pm'] == '1' else ''}"
-            f"{' composed' if m['composed'] == '1' else ''}")
+            f"{' composed' if m['composed'] == '1' else ''}{counts}")
 
 
 def _k1_label(m):
@@ -557,7 +577,8 @@ def _family_label(m):
 _VARIANT_RE = re.compile(
     r"(?:chain_variant_kernelI(?P<t>[fd])Li(?P<code>\d+)E"
     r"|lane_kernelI(?P<lt>[fd])Li(?P<n>\d+)ELi\d+E)"
-    r"Lb(?P<comp>[01])ELb(?P<pm>[01])ELb(?P<composed>[01])E")
+    r"Lb(?P<comp>[01])ELb(?P<pm>[01])ELb(?P<composed>[01])E"
+    r"(?:Li(?P<ip>\d+)ELi(?P<iq>\d+)E)?")
 
 
 def _variant_label(m):
@@ -729,6 +750,55 @@ def phase1_semiseparable(dev, cases):
                 failures.extend(f"{label} {dname} B={batch}: {f}" for f in bad)
                 log(f"phase 1 {'FAILED' if bad else 'ok'}: {label} {dname} B={batch} spc=50: "
                     + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    return failures
+
+
+def phase1_dense(dev):
+    """Phase 1's one-thread dense rows (:data:`DENSE_SMALL`): each case's
+    kernel against its plain version over one launch in float64 and
+    float32, under :data:`TOL`; logs each row (and whether it is equal bit
+    for bit); returns the failures."""
+    import numpy as np
+    import torch
+    from hamilton_tpu_torch.convert import params_from_numpy
+    from hamilton_tpu_torch.models import chain, double_pendulum
+    from hamilton_tpu_torch.ops.fused_step import (
+        fused_step_kernel, fused_step_reference, fused_stepper,
+    )
+
+    failures = []
+    for n, iters, dt, spc, batches, modes in DENSE_SMALL:
+        for swept in modes:
+            for batch in batches:
+                for dtype in (torch.float64, torch.float32):
+                    dname = str(dtype).split(".")[-1]
+                    ex = (double_pendulum(device=dev, dtype=dtype) if n == 2
+                          else chain(n_links=n, device=dev, dtype=dtype))
+                    system = ex.system
+                    if swept:  # per-member masses, the other parameters tiled
+                        rng = np.random.default_rng(5)
+                        cols = {k: np.broadcast_to(v.cpu().numpy(), (batch,) + tuple(v.shape))
+                                for k, v in system.params.items()}
+                        cols = {k: v * (1.0 + 0.05 * rng.standard_normal(v.shape))
+                                if k in ("m1", "m2", "masses") else v.copy()
+                                for k, v in cols.items()}
+                        system = system.replace_params(params_from_numpy(cols, device=dev,
+                                                                         dtype=dtype))
+                    forms = system.fused_forms(system)
+                    carry = fused_stepper(forms, iters=iters).init(
+                        jittered_phase(ex, batch, dtype, dev, n))
+                    state, table = carry if swept else (carry, None)
+                    kw = dict(iters=iters, compensated=False, steps_per_call=spc, coef=table)
+                    k_out = fused_step_kernel(forms, state, dt, **kw)
+                    p_out = fused_step_reference(forms, state, dt, **kw)
+                    torch.cuda.synchronize()
+                    _, errs, bad = compare_states(k_out, p_out, dname)
+                    label = (f"dense n={n} {iters}{' per-member' if swept else ''} {dname} "
+                             f"B={batch} spc={spc}")
+                    failures.extend(f"{label}: {f}" for f in bad)
+                    log(f"phase 1 {'FAILED' if bad else 'ok'}: {label}: bitwise "
+                        f"{torch.equal(k_out, p_out)}, "
+                        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
     return failures
 
 
@@ -3058,6 +3128,9 @@ def main() -> int:
     t_semisep = time.perf_counter()
     phase1_failures.extend(phase1_semiseparable(dev, semisep_cases))
     log(f"phase 1: the semiseparable rows took {time.perf_counter() - t_semisep:.1f} s")
+    t_dense = time.perf_counter()
+    phase1_failures.extend(phase1_dense(dev))
+    log(f"phase 1: the one-thread dense rows took {time.perf_counter() - t_dense:.1f} s")
     # the K1 and K2 kernels' float sin/cos, sqrt and reciprocal (straight-line,
     # and the library's that take over outside their ranges: the chain's,
     # the families' and the generated forms, the batched factor and solve)
@@ -3085,6 +3158,20 @@ def main() -> int:
                     f"{smem} B of shared memory a block, {blocks} blocks "
                     f"({blocks * block // 32} warps) an SM, {r} registers, spill stores {st} B, "
                     f"spill loads {ld} B")
+    # the one-thread dense parts' layout as built, registers and spills
+    for source, code, form in (("fused_step", 2, "n=2 dense"),
+                               ("chain_variants", 4, "dense n=4")):
+        for dtype_code, tname in ((0, "float"), (1, "double")):
+            layout = {kernels.lane_layout(source, dtype_code, code, compensated=comp,
+                                          per_member=swept, semiseparable=False)
+                      for comp in (False, True) for swept in (False, True)}
+            rows = [(r, st, ld) for name, r, st, ld in ptxas[source]
+                    if name.startswith(f"{tname} {form}")]
+            log(f"phase 1: {source}.cu {tname} {form}: (lanes, threads a block, dynamic shared "
+                f"B, blocks an SM) {sorted(layout)}; {len(rows)} instantiations, "
+                f"{min(r for r, _, _ in rows)}-{max(r for r, _, _ in rows)} registers, "
+                f"spill stores {max(st for _, st, _ in rows)} B, spill loads "
+                f"{max(ld for _, _, ld in rows)} B at most")
     if phase1_failures:
         raise AssertionError("kernel disagrees with its plain version: "
                              + "; ".join(phase1_failures))
@@ -3194,6 +3281,7 @@ def main() -> int:
     # ---- phase 5: plain version's time beside the kernel's -----------------
     stamp(5)
     entries = []
+    issue_us = {}  # name → (host us to issue a launch, card us a launch)
     shapes = [
         ("fused_step semiseparable n=20 float32 kahan (2,0)", ex20, ph, (2, 0), True,
          5e-4, head_launches),
@@ -3236,6 +3324,14 @@ def main() -> int:
             "launches": launches, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
+        issue_us[name] = ((h1 + h2) / 2 * 1e3, ms * 1e3)
+    # the double pendulum's launch: phase 4's wall against the card's time
+    # and the host's issue, the larger of which sets its pace
+    dp_issue, dp_card = issue_us["fused_step dense n=2 float32 (2,1)"]
+    dp_wall = dp_el / dp_launches * 1e6
+    log(f"phase 5: the double pendulum a launch: {dp_wall:.2f} us of wall (phase 4), the card "
+        f"{dp_card:.2f} us, the host {dp_issue:.2f} us to issue it: "
+        f"{'host' if dp_issue > dp_card else 'card'}-bound")
 
     # the drift sampler's share of the headline: one float64 library
     # Hamiltonian of the 16384 x chain-20 state, as evolve_ensemble_chunked takes it

@@ -8,11 +8,12 @@
 // serial_chain_forms_linv (:1329), and with serial_chain_forms at n = 4 (the
 // chain that examples/fit_masses.py differentiates).  The L^-1 form runs on
 // the lane step template lane_step of chain_lanes.cuh; the Moebius and
-// dense forms on the one-thread template step_member of fused_step.cuh, the
-// Moebius form with the semiseparable form's straight-line sin/cos, square
-// roots and reciprocals and its per-member table staged in shared memory
-// (fused_step.cu says why), and with chain_forms.cuh's dense policy.  The two
-// forms new here:
+// dense forms on the one-thread template step_member of fused_step.cuh with
+// the chain's straight-line sin/cos, square roots and reciprocals
+// (fused_step.cu says why): the Moebius form with its table (5n entries)
+// staged in shared memory, the dense form at n = 4 (chain_forms.cuh's dense
+// policy) with its 20 in registers and its callers' counts as constants, as
+// fused_step.cu's dense form at n = 2.  The two forms new here:
 //
 //   Moebius  the semiseparable factor with its 2x2 Riccati recursion
 //            collapsed to the homogeneous scalar pair p' = p + m q,
@@ -154,8 +155,8 @@ struct DenseChainPolicy : ChainPolicy<T, N_, false> {
 // hamilton_tpu_torch/ops/fused_step.py lists the same codes.  G is the
 // lanes a member of an L^-1 case (the lane kernel of chain_lanes.cuh), 0
 // for a case that runs on step_member under the one-thread policy P;
-// kStaged, whether that kernel stages a per-member table in shared memory
-// (Moebius; the dense forms read it where it is used).
+// kStaged, whether that kernel stages its table in shared memory (Moebius:
+// 5n entries; the dense form at n = 4 holds its 20 in registers).
 template <typename T, int CASE>
 struct Variant;
 template <typename T>
@@ -185,7 +186,7 @@ struct Variant<T, 4> {
   static constexpr bool kStaged = false;
 };
 
-template <typename T, int CASE, bool COMP, bool PM, bool COMPOSED>
+template <typename T, int CASE, bool COMP, bool PM, bool COMPOSED, int IP = 0, int IQ = 0>
 __global__ void __launch_bounds__(kThreads)
     chain_variant_kernel(const T* __restrict__ coef, const T* __restrict__ in,
                          T* __restrict__ out, long long batch,
@@ -193,15 +194,18 @@ __global__ void __launch_bounds__(kThreads)
                          int iters_q, int steps_per_call) {
   using P = typename Variant<T, CASE>::P;
   const long long b = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if constexpr (PM && Variant<T, CASE>::kStaged) {
+  if constexpr (!Variant<T, CASE>::kStaged) {
+    // the dense form's table in registers: this member's column, or the
+    // shared entries
+    if (b >= batch) return;
+    const DenseChainTable<T, P::L, PM> cf(PM ? coef + b : coef, PM ? batch : 1);
+    step_member<T, P, COMP, COMPOSED, IP, IQ>(cf, in, out, batch, b, subs, iters_p, iters_q,
+                                              steps_per_call);
+  } else if constexpr (PM) {
     if (b >= batch) return;
     stage_column<T, P::L>(coef, batch, b);
     step_member<T, P, COMP, COMPOSED>(StagedColumn<T>{}, in, out, batch, b, subs, iters_p,
                                       iters_q, steps_per_call);
-  } else if constexpr (PM) {
-    if (b >= batch) return;
-    step_member<T, P, COMP, COMPOSED>(MemberTable<T>{coef + b, batch}, in, out, batch, b,
-                                      subs, iters_p, iters_q, steps_per_call);
   } else {
     __shared__ T cf[P::L];
     for (int k = threadIdx.x; k < P::L; k += blockDim.x) cf[k] = coef[k];
@@ -224,13 +228,21 @@ int launch(const Args& a) {
         &bytes);
     if (attr != cudaSuccess) return static_cast<int>(attr);
     const long long blocks = (a.batch + kThreads - 1) / kThreads;
-    chain_variant_kernel<T, CASE, COMP, PM, COMPOSED>
-        <<<static_cast<unsigned int>(blocks), kThreads, bytes, a.stream>>>(
-            static_cast<const T*>(a.coef), static_cast<const T*>(a.in),
-            static_cast<T*>(a.out), a.batch,
-            make_substeps<T>(a.weights, a.n_weights, a.dt), a.iters_p, a.iters_q,
-            a.steps_per_call);
-    return static_cast<int>(cudaGetLastError());
+    auto go = [&](auto it) {
+      using I = decltype(it);
+      chain_variant_kernel<T, CASE, COMP, PM, COMPOSED, I::kP, I::kQ>
+          <<<static_cast<unsigned int>(blocks), kThreads, bytes, a.stream>>>(
+              static_cast<const T*>(a.coef), static_cast<const T*>(a.in),
+              static_cast<T*>(a.out), a.batch,
+              make_substeps<T>(a.weights, a.n_weights, a.dt), a.iters_p, a.iters_q,
+              a.steps_per_call);
+      return static_cast<int>(cudaGetLastError());
+    };
+    if constexpr (V::kStaged) {
+      return go(IterCounts<0, 0>{});
+    } else {  // the dense form with the callers' counts as constants
+      return with_iters(a.iters_p, a.iters_q, go);
+    }
   }
 }
 

@@ -19,19 +19,27 @@
 // and writes 4 or 6 vectors of n values per launch (O(100) bytes in and out
 // per member per 50 steps) against thousands of dependent flops and 2n-4n
 // transcendentals per step, 16384 members are ~4 warps an SM, one a
-// scheduler, and the semiseparable step is a chain of O(n) sequential
-// scans, its factor with a square root and a reciprocal a link.  What the
-// design does about it: one thread a member, everything over N unrolled at
-// compile time so the per-member lists live in registers (at n = 20 the
-// live set exceeds 255 registers and some of it spills to L1-backed local
-// memory), batch-minor x[i*B + b] loads and stores that coalesce, and for
-// the semiseparable form (chain_forms.cuh):
+// scheduler, so a launch lasts as long as one member's chain of steps; the
+// semiseparable step is a chain of O(n) sequential scans, its factor with a
+// square root and a reciprocal a link.  What the design does about it: one
+// thread a member, everything over N unrolled at compile time so the
+// per-member lists live in registers (at n = 20 the live set exceeds 255
+// registers and some of it spills to L1-backed local memory), batch-minor
+// x[i*B + b] loads and stores that coalesce, and (chain_forms.cuh):
 //   - each link's sin and cos from one straight-line reduction, and the
 //     factor's square roots and reciprocals straight-line, the library's
 //     expansions without their branches to the slow paths (which serialized
 //     them), bit for bit sinf, cosf, sqrtf and 1/x (csrc/libm_check.cu);
-//   - a per-member table staged in shared memory once a launch, not read
-//     from device memory at each use.
+//     the library's functions only for a member with an input outside
+//     their ranges;
+//   - the semiseparable form's per-member table (3n entries) staged in
+//     shared memory once a launch; the dense form's at n = 2 (6 entries,
+//     shared or the member's column) in registers, read once a launch, with
+//     the factor's first pivot (K_00 = C_00: its square root and reciprocal,
+//     chain_forms.cuh's DenseChainTable) taken once a launch too;
+//   - the dense form's p-half and q-refinement counts its callers use, (2,1)
+//     and (3,1), as compile-time constants (fused_step.cuh's with_iters), so
+//     their loops unroll; any other count read at run time.
 // On G lanes a member, as the L^-1 form runs (chain_lanes.cuh: the factor
 // in shared memory), this form measured slower than one thread a member at
 // every G from 1 to 8, because every lane repeats the O(n) scans (PERF.md
@@ -63,25 +71,29 @@
 
 namespace {
 
-template <typename T, int N, bool SEMISEP, bool COMP, bool PM, bool COMPOSED>
+template <typename T, int N, bool SEMISEP, bool COMP, bool PM, bool COMPOSED, int IP = 0,
+          int IQ = 0>
 __global__ void __launch_bounds__(kThreads)
     fused_step_kernel(const T* __restrict__ coef, const T* __restrict__ in,
                       T* __restrict__ out, long long batch,
                       const __grid_constant__ Substeps<T> subs, int iters_p,
                       int iters_q, int steps_per_call) {
   using P = ChainPolicy<T, N, SEMISEP>;
+  constexpr int L = CoefLen<N, SEMISEP>::value;
   const long long b = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if constexpr (PM && SEMISEP) {
+  if constexpr (!SEMISEP) {
+    // the dense form's table in registers: this member's column, or the
+    // shared entries
     if (b >= batch) return;
-    stage_column<T, CoefLen<N, true>::value>(coef, batch, b);
-    step_member<T, P, COMP, COMPOSED>(StagedColumn<T>{}, in, out, batch, b, subs, iters_p,
-                                      iters_q, steps_per_call);
+    const DenseChainTable<T, L, PM> cf(PM ? coef + b : coef, PM ? batch : 1);
+    step_member<T, P, COMP, COMPOSED, IP, IQ>(cf, in, out, batch, b, subs, iters_p, iters_q,
+                                              steps_per_call);
   } else if constexpr (PM) {
     if (b >= batch) return;
-    step_member<T, P, COMP, COMPOSED>(MemberTable<T>{coef + b, batch}, in, out, batch, b,
-                                      subs, iters_p, iters_q, steps_per_call);
+    stage_column<T, L>(coef, batch, b);
+    step_member<T, P, COMP, COMPOSED>(StagedColumn<T>{}, in, out, batch, b, subs, iters_p,
+                                      iters_q, steps_per_call);
   } else {
-    constexpr int L = CoefLen<N, SEMISEP>::value;
     __shared__ T cf[L];
     for (int k = threadIdx.x; k < L; k += blockDim.x) cf[k] = coef[k];
     __syncthreads();
@@ -107,13 +119,21 @@ int launch(const Args& a) {
                        fused_step_kernel<T, N, SEMISEP, COMP, PM, COMPOSED>>(&bytes);
     if (attr != cudaSuccess) return static_cast<int>(attr);
     const long long blocks = (a.batch + kThreads - 1) / kThreads;
-    fused_step_kernel<T, N, SEMISEP, COMP, PM, COMPOSED>
-        <<<static_cast<unsigned int>(blocks), kThreads, bytes, a.stream>>>(
-            static_cast<const T*>(a.coef), static_cast<const T*>(a.in),
-            static_cast<T*>(a.out), a.batch,
-            make_substeps<T>(a.weights, a.n_weights, a.dt), a.iters_p, a.iters_q,
-            a.steps_per_call);
-    return static_cast<int>(cudaGetLastError());
+    auto go = [&](auto it) {
+      using I = decltype(it);
+      fused_step_kernel<T, N, SEMISEP, COMP, PM, COMPOSED, I::kP, I::kQ>
+          <<<static_cast<unsigned int>(blocks), kThreads, bytes, a.stream>>>(
+              static_cast<const T*>(a.coef), static_cast<const T*>(a.in),
+              static_cast<T*>(a.out), a.batch,
+              make_substeps<T>(a.weights, a.n_weights, a.dt), a.iters_p, a.iters_q,
+              a.steps_per_call);
+      return static_cast<int>(cudaGetLastError());
+    };
+    if constexpr (SEMISEP) {
+      return go(IterCounts<0, 0>{});
+    } else {  // the dense form with the callers' counts as constants
+      return with_iters(a.iters_p, a.iters_q, go);
+    }
   }
 }
 

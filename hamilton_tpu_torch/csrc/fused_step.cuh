@@ -33,12 +33,12 @@
 // a launch factorizes afresh; every later one reuses the previous substep's
 // end-of-step factor and aux (the factor never crosses launches).
 //
-// The coefficient table is shared by every member (staged once per block in
-// shared memory, read as broadcasts) or, for a parameter sweep, one column
-// per member of a batch-minor (L, batch) table: thread b reads entry k at
-// coef[k * batch + b], so a warp's reads coalesce, through the read-only
-// cache where each entry is used.  The families' and the generated kernels
-// hold either in registers (RegTable), read once a launch.
+// The coefficient table is shared by every member or, for a parameter
+// sweep, one column per member of a batch-minor (L, batch) table: thread b
+// reads entry k at coef[k * batch + b], so a warp's reads coalesce.  The
+// dense chain at n = 2 and 4, the families and the generated kernels hold
+// either in registers (RegTable), read once a launch; the semiseparable and
+// Moebius forms (3n and 5n entries) stage it in shared memory.
 //
 // One thread per member; everything over N unrolled at compile time so the
 // per-member lists live in registers; batch-minor x[i*B + b] loads and
@@ -182,28 +182,40 @@ struct DenseFactor {
   T id[N];      // reciprocal diagonal
 };
 
+// A pivot of the dense factor, d = sqrt(a) and 1/d, with STRAIGHT's square
+// root and reciprocal (otherwise the library's sqrt and the division 1/d).
+template <typename T>
+struct Pivot {
+  T d, inv_d;
+};
+template <bool STRAIGHT, typename T>
+__device__ __forceinline__ Pivot<T> pivot_pass(T a, bool* ok) {
+  const T d = line_sqrt<STRAIGHT>(a, ok);
+  if constexpr (STRAIGHT) {
+    return {d, line_rcp<true>(d, ok)};
+  } else {
+    return {d, T(1) / d};
+  }
+}
+
 // The Cholesky factor of the entries k_at(i, j), j <= i, in the order of
 // the reference's pallas_solve.py::_chol_entries (and the plain version's),
 // with STRAIGHT's square roots and reciprocals (otherwise the library's
-// sqrt and the division 1/d).  Unrolled: the one-thread dense forms are
-// small (n = 2 and 4); the chain at n = 20 and 40 runs on lanes
-// (dense_lanes.cuh).
+// sqrt and the division 1/d); `first`, where given, the first column's
+// pivot of K_00 = k_at(0, 0) taken before (a K_00 that holds over a launch).
+// Unrolled: the one-thread dense forms are small (n = 2 and 4); the chain
+// at n = 20 and 40 runs on lanes (dense_lanes.cuh).
 template <bool STRAIGHT, typename T, int N, class K>
 __device__ __forceinline__ void dense_factor_pass(const K& k_at, DenseFactor<T, N>& f,
-                                                  bool* ok) {
+                                                  bool* ok, const Pivot<T>* first = nullptr) {
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     T acc = k_at(j, j);
 #pragma unroll
     for (int k = 0; k < j; ++k) acc = acc - f.low[j][k] * f.low[j][k];
-    const T d = line_sqrt<STRAIGHT>(acc, ok);
+    const Pivot<T> piv = j == 0 && first ? *first : pivot_pass<STRAIGHT>(acc, ok);
+    const T d = piv.d, inv_d = piv.inv_d;
     f.low[j][j] = d;
-    T inv_d;
-    if constexpr (STRAIGHT) {
-      inv_d = line_rcp<true>(d, ok);
-    } else {
-      inv_d = T(1) / d;
-    }
     f.id[j] = inv_d;
 #pragma unroll
     for (int i = j + 1; i < N; ++i) {
@@ -217,12 +229,24 @@ __device__ __forceinline__ void dense_factor_pass(const K& k_at, DenseFactor<T, 
 
 // The dense factor: in float by the straight line, again by the library's
 // functions where an input left its range (a K that is not positive
-// definite, a NaN); in double by the library's.
+// definite, a NaN); in double by the library's.  `first`: as
+// dense_factor_pass's.
 template <typename T, int N, class K>
-__device__ __forceinline__ void factor_entries(const K& k_at, DenseFactor<T, N>& f) {
+__device__ __forceinline__ void factor_entries(const K& k_at, DenseFactor<T, N>& f,
+                                               const Pivot<T>* first = nullptr) {
   straight_or_library<T>([&](auto line, bool* ok) {
-    dense_factor_pass<decltype(line)::value>(k_at, f, ok);
+    dense_factor_pass<decltype(line)::value>(k_at, f, ok, first);
   });
+}
+
+// The pivot of a, as factor_entries would take it.
+template <typename T>
+__device__ __forceinline__ Pivot<T> pivot_of(T a) {
+  Pivot<T> piv;
+  straight_or_library<T>([&](auto line, bool* ok) {
+    piv = pivot_pass<decltype(line)::value>(a, ok);
+  });
+  return piv;
 }
 
 // L L^T x = b in the order of _solve_entries.
@@ -256,11 +280,30 @@ __device__ __forceinline__ void kahan_add(T& x, T& c, T d) {
   x = t;
 }
 
+// The p-half and q-refinement counts (iters_p, iters_q) as compile-time
+// constants P >= 1 and Q >= 0; IterCounts<0, 0>, the counts read at run time.
+template <int P, int Q>
+struct IterCounts {
+  static constexpr int kP = P, kQ = Q;
+};
+
+// f(IterCounts<P, Q>{}) for the counts the dense chain's callers use, (2,1)
+// (the double pendulum) and (3,1) (chaos_scan, fit_masses), else
+// f(IterCounts<0, 0>{}).
+template <class F>
+int with_iters(int iters_p, int iters_q, F&& f) {
+  if (iters_p == 2 && iters_q == 1) return f(IterCounts<2, 1>{});
+  if (iters_p == 3 && iters_q == 1) return f(IterCounts<3, 1>{});
+  return f(IterCounts<0, 0>{});
+}
+
 // steps_per_call dt-steps of member b under policy P, reading its state from
 // `in` and writing it to `out`, with coefficient entries from `cf`.  Without
 // COMPOSED the one substep's sizes are compile-time indices into `subs`, so
 // plain Verlet keeps no substep loop and reads them as kernel parameters.
-template <typename T, class P, bool COMP, bool COMPOSED, class C>
+// IP > 0: the counts are IP and IQ, not iters_p and iters_q, so the loops
+// over them unroll.
+template <typename T, class P, bool COMP, bool COMPOSED, int IP = 0, int IQ = 0, class C>
 __device__ __forceinline__ void step_member(const C& cf, const T* __restrict__ in,
                                             T* __restrict__ out, long long batch,
                                             long long b, const Substeps<T>& subs,
@@ -268,6 +311,10 @@ __device__ __forceinline__ void step_member(const C& cf, const T* __restrict__ i
                                             int steps_per_call) {
   constexpr int N = P::N;
   constexpr int NSV = COMP ? 6 : 4;
+  if constexpr (IP > 0) {
+    iters_p = IP;
+    iters_q = IQ;
+  }
 
   // state vectors in the order of the reference's carry: q, p, [cq, cp,]
   // a_est, vdot_est

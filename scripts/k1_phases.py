@@ -8,8 +8,11 @@ FORM is a chain form, ``semiseparable`` (default; ``csrc/fused_step.cu``) or
 ``spherical``, ``two_body``, ``room``, ``spring``, ``ellipse``, ``bezier5`` or
 ``bezier2``; or a family on the generated kernel (``csrc/user_family_step.cu``
 around the header ``ops/fused_codegen.py`` prints), ``bezier3`` or
-``elastic``.  All run on the one-thread template ``step_member``
-(``csrc/fused_step.cuh``), but ``dense20`` and ``dense40``: the dense chain
+``elastic``; or the dense chain on one thread a member, ``dense2`` (the
+double pendulum, ``csrc/fused_step.cu``) or ``dense4`` (``fit_masses``'
+chain, ``csrc/chain_variants.cu`` case 4).  All run on the one-thread
+template ``step_member`` (``csrc/fused_step.cuh``), but ``dense20`` and
+``dense40``: the dense chain
 on G lanes a member (``csrc/dense_lanes.cuh``), on the lane template
 ``lane_step`` (``csrc/chain_lanes.cuh``), whose calls of the forms' routines
 are wrapped alike, and whose solve's back half (the dependent chain of
@@ -35,6 +38,10 @@ a short step), builds the form's float32 kernel and runs one launch:
   18 (e)'s row, 16384 members, Kahan (2,0), 50 steps, each family's dt;
 - ``elastic``: phase 18 (f)'s row, the example's sweep of 16384 members
   with per-member tables, (2,1), one step a launch, dt = 5e-3;
+- ``dense2``: ``chip_smoke.py`` phase 4's row (16384 members, (2,1),
+  dt = 1e-3, 50 steps, shared table); ``dense4``: ``fit_masses --fused``'
+  launch (1024 members, (3,1), dt = 1e-2, 24 steps, shared table); both
+  float32 without Kahan, read as aux, aux shift, factor, solves and dH/dq;
 - ``dense20`` and ``dense40``: ``chip_smoke.py`` phase 21 (a)'s rows
   (16384 members, Kahan, 50 steps, shared table; (2,1) at dt = 1e-3 and
   (2,0) at dt = 5e-4), read as aux (and its shift), K and factor, forward
@@ -48,7 +55,11 @@ The package itself is not touched.  ``--sass`` also builds DIR's own
 FORM's float32 Kahan shared-table and per-member instantiations to
 ``chiprun_out/k1_sass_<FORM>.txt``, printing how many shared (``LDS``),
 global (``LDG``) and local (``LDL``) loads, calls, branches and ``MUFU``
-operations each holds.
+operations each holds; for ``dense2`` and ``dense4`` the parts of
+``fused_step.cu`` and ``chain_variants.cu`` that hold them, the
+instantiation each row runs (``dense2`` also ``chaos_scan``'s, per-member
+tables at (3,1)), with the same counts inside the step loop (between the
+outermost backward branch and its target) beside the whole kernel's.
 
 Prints the card's name and power limit and, per form, the cycles a warp
 spends a step in each phase (on lanes, lane 0's of each warp: the lanes of a
@@ -65,6 +76,7 @@ import re
 import shutil
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -84,6 +96,18 @@ LANE_FORMS = {"dense20": (20, (2, 1), 1e-3), "dense40": (40, (2, 0), 5e-4)}
 SOURCES = ("fused_step", "chain_variants", "family_step", "user_family_step", "semisep_wide")
 # the semiseparable chain at n = 40 (csrc/semisep_wide.cu): (iters, dt)
 WIDE_FORMS = {"semiseparable40": ((2, 0), 5e-4)}
+# the dense chain on one thread a member: (n, source, its code, members,
+# iters, dt, steps a launch)
+DENSE_FORMS = {"dense2": (2, "fused_step", 2, 16384, (2, 1), 1e-3, 50),
+               "dense4": (4, "chain_variants", 4, 1024, (3, 1), 1e-2, 24)}
+# the instantiations --sass reads of each, (label, mangled name up to its
+# modes, iters): fused_step_kernel<float, 2, dense, no Kahan, per-member,
+# not composed> and chain_variant_kernel<float, 4, no Kahan, shared, not
+# composed>
+DENSE_SASS = {"dense2": (("shared (2,1)", "fused_step_kernelIfLi2ELb0ELb0ELb0ELb0E", (2, 1)),
+                         ("per-member (3,1)", "fused_step_kernelIfLi2ELb0ELb0ELb1ELb0E",
+                          (3, 1))),
+              "dense4": (("shared (3,1)", "chain_variant_kernelIfLi4ELb0ELb0ELb0E", (3, 1)),)}
 
 PROBE = """
 __device__ unsigned long long g_phase_cycles[8];
@@ -236,8 +260,8 @@ def _wrap_wide(src: Path) -> None:
 
 
 def _launch(form, dev):
-    """``(library path, a launch of the form's row, steps a launch)``,
-    building what the form needs."""
+    """``(library path, a launch of the form's row, steps a launch,
+    members)``, building what the form needs."""
     import numpy as np
     import torch
 
@@ -249,6 +273,22 @@ def _launch(form, dev):
 
     f32, f64 = torch.float32, torch.float64
     rng = np.random.default_rng(16)
+    if form in DENSE_FORMS:
+        n, source, code, batch, iters, dt, spc = DENSE_FORMS[form]
+        lib = kernels.build(source, parts=(kernels.PARTS[source][1](0, code, False),)).paths[0]
+        if n == 2:  # phase 4's members
+            ex = tp.double_pendulum(device=dev, dtype=f32)
+            ph = cs.jittered_phase(ex, batch, f32, dev, 1)
+        else:  # fit_masses --fused' launch
+            ex = tp.chain(n_links=n, device=dev, dtype=f32)
+            ph = tp.Phase(ex.init_phase.q.expand(batch, n).contiguous(),
+                          torch.tensor([0.8, -0.3, 0.5, -0.2], dtype=f32,
+                                       device=dev).expand(batch, n).contiguous())
+        forms = ex.system.fused_forms(ex.system)
+        state = fused_stepper(forms, iters=iters).init(ph)
+        kw = dict(iters=iters, compensated=False, steps_per_call=spc,
+                  coef=coef_table(forms, dev, f32))
+        return lib, lambda: fused_step_kernel(forms, state, dt, **kw), spc, batch
     if form in WIDE_FORMS:
         iters, dt = WIDE_FORMS[form]
         lib = kernels.build("semisep_wide", parts=(0,)).paths[0]
@@ -268,7 +308,7 @@ def _launch(form, dev):
                 stream=torch.cuda.current_stream(dev).cuda_stream)
             return out
 
-        return lib, wide, SPC
+        return lib, wide, SPC, BATCH
     if form in LANE_FORMS:
         n, iters, dt = LANE_FORMS[form]
         part = kernels.PARTS["fused_step"][1](0, n, False)
@@ -279,7 +319,7 @@ def _launch(form, dev):
             cs.jittered_phase(ex, BATCH, f32, dev, 0))
         kw = dict(iters=iters, compensated=True, steps_per_call=SPC,
                   coef=coef_table(forms, dev, f32))
-        return lib, lambda: fused_step_kernel(forms, state, dt, **kw), SPC
+        return lib, lambda: fused_step_kernel(forms, state, dt, **kw), SPC, BATCH
     if form in CHAINS:
         source, code = CHAINS[form]
         lib = kernels.build(source, parts=(kernels.PARTS[source][1](0, code, form == "semiseparable"),)).paths[0]
@@ -291,7 +331,7 @@ def _launch(form, dev):
         state = fused_stepper(forms, iters=(2, 0), compensated=True).init(ph)
         kw = dict(iters=(2, 0), compensated=True, steps_per_call=SPC,
                   coef=coef_table(forms, dev, f32))
-        return lib, lambda: fused_step_kernel(forms, state, 5e-4, **kw), SPC
+        return lib, lambda: fused_step_kernel(forms, state, 5e-4, **kw), SPC, BATCH
     if form == "elastic":
         from hamilton_tpu_torch.examples import elastic_pendulum
 
@@ -308,7 +348,7 @@ def _launch(form, dev):
         lib = kernels.build_user_family(fused_codegen.generated(forms).header)[1].paths[
             kernels.user_family_part(0, 2)]  # float32, per-member table
         kw = dict(iters=(2, 1), compensated=False, steps_per_call=1, coef=table)
-        return lib, lambda: fused_step_kernel(forms, state, 5e-3, **kw), 1
+        return lib, lambda: fused_step_kernel(forms, state, 5e-3, **kw), 1, BATCH
     make = {"spherical": tp.spherical_pendulum, "two_body": tp.two_body, "room": tp.room,
             "spring": tp.spring, "ellipse": tp.ellipse, "bezier5": tp.bezier,
             "bezier2": lambda **k: tp.bezier(cs.BEZIER2_POINTS, **k),
@@ -325,29 +365,61 @@ def _launch(form, dev):
     else:
         lib = kernels.build("family_step").paths[0]
         kw["coef"] = coef_table(forms, dev, f32)
-    return lib, lambda: fused_step_kernel(forms, state, dt, **kw), SPC
+    return lib, lambda: fused_step_kernel(forms, state, dt, **kw), SPC, BATCH
 
 
-def _sass(tree: Path, forms) -> dict:
-    """``cuobjdump -sass`` of ``tree``'s own family_step.cu: each family
-    form's float32 Kahan instantiations (shared and per-member table, one
-    substep) into ``chiprun_out/k1_sass_<form>.txt``; the counts of
-    :data:`SASS_OPS` in each."""
+def _ops(block: str) -> list:
+    """``[(address, opcode, operands)]`` of one function's SASS."""
+    return [(int(a, 16), op, rest) for a, op, rest in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)\S*([^\n]*)", block)]
+
+
+def _counts(ops) -> dict:
+    return {op: sum(1 for _, o, _ in ops if o == op) for op in SASS_OPS} | {
+        "instructions": len(ops)}
+
+
+def _step_loop(ops) -> list:
+    """The instructions of the outermost loop (the widest backward branch
+    and its target), or none."""
+    loops = [(int(m.group(1), 16), addr) for addr, op, rest in ops if op == "BRA"
+             for m in [re.search(r"0x([0-9a-f]+)", rest.split(";")[0])]
+             if m and int(m.group(1), 16) < addr]
+    if not loops:
+        return []
+    lo, hi = max(loops, key=lambda span: span[1] - span[0])
+    return [o for o in ops if lo <= o[0] <= hi]
+
+
+def _sass_of(tree: Path, source: str, part) -> list:
+    """``cuobjdump -sass`` of ``tree``'s own (unprobed) ``source``, built in
+    a subprocess that imports the tree's package: its functions."""
     build = ("import sys; sys.path.insert(0, sys.argv[1]); "
              "from hamilton_tpu_torch import kernels; "
-             "print(kernels.build('family_step').paths[0])")
+             f"print(kernels.build({source!r}"
+             + ("" if part is None else f", parts=({part},)") + ").paths[0])")
     lib = subprocess.run([sys.executable, "-c", build, str(tree.resolve())], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[-1]
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
                           check=True).stdout
-    blocks = re.split(r"\n\s*Function : ", sass)
+    return re.split(r"\n\s*Function : ", sass)
+
+
+def _sass(tree: Path, forms) -> dict:
+    """``cuobjdump -sass`` of ``tree``'s own kernels: each family form's
+    float32 Kahan instantiations (shared and per-member table, one substep)
+    of ``family_step.cu``, and each dense form's instantiations of
+    :data:`DENSE_SASS` (the one with its counts as constants where the tree
+    has it, else the one that reads them at run time), into
+    ``chiprun_out/k1_sass_<form>.txt``; the counts of :data:`SASS_OPS` in
+    each (for a dense form also inside its step loop)."""
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     counts = {}
-    for form in forms:
-        if form not in FAMILIES:
-            continue
+    families = [form for form in forms if form in FAMILIES]
+    blocks = _sass_of(tree, "family_step", None) if families else []
+    for form in families:
         code = FAMILIES[form][0]
         text = []
         for pm in (0, 1):
@@ -355,12 +427,39 @@ def _sass(tree: Path, forms) -> dict:
             block = next((b for b in blocks if name in b.split("\n", 1)[0]), None)
             if block is None:
                 continue
-            ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", block)
-            counts[f"{form} {'per-member' if pm else 'shared'}"] = {
-                op: sum(1 for o in ops if o == op) for op in SASS_OPS} | {"instructions": len(ops)}
+            counts[f"{form} {'per-member' if pm else 'shared'}"] = _counts(_ops(block))
+            text.append(f"Function : {block}")
+        (out_dir / f"k1_sass_{form}.txt").write_text("\n".join(text))
+    dense = [f for f in forms if f in DENSE_FORMS]
+    with ThreadPoolExecutor(max_workers=max(len(dense), 1)) as pool:  # built at once
+        sass_of = dict(zip(dense, pool.map(
+            lambda f: _sass_of(tree, DENSE_FORMS[f][1],
+                               _tree_part(tree, DENSE_FORMS[f][1], DENSE_FORMS[f][2])), dense)))
+    for form in dense:
+        blocks = sass_of[form]
+        text = []
+        for label, prefix, (ip, iq) in DENSE_SASS[form]:
+            heads = {b.split("\n", 1)[0]: b for b in blocks}
+            block = next((b for h, b in heads.items() if f"{prefix}Li{ip}ELi{iq}E" in h), None)
+            block = block or next((b for h, b in heads.items() if f"{prefix}E" in h), None)
+            if block is None:
+                continue
+            ops = _ops(block)
+            counts[f"{form} {label}"] = _counts(ops)
+            counts[f"{form} {label} step loop"] = _counts(_step_loop(ops))
             text.append(f"Function : {block}")
         (out_dir / f"k1_sass_{form}.txt").write_text("\n".join(text))
     return counts
+
+
+def _tree_part(tree: Path, source: str, code: int) -> int:
+    """The part of ``tree``'s ``source`` that holds its float32 dense case
+    ``code`` (``kernels.PARTS``, read from the tree's package)."""
+    get = ("import sys; sys.path.insert(0, sys.argv[1]); "
+           "from hamilton_tpu_torch import kernels; "
+           f"print(kernels.PARTS[{source!r}][1](0, {code}, False))")
+    return int(subprocess.run([sys.executable, "-c", get, str(tree.resolve())],
+                              capture_output=True, text=True, check=True).stdout.split()[-1])
 
 
 def main(argv) -> int:
@@ -375,7 +474,7 @@ def main(argv) -> int:
             return 2
     forms = argv or ["semiseparable"]
     unknown = [f for f in forms if f not in CHAINS and f not in FAMILIES and f not in GENERATED
-               and f not in LANE_FORMS and f not in WIDE_FORMS]
+               and f not in LANE_FORMS and f not in WIDE_FORMS and f not in DENSE_FORMS]
     if unknown:
         print(f"unknown forms {unknown}\n{__doc__}", file=sys.stderr)
         return 2
@@ -397,9 +496,14 @@ def main(argv) -> int:
     from hamilton_tpu_torch.utils.profiling import time_queued
 
     dev = torch.device("cuda")
+    # the dense forms' parts, built at once
+    units = {(DENSE_FORMS[f][1], kernels.PARTS[DENSE_FORMS[f][1]][1](0, DENSE_FORMS[f][2], False))
+             for f in forms if f in DENSE_FORMS}
+    with ThreadPoolExecutor(max_workers=max(len(units), 1)) as pool:
+        list(pool.map(lambda u: kernels.build(u[0], parts=(u[1],)), units))
     runs = {form: _launch(form, dev) for form in forms}
     rows = {}
-    for form, (lib_path, launch, spc) in runs.items():
+    for form, (lib_path, launch, spc, batch) in runs.items():
         lib = ctypes.CDLL(str(lib_path))
         launch()
         torch.cuda.synchronize()
@@ -412,7 +516,7 @@ def main(argv) -> int:
         lanes = (kernels.lane_layout("fused_step", 0, LANE_FORMS[form][0], semiseparable=False)[0]
                  if form in LANE_FORMS else
                  kernels.lane_layout("semisep_wide", 0, 40)[0] if form in WIDE_FORMS else 1)
-        warp_steps = BATCH * lanes // 32 * spc
+        warp_steps = (batch * lanes + 31) // 32 * spc
         cycles = {name: out[k] / warp_steps for k, name in enumerate(PHASES)}
         cycles["step"] = out[5] / warp_steps
         if form in WIDE_FORMS:  # the shift to q1 and the hand-off
@@ -420,6 +524,10 @@ def main(argv) -> int:
                       "factor": cycles["factor"], "solves": cycles["solve"],
                       "dH/dq": cycles["dhdq"], "hand-off": out[6] / warp_steps,
                       "step": cycles["step"]}
+        if form in DENSE_FORMS:  # the chain's names of the phases
+            cycles = {"aux": cycles["aux"], "aux shift": cycles["aux_at"],
+                      "factor": cycles["factor"], "solves": cycles["solve"],
+                      "dH/dq": cycles["dhdq"], "step": cycles["step"]}
         if form in LANE_FORMS:  # the dense lane step's phases
             back = out[6] / warp_steps
             cycles = {"aux": cycles["aux"] + cycles["aux_at"], "K and factor": cycles["factor"],

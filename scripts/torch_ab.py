@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time several versions of the PyTorch port on one card, in turns.
 
-    python3 scripts/torch_ab.py [--rounds N | --build-only | --accuracy] TREE [TREE ...]
+    python3 scripts/torch_ab.py [--rounds N | --build-only | --accuracy] [--only R,R,...]
+                                TREE [TREE ...]
 
 Each TREE is a directory holding a ``hamilton_tpu_torch/`` package: the root
 of a checkout, or a parent commit unpacked with ``git archive`` into the
@@ -23,6 +24,12 @@ Readings, all on 16384 members:
   Each is the device ms of one launch, from CUDA events around 100 launches
   queued behind a held stream (``utils.profiling.time_queued`` of this
   checkout, for every tree);
+- the dense chain's K1 on one thread a member at its callers' shapes:
+  ``chaos_scan`` (``chip_smoke.py`` phase 20 (a): ``csrc/fused_step.cu``'s
+  dense n=2, 16384 pair members, per-member tables, (3,1), dt=5e-3, 40
+  steps a launch) and ``fit_masses`` (phase 17 (d): ``csrc/
+  chain_variants.cu``'s dense n=4, 1024 members, (3,1), dt=1e-2, 24 steps a
+  launch), float32 without Kahan, device ms as above;
 - the families' K1 (``csrc/family_step.cu``) on ``chip_smoke.py`` phase 15
   (e)'s rows (``family_<name>``: f32 Kahan (2,0), 50 steps a launch, each
   family's dt, the shared table, the same inputs), and the generated K1
@@ -54,6 +61,11 @@ bytes per instantiation, named by ``chip_smoke.py``'s parsers) and of the K2
 kernels (``csrc/batched_spd.cu``, named by their mangled template names) is
 held against the first tree's, instantiation by instantiation;
 ``--build-only`` stops there.
+``--only`` times only the readings named (the others print as n/a), and
+where each of them is a K1 reading of the dense chain on one thread
+(``double_pendulum``, its ``_host`` and ``_wall``, ``chaos_scan``,
+``fit_masses``) builds only the parts of ``fused_step.cu`` and
+``chain_variants.cu`` that hold them, and compares their reports.
 ``--accuracy`` then runs, for each tree in turn, ``chip_smoke.py``'s phase 1
 semiseparable rows (chain-20 and chain-5, shared and per-member tables,
 plain and ``suzuki4``, 1000, 1, 7 and 16383 members, float64 and float32,
@@ -95,11 +107,17 @@ def _k2_reading(entry: str, dtype: str, n: int) -> str:
 # drawn across them in turn)
 FAMILY_READINGS = ("spherical", "twobody", "spring", "room", "ellipse", "bezier", "bezier2")
 READINGS = ("headline", "double_pendulum", "sweep", "suzuki4", "mobius", "linv", "headline_host",
-            "double_pendulum_host", "double_pendulum_wall", "library_leapfrog_step",
+            "double_pendulum_host", "double_pendulum_wall", "chaos_scan", "fit_masses",
+            "library_leapfrog_step",
             "adaptive_f64") + tuple(f"family_{f}" for f in FAMILY_READINGS) + (
                 "generated_bezier3", "generated_elastic") + tuple(
                     f"{_k2_reading(*k)}{r}" for k in K2_READINGS for r in ("", "_rotating"))
 DP_WALL_LAUNCHES = 400
+# the dense chain's one-thread readings: reading → (source, its code), the
+# part of each source that holds it (float32) is all --only builds for them
+DENSE_UNITS = {"double_pendulum": ("fused_step", 2), "double_pendulum_host": ("fused_step", 2),
+               "double_pendulum_wall": ("fused_step", 2), "chaos_scan": ("fused_step", 2),
+               "fit_masses": ("chain_variants", 4)}
 # the K2 kernels as each tree's report names them (the mangled template name)
 _K2_ANY_RE = re.compile(r"(?:solve_tile_kernel|jac_tile_kernel|factor_solve_kernel"
                         r"|factor_lanes_kernel|factor_kernel|substitute_lanes_kernel"
@@ -176,8 +194,9 @@ def _wall_ms(fn):
     return (time.perf_counter() - t0) * 1e3
 
 
-def _time_tree(tree: str) -> dict:
-    """Each reading with this tree's package (None where the tree lacks it)."""
+def _time_tree(tree: str, only=None) -> dict:
+    """Each reading with this tree's package (None where the tree lacks it,
+    or ``only`` does not name it)."""
     sys.path.insert(0, str(Path(tree).resolve()))
     import numpy as np
     import torch
@@ -212,6 +231,9 @@ def _time_tree(tree: str) -> dict:
                 for s in ("mobius", "linv")}
     dp = tp.double_pendulum(device=dev, dtype=f32)
 
+    def want(*readings):
+        return only is None or any(r in only for r in readings)
+
     def swept():
         rng = np.random.default_rng(7)
         lengths = chain.system.params["lengths"].cpu().numpy()
@@ -233,8 +255,8 @@ def _time_tree(tree: str) -> dict:
     }
     out = {}
     for name, (system_fn, ex, method, iters, comp, dt) in kernel_setups.items():
-        if not has[name]:
-            out[name] = None  # not in this version
+        if not has[name] or not want(name, f"{name}_host", f"{name}_wall"):
+            out[name] = None  # not in this version, or not asked for
             continue
         st = tp.make_stepper(system_fn(), method, iters=iters, compensated=comp,
                              steps_per_call=SPC)
@@ -252,22 +274,62 @@ def _time_tree(tree: str) -> dict:
 
             out["double_pendulum_wall"] = _wall_ms(run) / DP_WALL_LAUNCHES
 
-    lib = tp.make_stepper(chain.system, "leapfrog", iters=(2, 0), compensated=True)
-    carry = lib.init(phase(chain))
-    carry = lib.step(lib.step(carry, 5e-4), 5e-4)  # warm-up
+    if want("library_leapfrog_step"):
+        lib = tp.make_stepper(chain.system, "leapfrog", iters=(2, 0), compensated=True)
+        carry = lib.init(phase(chain))
+        carry = lib.step(lib.step(carry, 5e-4), 5e-4)  # warm-up
 
-    def leapfrog():
-        c = carry
-        for _ in range(LEAPFROG_STEPS):
-            c = lib.step(c, 5e-4)
+        def leapfrog():
+            c = carry
+            for _ in range(LEAPFROG_STEPS):
+                c = lib.step(c, 5e-4)
 
-    out["library_leapfrog_step"] = _wall_ms(leapfrog) / LEAPFROG_STEPS
-    ch64 = tp.chain(n_links=20, device=dev, dtype=f64)
-    ph64 = phase(ch64, f64)
-    tp.evolve_ham(ch64.system, ph64, [0.0, 0.01])  # warm-up
-    out["adaptive_f64"] = _wall_ms(lambda: tp.evolve_ham(ch64.system, ph64, [0.0, 0.05]))
-    out.update(_time_families(time_queued))
-    out.update(_time_k2(time_queued))
+        out["library_leapfrog_step"] = _wall_ms(leapfrog) / LEAPFROG_STEPS
+    if want("adaptive_f64"):
+        ch64 = tp.chain(n_links=20, device=dev, dtype=f64)
+        ph64 = phase(ch64, f64)
+        tp.evolve_ham(ch64.system, ph64, [0.0, 0.01])  # warm-up
+        out["adaptive_f64"] = _wall_ms(lambda: tp.evolve_ham(ch64.system, ph64, [0.0, 0.05]))
+    with torch.no_grad():
+        for name, launch in _dense_launches(dev, want).items():
+            launch()  # warm-up
+            out[name], _ = time_queued(launch, REPS)
+    if want(*(r for r in READINGS if r.startswith(("family_", "generated_")))):
+        out.update(_time_families(time_queued))
+    if want(*(_k2_reading(*k) for k in K2_READINGS)):
+        out.update(_time_k2(time_queued))
+    return {r: v for r, v in out.items() if want(r)}
+
+
+def _dense_launches(dev, want) -> dict:
+    """``{reading: a launch}`` of the dense chain's one-thread K1 at
+    ``chaos_scan``'s and ``fit_masses --fused``' shapes and inputs (those
+    ``want`` asks for), through the tree's package."""
+    import torch
+
+    import hamilton_tpu_torch as tp
+    from hamilton_tpu_torch.examples import chaos_scan
+    from hamilton_tpu_torch.ops.fused_step import coef_table, fused_step_kernel, fused_stepper
+
+    f32 = torch.float32
+    out = {}
+    if want("chaos_scan"):
+        system, pairs, _, _ = chaos_scan.chaos_setup(64, 128, eps=1e-4, device=dev, dtype=f32)
+        forms = system.fused_forms(system)
+        state, table = fused_stepper(forms, iters=(3, 1), steps_per_call=40).init(pairs)
+        out["chaos_scan"] = lambda: fused_step_kernel(
+            forms, state, 5e-3, iters=(3, 1), compensated=False, steps_per_call=40, coef=table)
+    if want("fit_masses"):
+        ex4 = tp.chain(n_links=4, device=dev, dtype=f32)
+        forms4 = ex4.system.fused_forms(ex4.system)
+        ph4 = tp.Phase(ex4.init_phase.q.expand(1024, 4).contiguous(),
+                       torch.tensor([0.8, -0.3, 0.5, -0.2], dtype=f32,
+                                    device=dev).expand(1024, 4).contiguous())
+        state4 = fused_stepper(forms4, iters=(3, 1)).init(ph4)
+        coef4 = coef_table(forms4, dev, f32)
+        out["fit_masses"] = lambda: fused_step_kernel(
+            forms4, state4, 1e-2, iters=(3, 1), compensated=False, steps_per_call=24,
+            coef=coef4)
     return out
 
 
@@ -396,15 +458,24 @@ def _ptxas_rows(logs: dict) -> dict:
                 log, *patterns.get(src, (cs._USER_RE, cs._user_label)))}
 
 
-def _build_tree(tree: str) -> list:
+def _build_tree(tree: str, only=None) -> list:
     """Build the tree's kernels (every source at once, then the generated
-    kernels of phase 18): ``[seconds, {source: nvcc report}]``."""
+    kernels of phase 18; or, where ``only`` names dense one-thread readings
+    alone, the parts that hold them): ``[seconds, {source: nvcc report}]``."""
     sys.path.insert(0, str(Path(tree).resolve()))
     import torch
 
     from hamilton_tpu_torch import kernels
 
     t = time.perf_counter()
+    if only is not None and set(only) <= set(DENSE_UNITS):
+        parts = {}
+        for reading in only:
+            source, code = DENSE_UNITS[reading]
+            parts.setdefault(source, set()).add(kernels.PARTS[source][1](0, code, False))
+        logs = {source: kernels.build(source, parts=tuple(sorted(p))).log
+                for source, p in parts.items()}
+        return [time.perf_counter() - t, logs]
     built = kernels.build_all()
     logs = {k: built[k].log for k in ("fused_step", "chain_variants", "family_step",
                                       "batched_spd")}
@@ -415,11 +486,15 @@ def _build_tree(tree: str) -> list:
 
 
 def main(argv) -> int:
+    only_args = []
+    if len(argv) >= 2 and argv[0] == "--only":
+        only_args, argv = argv[:2], argv[2:]
+    only = only_args[1].split(",") if only_args else None
     if len(argv) >= 2 and argv[0] == "--time":
-        print(json.dumps(_time_tree(argv[1])), flush=True)
+        print(json.dumps(_time_tree(argv[1], only)), flush=True)
         return 0
     if len(argv) >= 2 and argv[0] == "--build-tree":
-        print(json.dumps(_build_tree(argv[1])), flush=True)
+        print(json.dumps(_build_tree(argv[1], only)), flush=True)
         return 0
     if len(argv) >= 2 and argv[0] == "--accuracy-tree":
         print(json.dumps(_accuracy_tree(argv[1])), flush=True)
@@ -429,13 +504,16 @@ def main(argv) -> int:
         rounds, argv = int(argv[1]), argv[2:]
     elif argv and argv[0] in ("--build-only", "--accuracy"):
         build_only, accuracy, argv = argv[0] == "--build-only", argv[0] == "--accuracy", argv[1:]
+    if len(argv) >= 2 and argv[0] == "--only":
+        only_args, argv = argv[:2], argv[2:]
+        only = only_args[1].split(",")
     trees = argv
-    if not trees or rounds < 1:
+    if not trees or rounds < 1 or (only is not None and not set(only) <= set(READINGS)):
         print(__doc__, file=sys.stderr)
         return 2
     card = _card()
     print(card, flush=True)
-    procs = [subprocess.Popen([sys.executable, __file__, "--build-tree", t],
+    procs = [subprocess.Popen([sys.executable, __file__, *only_args, "--build-tree", t],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for t in trees]
     first = None
@@ -479,7 +557,7 @@ def main(argv) -> int:
     order = (list(range(len(trees))) + list(reversed(range(len(trees))))) * rounds
     for i in order:
         t0 = time.perf_counter()
-        res = subprocess.run([sys.executable, __file__, "--time", trees[i]],
+        res = subprocess.run([sys.executable, __file__, *only_args, "--time", trees[i]],
                              capture_output=True, text=True, timeout=900)
         if res.returncode != 0:
             raise RuntimeError(f"timing {trees[i]} failed:\n{res.stderr}")

@@ -191,6 +191,44 @@ def test_straight_line_libm_equals_the_library(card):
                                          "frcp": 0}
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("swept", [False, True], ids=["shared", "per_member"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_dense_one_thread_kernel_at_the_callers_counts(card, n, swept, dtype):
+    """The dense chain on one thread a member (``csrc/fused_step.cu`` at
+    n = 2, ``csrc/chain_variants.cu`` case 4) at the counts its callers use,
+    which the kernel takes as constants, (2,1) and (3,1), and at (2,0), read
+    at run time; 16383 members, three with every angle past the
+    straight-line sine-cosine's range (the library's ``sincosf``), ten steps
+    a launch.  n = 4 (no FMA contraction) equals its plain version bit for
+    bit; n = 2 agrees to float64 rounding (dt·vdot_est) or within
+    ``chip_smoke.TOL``'s float32 limits."""
+    batch = 16383
+    for iters, comp in (((2, 1), False), ((3, 1), True), ((2, 0), False)):
+        _, forms, carry = _chain_state("dense", n, card, dtype, iters, comp, swept,
+                                       batch=batch, seed=7)
+        state, table = carry if swept else (carry, None)
+        state[0, :, [5, 600, batch - 1]] = torch.tensor(
+            [2.0e5, -1.5e5, 3.1e5], dtype=dtype, device=card) + 0.1 * torch.arange(
+                n, dtype=dtype, device=card)[:, None]
+        kw = dict(iters=iters, compensated=comp, steps_per_call=10, coef=table)
+        got = t_step.fused_step_kernel(forms, state, 1e-3, **kw)
+        want = t_step.fused_step_reference(forms, state, 1e-3, **kw)
+        assert bool(torch.isfinite(got).all())
+        if n == 4:
+            assert torch.equal(got, want), (iters, float((got - want).abs().max()))
+            continue
+        diff = (got - want).double()
+        if dtype == torch.float64:
+            diff[-1] *= 1e-3
+            assert float(diff.abs().max()) < 1e-11, iters
+            continue
+        want = want.double()
+        assert float(diff[:2].abs().max()) <= 1e-6, iters
+        assert float(diff[-2].abs().max()) <= 2e-6 * float(want[-2].abs().max()), iters
+        assert float(diff[-1].abs().max()) <= 5e-2 * float(want[-1].abs().max()), iters
+
+
 def test_uninstantiated_size_raises_on_the_card(card):
     """A chain size no hand-written kernel is compiled for (n = 7) no longer
     raises: it runs on the kernel generated from the chain's forms (its own
