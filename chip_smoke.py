@@ -355,9 +355,10 @@ SWEEP_STEPS, SWEEP_DT = 200_000, 5e-4
 ORDER4_STEPS, ORDER4_DT = 100_000, 1e-3
 # the probes against their plain versions: K3a does one single-rounding FMA
 # a rep on both sides, and K3c one add, so both are equal bit for bit; K3b
-# is libdevice sinf against PyTorch's float32 sin on the card (every reading
-# on an H100 80GB HBM3 has been 0: the same libdevice function), and the
-# limit allows a few ulps of (0, 1) from a differing sin
+# is the straight-line sinf (sinf itself outside its range) against
+# PyTorch's float32 sin on the card (every reading on an H100 80GB HBM3 has
+# been 0: sinf bit for bit, csrc/libm_check.cu), and the limit allows a few
+# ulps of (0, 1) from a differing sin
 K3_TOL = {"fma_probe": 0.0, "sin_probe": 1e-6, "add_one": 0.0}
 # the probe sweeps: per-thread chains x block size for K3a/K3b, blocks of
 # 256 threads for K3c (132 SMs; 131072 blocks give each thread one float4)
@@ -3680,10 +3681,15 @@ def main() -> int:
     # nothing folded: half the repetitions take half the time (same rate)
     fma_half = rl.vpu_peak_probe(reps=8192, ilp=best_fma[0], block=best_fma[1], device=dev)
     sin_half = rl.vpu_trig_probe(reps=512, ilp=best_sin[0], block=best_sin[1], device=dev)
+    # K3b's bound: a sine's work on its slowest pipe at the published peak's clock
+    sin_bound_rate = rl.PEAK_FLOPS[torch.float32] / rl.SIN_FLOPS
     log(f"phase 12: ceilings on {card}: float32 FMA {fma_peak:.6e} FLOP/s "
         f"({fma_peak / rl.PEAK_FLOPS[torch.float32]:.4f} of the published 67 TFLOP/s; "
-        f"chains {best_fma[0]}, block {best_fma[1]}), sinf {sin_peak:.6e} sin/s (chains "
-        f"{best_sin[0]}, block {best_sin[1]}; {fma_peak / sin_peak:.2f} flops per sin), "
+        f"chains {best_fma[0]}, block {best_fma[1]}), "
+        f"straight-line sin/s {sin_peak:.6e} (chains {best_sin[0]}, block {best_sin[1]}; "
+        f"{fma_peak / sin_peak:.2f} flops per sin; {sin_peak / sin_bound_rate:.4f} of its "
+        f"bound {sin_bound_rate:.6e} sin/s, a sine's 2 conversions at 16 a clock an SM "
+        f"at the published peak's clock), "
         f"device memory {hbm_peak:.6e} B/s ({hbm_peak / rl.PEAK_BYTES_PER_S:.4f} of the "
         f"published 3.35 TB/s; {best_hbm} blocks); at half the reps the rates are "
         f"{fma_half / fma_peak:.4f} (FMA) and {sin_half / sin_peak:.4f} (sin) of these")
@@ -3701,7 +3707,8 @@ def main() -> int:
     log(f"phase 12: headline fused_step_cost: {head_cost}; at {head_rate:.6e} "
         f"member-steps/s: {head_flops:.6e} FLOP/s = {head_flops / fma_peak:.4f} of the FMA "
         f"ceiling ({head_flops / rl.PEAK_FLOPS[torch.float32]:.4f} of the published peak), "
-        f"{head_sins:.6e} transcendentals/s = {head_sins / sin_peak:.4f} of the sin ceiling, "
+        f"{head_sins:.6e} transcendentals/s = {head_sins / sin_peak:.4f} of the "
+        f"straight-line sin ceiling, "
         f"{head_rate * head_cost['bytes_per_member_step'] / hbm_peak:.6f} of the memory "
         f"ceiling")
     summary.update({
@@ -3740,7 +3747,7 @@ def main() -> int:
         "sin_probe": (lambda: rl.sin_chain(x5, 1024, chains=best_sin[0], block=best_sin[1]),
                       lambda: rl.sin_chain_plain(x5, 1024), None,
                       elems * 1024 / sin_peak,
-                      rl.bound(elems * 2 * 1024, 2 * elems * 4),
+                      rl.sin_probe_bound(elems, 1024),
                       f"sin_probe (K3b) {elems} float32 x 1024 reps, chains {best_sin[0]}, "
                       f"block {best_sin[1]}"),
         "add_one": (lambda: rl.add_one(a_big, blocks=best_hbm),

@@ -17,10 +17,11 @@
 //     g, g+G, ... in registers, and runs the elementwise work on them, the
 //     aux's sin and cos among it;
 //   - the factor: the semiseparable generators (zx, zy, 1/d, ux, uy), a
-//     sequential recursion over the links with a square root and a division
-//     a link, run by every lane alike from the aux in shared memory, each
-//     lane storing its links' share; then lane g computes the columns of
-//     L^-1 of the pairs (p, n-1-p), p = g, g+G, ... (n+1 entries a pair);
+//     sequential recursion over the links with a square root and a
+//     reciprocal a link (in float straight-line, libm_fast.cuh), run by
+//     every lane alike from the aux in shared memory, each lane storing its
+//     links' share; then lane g computes the columns of L^-1 of the pairs
+//     (p, n-1-p), p = g, g+G, ... (n+1 entries a pair);
 //   - a solve: each of the 2n dots of its two triangular mat-vecs a balanced
 //     tree over its terms zero-padded to a power of two (the least >= its
 //     length, at least G).  That tree is bitwise the plain version's
@@ -65,6 +66,12 @@ constexpr int kLinvMinBlocks = 4;
 // for twice the build seconds (PERF.md section 6, H100); at n = 20 out of
 // line keeps the build short.
 constexpr int kLaneInlineUpTo = 8;
+// The n up to which the L^-1 lane aux takes the straight-line sin/cos in
+// float (beside the straight-line generators at every n): ten same-call
+// pairs on an H100 80GB HBM3 at 700 W read it 0.953x the library's sin and
+// cos at n = 5, and 1.009x at n = 20, where the routines run out of line
+// (PERF.md section 6).
+constexpr int kLinvStraightAuxUpTo = kLaneInlineUpTo;
 constexpr unsigned kMaxShared = 232448;  // dynamic shared memory a block may have
 
 // The least power of two >= n.
@@ -200,16 +207,19 @@ struct Chunk {
 
 // ---- the factor ------------------------------------------------------------
 
-// The semiseparable generators (chain_forms.cuh's factor, in its order) from
-// the aux in shared memory, run by every lane alike and stored by link a's
-// lane (a % G).
-template <class Sh, class C>
-__device__ __forceinline__ void lane_generators(const C& cf) {
+// The semiseparable generators (chain_forms.cuh's factor_pass, in its order)
+// from the aux in shared memory with STRAIGHT's square roots and reciprocals
+// (the library's sqrt and 1/d otherwise), run by every lane alike and
+// stored by link a's lane (a % G); whether every input was in their range
+// (alike on every lane of the member).
+template <bool STRAIGHT, class Sh, class C>
+__device__ __forceinline__ bool lane_generators_pass(const C& cf) {
   using T = typename Sh::T;
   constexpr int N = Sh::N, S = Sh::S, G = Sh::G;
   T* mem = Sh::member();
   const int g = Sh::lane();
   T* gen = mem + Sh::kGen * S;
+  bool ok = true;
   T pxx = T(0), pxy = T(0), pyy = T(0);
 #pragma unroll
   for (int a = 0; a < N; ++a) {
@@ -225,8 +235,8 @@ __device__ __forceinline__ void lane_generators(const C& cf) {
       yx = si * ux - (pxx * ux + pxy * uy);
       yy = si * uy - (pxy * ux + pyy * uy);
     }
-    const T d = dsqrt(ux * yx + uy * yy);
-    const T inv_d = T(1) / d;
+    const T d = line_sqrt<STRAIGHT>(ux * yx + uy * yy, &ok);
+    const T inv_d = line_rcp<STRAIGHT>(d, &ok);
     const T zx = yx * inv_d;
     const T zy = yy * inv_d;
     if (a == 0) {
@@ -245,6 +255,19 @@ __device__ __forceinline__ void lane_generators(const C& cf) {
       gen[(3 * N + a) * S] = ux;
       gen[(4 * N + a) * S] = uy;
     }
+  }
+  return ok;
+}
+
+// The generators: in float by the straight line, again by the library's
+// functions where an input of the member left their range (a NaN, a d^2
+// below the straight-line sqrt's range); in double by the library's.
+template <class Sh, class C>
+__device__ __forceinline__ void lane_generators(const C& cf) {
+  if constexpr (std::is_same<typename Sh::T, float>::value) {
+    if (!lane_generators_pass<true, Sh>(cf)) lane_generators_pass<false, Sh>(cf);
+  } else {
+    lane_generators_pass<false, Sh>(cf);
   }
   __syncwarp(Sh::mask());
 }
@@ -433,10 +456,11 @@ struct LaneDhdq {
 // The chain's trig aux on a member's lanes: each lane the sin and cos of its
 // links into the member's aux slots (Sh::kS, Sh::kC), and their first-order
 // shift to q_new from q_base in float32 (re-evaluated in float64).  With
-// SINCOS (the dense form), in float each lane's pairs through the
-// straight-line sincos_fast where every angle of the lane is in its range,
-// else through the library's one reduction (both are sinf and cosf bit for
-// bit, csrc/libm_check.cu); otherwise (L^-1) sin and cos one by one.
+// SINCOS (the dense form; L^-1 at small n), in float each lane's pairs
+// through the straight-line sincos_fast where every angle of the lane is in
+// its range, else through the library's one reduction (both are sinf and
+// cosf bit for bit, csrc/libm_check.cu); otherwise, and in double, sin and
+// cos one by one.
 template <class Sh, bool SINCOS>
 struct LaneTrig {
   using T = typename Sh::T;
@@ -498,11 +522,12 @@ struct LaneTrig {
   }
 };
 
-// The L^-1 form's routines on the member's lanes, for lane_step: the aux, the
+// The L^-1 form's routines on the member's lanes, for lane_step: the aux (its
+// sin and cos straight-line in float up to n = kLinvStraightAuxUpTo), the
 // factor, a solve of rhs (this lane's links) into the x slots, the x slots at
 // this lane's links, and dH/dq at them with w the last solve's x.
 template <class Sh, class C>
-struct LinvLaneForms : LaneTrig<Sh, false> {
+struct LinvLaneForms : LaneTrig<Sh, (Sh::N <= kLinvStraightAuxUpTo)> {
   using T = typename Sh::T;
   static constexpr int N = Sh::N, J = Sh::J, S = Sh::S;
   C cf;

@@ -4,8 +4,9 @@
 // plain version's kernel called before them, sinf, cosf, sqrtf and 1/x, on
 // the card: every float bit pattern in each one's range, compared bit for
 // bit.  Checked are the straight-line versions (sincos_fast, sqrt_fast,
-// rcp_fast) and the library's functions that take over where an input is
-// outside their range (sincosf for the aux, __frcp_rn for the factor).
+// rcp_fast; sin_fast, the sine probe K3b's) and the library's functions
+// that take over where an input is outside their range (sincosf for the
+// aux, __frcp_rn for the factor).
 // Not a kernel of the step: chip_smoke.py (phase 1) and the card-only tests
 // run it, because the straight-line versions restate the library's
 // expansions as nvcc compiles them, and another toolkit could change those.
@@ -20,16 +21,16 @@ __device__ __forceinline__ bool same_bits(float a, float b) {
   return __float_as_uint(a) == __float_as_uint(b) || (a != a && b != b);  // NaNs alike
 }
 
-constexpr int kChecks = 5;
+constexpr int kChecks = 6;
 
 // Counts into mismatches[0..kChecks) the floats x (a grid-strided pass over
 // all 2^32 bit patterns) whose value differs from the reference's:
 // sincos_fast (either value) from sinf and cosf where in its range; the
 // library's sincosf from them on every float; sqrt_fast from sqrtf and
 // rcp_fast from 1/x where in their ranges; __frcp_rn from 1/x on every
-// float.
+// float; sin_fast from sinf in sincos_fast's range.
 __global__ void libm_check_kernel(unsigned long long* mismatches) {
-  unsigned long long bad[kChecks] = {0, 0, 0, 0, 0};
+  unsigned long long bad[kChecks] = {0, 0, 0, 0, 0, 0};
   const unsigned long long stride = static_cast<unsigned long long>(gridDim.x) * blockDim.x;
   for (unsigned long long u =
            static_cast<unsigned long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -40,6 +41,7 @@ __global__ void libm_check_kernel(unsigned long long* mismatches) {
     if (sincos_fast_range(x)) {
       sincos_fast(x, &s1, &c1);
       bad[0] += same_bits(s, s1) && same_bits(c, c1) ? 0 : 1;
+      bad[5] += same_bits(s, sin_fast(x)) ? 0 : 1;
     }
     sincosf(x, &s1, &c1);
     bad[1] += same_bits(s, s1) && same_bits(c, c1) ? 0 : 1;
@@ -57,7 +59,7 @@ extern "C" {
 
 // The floats whose value differs from the reference's, each check of
 // libm_check_kernel in its order, all 2^32 bit patterns tried, into
-// mismatches[0..5) (host memory); synchronizes.  Returns 0 or a
+// mismatches[0..6) (host memory); synchronizes.  Returns 0 or a
 // CUDA error's code.
 int hamilton_libm_check(unsigned long long* mismatches) {
   unsigned long long* dev = nullptr;

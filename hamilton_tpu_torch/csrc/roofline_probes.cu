@@ -1,5 +1,6 @@
 // Speed-of-light probes for NVIDIA Hopper (sm_90a): the card's float32 FMA
-// rate, its float32 sinf rate and its device-memory bandwidth.
+// rate, the rate of the float32 sine the step kernels run and its
+// device-memory bandwidth.
 //
 // Replace the TPU probes of hamilton_tpu/utils/roofline.py:
 //   K3a hamilton_fma_probe  <- _vpu_probe_fn (pl.pallas_call at :277),
@@ -16,9 +17,18 @@
 //     every chain is stored at the end, so nvcc can neither fold nor drop
 //     the loop.  Element k of thread t is x[k * threads + t]: loads and
 //     stores coalesce.
-//   - K3b: the same loop with x <- sinf(x) + c, built without fast-math (as
-//     fused_step.cu is), so it times the libdevice sinf that the step
-//     kernel runs, not the SFU's approximate __sinf.
+//   - K3b: the same loop with x <- sinf(x) + c, its sine libm_fast.cuh's
+//     sin_fast: the straight-line reduction and polynomial of sinf's fast
+//     path, the sine the step kernels run since they dropped the library's
+//     branching sinf/cosf (sincos_fast, its pair), not the SFU's
+//     approximate __sinf.  A rep takes every chain's sin_fast, then one
+//     branch: where a chain left sincos_fast_range, the library's sinf for
+//     it.  So the kernel computes sinf for every input, and a thread's
+//     chains interleave.  Its bound is the work a sine equal to sinf needs
+//     on its slowest pipe: 12 float32 FMAs, multiplies and adds at 128 a
+//     clock an SM, and 2 conversions (F2I, I2FP) at 16, which bound it
+//     (utils/roofline.py's SIN_WORK; scripts/k3b_sass.py checks both counts
+//     in this loop's SASS).
 //   - K3c: out = a + 1, grid-strided with 16-byte (float4) loads and stores
 //     over an array far larger than the 50 MB L2, so every byte comes from
 //     and goes to device memory once.
@@ -26,7 +36,7 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //             -Xcompiler -fPIC -o libroofline_probes.so roofline_probes.cu
 
-#include <cuda_runtime.h>
+#include "libm_fast.cuh"
 
 namespace {
 
@@ -58,8 +68,20 @@ __global__ void sin_probe_kernel(const float* __restrict__ x_in, float* __restri
 #pragma unroll
   for (int k = 0; k < CHAINS; ++k) x[k] = x_in[k * threads + t];
   for (int r = 0; r < reps; ++r) {
+    float y[CHAINS];
+    bool fast = true;
 #pragma unroll
-    for (int k = 0; k < CHAINS; ++k) x[k] = sinf(x[k]) + kAdd;
+    for (int k = 0; k < CHAINS; ++k) {
+      fast = fast && sincos_fast_range(x[k]);
+      y[k] = sin_fast(x[k]);
+    }
+    if (!fast) {
+#pragma unroll
+      for (int k = 0; k < CHAINS; ++k)
+        if (!sincos_fast_range(x[k])) y[k] = sinf(x[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < CHAINS; ++k) x[k] = y[k] + kAdd;
   }
 #pragma unroll
   for (int k = 0; k < CHAINS; ++k) x_out[k * threads + t] = x[k];
@@ -125,7 +147,8 @@ int hamilton_fma_probe(int chains, const void* x_in, void* x_out, long long elem
   return dispatch_chain<false>(chains, x_in, x_out, elements, reps, block, stream);
 }
 
-// K3b: reps dependent sinf(x) + 1.1920929e-07f, laid out as K3a.
+// K3b: reps dependent sinf(x) + 1.1920929e-07f (its sine sin_fast where x
+// is in sincos_fast_range, else sinf), laid out as K3a.
 int hamilton_sin_probe(int chains, const void* x_in, void* x_out, long long elements,
                        int reps, int block, void* stream) {
   return dispatch_chain<true>(chains, x_in, x_out, elements, reps, block, stream);

@@ -542,13 +542,15 @@ def user_family_launch(
 def libm_mismatches() -> Dict[str, int]:
     """The floats on which the kernels' float sin/cos, sqrt and reciprocal
     (``csrc/libm_fast.cuh``: K1's chain, family and generated forms, K2b
-    and K2c) differ from ``sinf``/``cosf``, ``sqrtf`` and ``1/x`` on this
-    card, every float in each one's range tried (``csrc/libm_check.cu``):
-    ``{"sincos": n, "sincosf": n, "sqrt": n, "rcp": n, "frcp": n}`` for the
-    straight-line ``sincos_fast`` in its range, the library's ``sincosf``
-    that takes over outside it, ``sqrt_fast`` and ``rcp_fast`` in theirs, and
-    ``__frcp_rn``; all 0 being the kernels' premise.  Synchronizes."""
-    keys = ("sincos", "sincosf", "sqrt", "rcp", "frcp")
+    and K2c, the sine probe K3b) differ from ``sinf``/``cosf``, ``sqrtf``
+    and ``1/x`` on this card, every float in each one's range tried
+    (``csrc/libm_check.cu``): ``{"sincos": n, "sincosf": n, "sqrt": n,
+    "rcp": n, "frcp": n, "sin": n}`` for the straight-line ``sincos_fast``
+    in its range, the library's ``sincosf`` that takes over outside it,
+    ``sqrt_fast`` and ``rcp_fast`` in theirs, ``__frcp_rn``, and K3b's
+    ``sin_fast`` against ``sinf`` in ``sincos_fast``'s range; all 0 being
+    the kernels' premise.  Synchronizes."""
+    keys = ("sincos", "sincosf", "sqrt", "rcp", "frcp", "sin")
     out = (ctypes.c_ulonglong * len(keys))()
     _call("libm_check", "hamilton_libm_check", "libm check", out)
     return dict(zip(keys, out))

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Copies of the port, each with one lever of K1's one-thread dense chain
-(n = 2 in ``csrc/fused_step.cu``, n = 4 in ``csrc/chain_variants.cu``)
-changed, for ``scripts/torch_ab.py`` to time against the tree in one call.
+(n = 2 in ``csrc/fused_step.cu``, n = 4 in ``csrc/chain_variants.cu``) or
+of its L⁻¹ lane step (``csrc/chain_lanes.cuh``) changed, for
+``scripts/torch_ab.py`` to time against the tree in one call.
 
     python3 scripts/dense_small_variants.py [--tree DIR] VARIANT [VARIANT ...]
 
@@ -15,7 +16,14 @@ VARIANT is one of
   once a launch (``csrc/chain_forms.cuh``'s ``DenseChainTable``);
 - ``block32``, ``block64``: the dense n = 4 kernel launched with 32 or 64
   threads a block instead of 128 (``fit_masses``' 1024 members then spread
-  over 32 or 16 SMs instead of 8).
+  over 32 or 16 SMs instead of 8);
+- ``linv-straight-aux``: the L⁻¹ lane step's aux takes the straight-line
+  sine-cosine at every n (the tree: up to ``kLinvStraightAuxUpTo``);
+- ``linv-aux-only``: as ``linv-straight-aux``, and its generator recursion
+  takes the library's sqrt and 1/d, as before its straight-line pass;
+- ``linv-generators-only``: its aux takes sin and cos one by one (the
+  library's ``sinf`` and ``cosf``) at every n, and keeps the straight-line
+  generators.
 
 Each copy of DIR's package (default: this checkout's) is written to
 ``_archive/<VARIANT>/hamilton_tpu_torch`` (``_archive/`` is gitignored) and
@@ -25,7 +33,8 @@ its directory printed, e.g.::
     python3 scripts/torch_ab.py --rounds 5 --only double_pendulum,chaos_scan,fit_masses \\
         _archive/parent . _archive/runtime-iters _archive/block32
 
-Raises where the source no longer holds the text a lever changes.
+Raises where the source no longer holds the text a lever changes (a
+variant may change several).
 """
 
 from __future__ import annotations
@@ -51,7 +60,19 @@ def _block(threads: int):
         "blocks), kThreads, bytes", "blocks), kBlock, bytes"))
 
 
-#: variant → (file in the package, the text it holds, the text it gets)
+def _linv_aux(straight: str):
+    return ("csrc/chain_lanes.cuh",
+            "struct LinvLaneForms : LaneTrig<Sh, (Sh::N <= kLinvStraightAuxUpTo)> {",
+            f"struct LinvLaneForms : LaneTrig<Sh, {straight}> {{")
+
+
+_LINV_GENERATORS = (
+    "csrc/chain_lanes.cuh",
+    "    if (!lane_generators_pass<true, Sh>(cf)) lane_generators_pass<false, Sh>(cf);\n",
+    "    lane_generators_pass<false, Sh>(cf);\n")
+
+#: variant → (file in the package, the text it holds, the text it gets),
+#: three more for each further text it changes
 VARIANTS = {
     "runtime-iters": ("csrc/fused_step.cuh",
                       "  if (iters_p == 2 && iters_q == 1) return f(IterCounts<2, 1>{});\n"
@@ -60,6 +81,9 @@ VARIANTS = {
     "pivot-per-factor": ("csrc/chain_forms.cuh", "      f, &cf.first);\n", "      f);\n"),
     "block32": _block(32),
     "block64": _block(64),
+    "linv-straight-aux": _linv_aux("true"),
+    "linv-aux-only": _linv_aux("true") + _LINV_GENERATORS,
+    "linv-generators-only": _linv_aux("false"),
 }
 
 
@@ -77,12 +101,14 @@ def main(argv) -> int:
             shutil.rmtree(pkg)
         shutil.copytree(tree / "hamilton_tpu_torch", pkg,
                         ignore=shutil.ignore_patterns("_build", "__pycache__"))
-        path, old, new = VARIANTS[variant]
-        src = pkg / path
-        text = src.read_text()
-        if text.count(old) != 1:
-            raise RuntimeError(f"{src}: the text {variant} changes is not there once")
-        src.write_text(text.replace(old, new))
+        edits = VARIANTS[variant]
+        for k in range(0, len(edits), 3):
+            path, old, new = edits[k:k + 3]
+            src = pkg / path
+            text = src.read_text()
+            if text.count(old) != 1:
+                raise RuntimeError(f"{src}: the text {variant} changes is not there once")
+            src.write_text(text.replace(old, new))
         print(where.relative_to(ROOT), flush=True)
     return 0
 

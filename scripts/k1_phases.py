@@ -16,7 +16,10 @@ template ``step_member`` (``csrc/fused_step.cuh``), but ``dense20`` and
 on G lanes a member (``csrc/dense_lanes.cuh``), on the lane template
 ``lane_step`` (``csrc/chain_lanes.cuh``), whose calls of the forms' routines
 are wrapped alike, and whose solve's back half (the dependent chain of
-``dense_back_lanes``) is timed on its own; and ``semiseparable40``: the
+``dense_back_lanes``) is timed on its own; ``linv20``: the chain's L⁻¹
+form on its lanes (``csrc/chain_variants.cu`` case 2, ``lane_step``
+likewise), whose factor's generator recursion (``lane_generators``, run out
+of line inside the factor) is timed on its own; and ``semiseparable40``: the
 semiseparable chain at n = 40 on ``csrc/semisep_wide.cu`` (its working set
 in shared memory and registers, G lanes a member), whose ``wide_step``'s
 calls of its routines are wrapped alike (the aux's shift to q1,
@@ -46,6 +49,10 @@ a short step), builds the form's float32 kernel and runs one launch:
   (16384 members, Kahan, 50 steps, shared table; (2,1) at dt = 1e-3 and
   (2,0) at dt = 5e-4), read as aux (and its shift), K and factor, forward
   solves, back-solve chain and dH/dq;
+- ``linv20``: phase 16 (e)'s n = 20 row, the headline's configuration on
+  the L⁻¹ form (16384 members, Kahan (2,0), dt = 5e-4, 50 steps, shared
+  table), read as aux (and its shift), generators, columns of L⁻¹, solves
+  and dH/dq;
 - ``semiseparable40``: phase 21 (a)'s semiseparable row (16384 members,
   Kahan (2,0), dt = 5e-4, 50 steps, shared table), read as aux, aux shift,
   factor, solves, dH/dq and the hand-off.
@@ -59,7 +66,11 @@ operations each holds; for ``dense2`` and ``dense4`` the parts of
 ``fused_step.cu`` and ``chain_variants.cu`` that hold them, the
 instantiation each row runs (``dense2`` also ``chaos_scan``'s, per-member
 tables at (3,1)), with the same counts inside the step loop (between the
-outermost backward branch and its target) beside the whole kernel's.
+outermost backward branch and its target) beside the whole kernel's; for
+``linv20`` the part of ``chain_variants.cu`` that holds it, the counts in
+the lane kernel's step loop (the aux inlined there) and in its out-of-line
+factor (the generators and the columns: the routine it calls first, up to
+the next routine a call enters).
 
 Prints the card's name and power limit and, per form, the cycles a warp
 spends a step in each phase (on lanes, lane 0's of each warp: the lanes of a
@@ -93,6 +104,11 @@ FAMILIES = {"spherical": (0, 0.05, 2.5e-4), "two_body": (1, 0.02, 2.5e-4),
 GENERATED = ("bezier3", "elastic")
 # the dense chain on lanes: (n, iters, dt)
 LANE_FORMS = {"dense20": (20, (2, 1), 1e-3), "dense40": (40, (2, 0), 5e-4)}
+# the chain's L^-1 form on its lanes: (chain_variants' code, n, iters, dt)
+LINV_FORMS = {"linv20": (2, 20, (2, 0), 5e-4)}
+# the instantiation --sass reads of it: lane_kernel<float, 20, G, Kahan,
+# shared, not composed, the L^-1 form>
+LINV_SASS = ("lane_kernelIfLi20ELi", "ELb1ELb0ELb0ELi0E")
 SOURCES = ("fused_step", "chain_variants", "family_step", "user_family_step", "semisep_wide")
 # the semiseparable chain at n = 40 (csrc/semisep_wide.cu): (iters, dt)
 WIDE_FORMS = {"semiseparable40": ((2, 0), 5e-4)}
@@ -120,7 +136,8 @@ __device__ __forceinline__ long long phase_clock() {
 }
 // A thread's cycles by phase (5: the whole of the step, 6: the dense lane
 // solves' back halves), in registers; lane 0 of each warp adds them to the
-// device counters once, as the step ends.
+// device counters once, as the step ends.  (7: L^-1's generators, which
+// run inside its out-of-line factor: lane 0 of each warp adds each call's.)
 struct PhaseCycles {
   long long c[7] = {0, 0, 0, 0, 0, 0, 0};
   long long t0;
@@ -197,12 +214,19 @@ def _wrap_lanes(csrc: Path) -> None:
              ("#pragma unroll\n  for (int j = 0; j < J; ++j) {\n    if (!mine(j)) continue;",
               "  phase_cycles_.c[6] = forms.back_cycles;\n#pragma unroll\n"
               "  for (int j = 0; j < J; ++j) {\n    if (!mine(j)) continue;"),
-             ("struct LinvLaneForms : LaneTrig<Sh, false> {\n",
-              "struct LinvLaneForms : LaneTrig<Sh, false> {\n  long long back_cycles = 0;\n")]
+             ("    lane_generators<Sh>(cf);\n",
+              "    const long long t0_ = phase_clock();\n    lane_generators<Sh>(cf);\n"
+              "    if ((threadIdx.x & 31) == 0)\n"
+              "      atomicAdd(&g_phase_cycles[7], (unsigned long long)(phase_clock() - t0_));\n")]
     for old, new in edits:
         if text.count(old) != 1:
             raise RuntimeError(f"{lanes}: {old!r} not found once")
         text = text.replace(old, new)
+    # the lane aux's template argument differs between trees
+    text, n = re.subn(r"(struct LinvLaneForms : LaneTrig<Sh, [^>]*> \{\n)",
+                      r"\1  long long back_cycles = 0;\n", text)
+    if n != 1:
+        raise RuntimeError(f"{lanes}: LinvLaneForms not found once")
     if count != 18:
         raise RuntimeError(f"{lanes}: {count} of lane_step's 18 routine calls wrapped")
     lanes.write_text(text)
@@ -320,6 +344,17 @@ def _launch(form, dev):
         kw = dict(iters=iters, compensated=True, steps_per_call=SPC,
                   coef=coef_table(forms, dev, f32))
         return lib, lambda: fused_step_kernel(forms, state, dt, **kw), SPC, BATCH
+    if form in LINV_FORMS:
+        code, n, iters, dt = LINV_FORMS[form]
+        lib = kernels.build("chain_variants",
+                            parts=(kernels.PARTS["chain_variants"][1](0, code, False),)).paths[0]
+        ex = tp.chain(n_links=n, fused_solver="linv", device=dev, dtype=f32)
+        forms = ex.system.fused_forms(ex.system)
+        state = fused_stepper(forms, iters=iters, compensated=True).init(
+            cs.jittered_phase(ex, BATCH, f32, dev, 0))
+        kw = dict(iters=iters, compensated=True, steps_per_call=SPC,
+                  coef=coef_table(forms, dev, f32))
+        return lib, lambda: fused_step_kernel(forms, state, dt, **kw), SPC, BATCH
     if form in CHAINS:
         source, code = CHAINS[form]
         lib = kernels.build(source, parts=(kernels.PARTS[source][1](0, code, form == "semiseparable"),)).paths[0]
@@ -391,6 +426,19 @@ def _step_loop(ops) -> list:
     return [o for o in ops if lo <= o[0] <= hi]
 
 
+def _first_call(ops) -> list:
+    """The instructions of the routine the kernel calls first (the lane
+    step's factor, out of line: the peeled first step calls it before the
+    solve and dH/dq), up to the next routine a call enters."""
+    calls = [int(m.group(1), 16) for _, op, rest in ops if op == "CALL"
+             for m in [re.search(r"0x([0-9a-f]+)", rest.split(";")[0])] if m]
+    if not calls:
+        return []
+    first = calls[0]
+    end = min((t for t in calls if t > first), default=float("inf"))
+    return [o for o in ops if first <= o[0] < end]
+
+
 def _sass_of(tree: Path, source: str, part) -> list:
     """``cuobjdump -sass`` of ``tree``'s own (unprobed) ``source``, built in
     a subprocess that imports the tree's package: its functions."""
@@ -431,10 +479,21 @@ def _sass(tree: Path, forms) -> dict:
             text.append(f"Function : {block}")
         (out_dir / f"k1_sass_{form}.txt").write_text("\n".join(text))
     dense = [f for f in forms if f in DENSE_FORMS]
-    with ThreadPoolExecutor(max_workers=max(len(dense), 1)) as pool:  # built at once
-        sass_of = dict(zip(dense, pool.map(
-            lambda f: _sass_of(tree, DENSE_FORMS[f][1],
-                               _tree_part(tree, DENSE_FORMS[f][1], DENSE_FORMS[f][2])), dense)))
+    linv = [f for f in forms if f in LINV_FORMS]
+    units = {f: DENSE_FORMS[f][1:3] for f in dense} | {
+        f: ("chain_variants", LINV_FORMS[f][0]) for f in linv}
+    with ThreadPoolExecutor(max_workers=max(len(units), 1)) as pool:  # built at once
+        sass_of = dict(zip(units, pool.map(
+            lambda u: _sass_of(tree, u[0], _tree_part(tree, *u)), units.values())))
+    for form in linv:
+        block = next((b for b in sass_of[form]
+                      if all(k in b.split("\n", 1)[0] for k in LINV_SASS)), None)
+        if block is None:
+            continue
+        ops = _ops(block)
+        counts[f"{form} step loop"] = _counts(_step_loop(ops))
+        counts[f"{form} factor"] = _counts(_first_call(ops))
+        (out_dir / f"k1_sass_{form}.txt").write_text(f"Function : {block}")
     for form in dense:
         blocks = sass_of[form]
         text = []
@@ -474,7 +533,8 @@ def main(argv) -> int:
             return 2
     forms = argv or ["semiseparable"]
     unknown = [f for f in forms if f not in CHAINS and f not in FAMILIES and f not in GENERATED
-               and f not in LANE_FORMS and f not in WIDE_FORMS and f not in DENSE_FORMS]
+               and f not in LANE_FORMS and f not in WIDE_FORMS and f not in DENSE_FORMS
+               and f not in LINV_FORMS]
     if unknown:
         print(f"unknown forms {unknown}\n{__doc__}", file=sys.stderr)
         return 2
@@ -515,6 +575,8 @@ def main(argv) -> int:
             raise RuntimeError("reading the phase counters failed")
         lanes = (kernels.lane_layout("fused_step", 0, LANE_FORMS[form][0], semiseparable=False)[0]
                  if form in LANE_FORMS else
+                 kernels.lane_layout("chain_variants", 0, LINV_FORMS[form][0])[0]
+                 if form in LINV_FORMS else
                  kernels.lane_layout("semisep_wide", 0, 40)[0] if form in WIDE_FORMS else 1)
         warp_steps = (batch * lanes + 31) // 32 * spc
         cycles = {name: out[k] / warp_steps for k, name in enumerate(PHASES)}
@@ -527,6 +589,11 @@ def main(argv) -> int:
         if form in DENSE_FORMS:  # the chain's names of the phases
             cycles = {"aux": cycles["aux"], "aux shift": cycles["aux_at"],
                       "factor": cycles["factor"], "solves": cycles["solve"],
+                      "dH/dq": cycles["dhdq"], "step": cycles["step"]}
+        if form in LINV_FORMS:  # the L^-1 lane step's phases
+            generators = out[7] / warp_steps
+            cycles = {"aux": cycles["aux"] + cycles["aux_at"], "generators": generators,
+                      "columns": cycles["factor"] - generators, "solves": cycles["solve"],
                       "dH/dq": cycles["dhdq"], "step": cycles["step"]}
         if form in LANE_FORMS:  # the dense lane step's phases
             back = out[6] / warp_steps

@@ -20,7 +20,8 @@ Readings, all on 16384 members:
   ``sweep`` (the headline with per-member masses and gravity) and
   ``suzuki4`` (the headline's kernel running ``suzuki4_fused``, dt=1e-3),
   ``mobius`` and ``linv`` (the headline on the chain's Möbius and L⁻¹
-  forms, ``csrc/chain_variants.cu``).
+  forms, ``csrc/chain_variants.cu``), and ``linv5`` (the L⁻¹ form at n = 5,
+  ``chip_smoke.py`` phase 16 (e)'s row: (2,0), Kahan, dt=5e-4).
   Each is the device ms of one launch, from CUDA events around 100 launches
   queued behind a held stream (``utils.profiling.time_queued`` of this
   checkout, for every tree);
@@ -36,6 +37,9 @@ Readings, all on 16384 members:
   (``csrc/user_family_step.cu``) on phase 18's: ``generated_bezier3`` (e)
   and ``generated_elastic`` (f), the example's sweep (per-member tables,
   (2,1), one step a launch), device ms as above;
+- the sine probe K3b (``csrc/roofline_probes.cu``): ``k3b``, the device
+  ms of one call at ``PERF.md``'s row (1M float32 elements, 1024 reps, 4
+  chains a thread, blocks of 256), timed as the K1 readings;
 - the host's ms to issue one such launch through ``Stepper.step``
   (``headline_host``, ``double_pendulum_host``: the wall time of queuing
   those 100), and ``double_pendulum_wall``, the wall ms per launch of 400
@@ -64,8 +68,9 @@ held against the first tree's, instantiation by instantiation;
 ``--only`` times only the readings named (the others print as n/a), and
 where each of them is a K1 reading of the dense chain on one thread
 (``double_pendulum``, its ``_host`` and ``_wall``, ``chaos_scan``,
-``fit_masses``) builds only the parts of ``fused_step.cu`` and
-``chain_variants.cu`` that hold them, and compares their reports.
+``fit_masses``), of the L⁻¹ form (``linv``, ``linv5``) or ``k3b``, builds
+only the parts of ``fused_step.cu`` and ``chain_variants.cu`` that hold
+them (and ``roofline_probes.cu``), and compares their reports.
 ``--accuracy`` then runs, for each tree in turn, ``chip_smoke.py``'s phase 1
 semiseparable rows (chain-20 and chain-5, shared and per-member tables,
 plain and ``suzuki4``, 1000, 1, 7 and 16383 members, float64 and float32,
@@ -106,18 +111,23 @@ def _k2_reading(entry: str, dtype: str, n: int) -> str:
 # the families of chip_smoke.py phase 15, in its order (its generator is
 # drawn across them in turn)
 FAMILY_READINGS = ("spherical", "twobody", "spring", "room", "ellipse", "bezier", "bezier2")
-READINGS = ("headline", "double_pendulum", "sweep", "suzuki4", "mobius", "linv", "headline_host",
+READINGS = ("headline", "double_pendulum", "sweep", "suzuki4", "mobius", "linv", "linv5", "k3b",
+            "headline_host",
             "double_pendulum_host", "double_pendulum_wall", "chaos_scan", "fit_masses",
             "library_leapfrog_step",
             "adaptive_f64") + tuple(f"family_{f}" for f in FAMILY_READINGS) + (
                 "generated_bezier3", "generated_elastic") + tuple(
                     f"{_k2_reading(*k)}{r}" for k in K2_READINGS for r in ("", "_rotating"))
 DP_WALL_LAUNCHES = 400
-# the dense chain's one-thread readings: reading → (source, its code), the
-# part of each source that holds it (float32) is all --only builds for them
-DENSE_UNITS = {"double_pendulum": ("fused_step", 2), "double_pendulum_host": ("fused_step", 2),
-               "double_pendulum_wall": ("fused_step", 2), "chaos_scan": ("fused_step", 2),
-               "fit_masses": ("chain_variants", 4)}
+# the readings of one part of a source: reading → (source, its code; None:
+# a source built whole), the part of each source that holds it (float32) is
+# all --only builds for them
+PART_UNITS = {"double_pendulum": ("fused_step", 2), "double_pendulum_host": ("fused_step", 2),
+              "double_pendulum_wall": ("fused_step", 2), "chaos_scan": ("fused_step", 2),
+              "fit_masses": ("chain_variants", 4), "linv": ("chain_variants", 2),
+              "linv5": ("chain_variants", 3), "k3b": ("roofline_probes", None)}
+# K3b's row: elements, reps, chains a thread, block
+K3B_ROW = (64 * 16 * 1024, 1024, 4, 256)
 # the K2 kernels as each tree's report names them (the mangled template name)
 _K2_ANY_RE = re.compile(r"(?:solve_tile_kernel|jac_tile_kernel|factor_solve_kernel"
                         r"|factor_lanes_kernel|factor_kernel|substitute_lanes_kernel"
@@ -214,6 +224,7 @@ def _time_tree(tree: str, only=None) -> dict:
            "suzuki4": "suzuki4_fused" in getattr(fused_step, "FUSED_COMPOSITIONS", ()),
            "mobius": hasattr(fused_step, "serial_chain_forms_mobius"),
            "linv": hasattr(fused_step, "serial_chain_forms_linv")}
+    has["linv5"] = has["linv"]
 
     dev = torch.device("cuda")
     f32, f64 = torch.float32, torch.float64
@@ -230,6 +241,7 @@ def _time_tree(tree: str, only=None) -> dict:
     forms_of = {s: (lambda s=s: tp.chain(n_links=20, fused_solver=s, device=dev, dtype=f32))
                 for s in ("mobius", "linv")}
     dp = tp.double_pendulum(device=dev, dtype=f32)
+    linv5 = tp.chain(n_links=5, fused_solver="linv", device=dev, dtype=f32)
 
     def want(*readings):
         return only is None or any(r in only for r in readings)
@@ -252,6 +264,7 @@ def _time_tree(tree: str, only=None) -> dict:
                    5e-4),
         "linv": (lambda: forms_of["linv"]().system, chain, "leapfrog_fused", (2, 0), True,
                  5e-4),
+        "linv5": (lambda: linv5.system, linv5, "leapfrog_fused", (2, 0), True, 5e-4),
     }
     out = {}
     for name, (system_fn, ex, method, iters, comp, dt) in kernel_setups.items():
@@ -290,6 +303,18 @@ def _time_tree(tree: str, only=None) -> dict:
         ph64 = phase(ch64, f64)
         tp.evolve_ham(ch64.system, ph64, [0.0, 0.01])  # warm-up
         out["adaptive_f64"] = _wall_ms(lambda: tp.evolve_ham(ch64.system, ph64, [0.0, 0.05]))
+    if want("k3b"):
+        from hamilton_tpu_torch.utils import roofline as rl
+
+        elements, reps, chains, block = K3B_ROW
+        x = torch.rand(elements, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(12))
+
+        def k3b():
+            return rl.sin_chain(x, reps, chains=chains, block=block)
+
+        k3b()  # warm-up
+        out["k3b"], _ = time_queued(k3b, REPS)
     with torch.no_grad():
         for name, launch in _dense_launches(dev, want).items():
             launch()  # warm-up
@@ -460,22 +485,26 @@ def _ptxas_rows(logs: dict) -> dict:
 
 def _build_tree(tree: str, only=None) -> list:
     """Build the tree's kernels (every source at once, then the generated
-    kernels of phase 18; or, where ``only`` names dense one-thread readings
-    alone, the parts that hold them): ``[seconds, {source: nvcc report}]``."""
+    kernels of phase 18; or, where ``only`` names readings of
+    :data:`PART_UNITS` alone, the parts that hold them):
+    ``[seconds, {source: nvcc report}]`` (the K1 and K2 sources')."""
     sys.path.insert(0, str(Path(tree).resolve()))
     import torch
 
     from hamilton_tpu_torch import kernels
 
     t = time.perf_counter()
-    if only is not None and set(only) <= set(DENSE_UNITS):
+    if only is not None and set(only) <= set(PART_UNITS):
         parts = {}
         for reading in only:
-            source, code = DENSE_UNITS[reading]
-            parts.setdefault(source, set()).add(kernels.PARTS[source][1](0, code, False))
-        logs = {source: kernels.build(source, parts=tuple(sorted(p))).log
+            source, code = PART_UNITS[reading]
+            parts.setdefault(source, set())
+            if code is not None:
+                parts[source].add(kernels.PARTS[source][1](0, code, False))
+        logs = {source: kernels.build(source, parts=tuple(sorted(p)) or None).log
                 for source, p in parts.items()}
-        return [time.perf_counter() - t, logs]
+        return [time.perf_counter() - t, {k: v for k, v in logs.items()
+                                          if k != "roofline_probes"}]
     built = kernels.build_all()
     logs = {k: built[k].log for k in ("fused_step", "chain_variants", "family_step",
                                       "batched_spd")}

@@ -181,14 +181,14 @@ def test_lane_layout_fits_the_card(card, source, code):
 
 
 def test_straight_line_libm_equals_the_library(card):
-    """K1's and K2's float sin/cos, sqrt and reciprocal
+    """K1's and K2's float sin/cos, sqrt and reciprocal and K3b's sine
     (``csrc/libm_fast.cuh``'s straight-line versions, and the library's
     ``sincosf`` and ``__frcp_rn`` that take over outside their ranges)
     against ``sinf``/``cosf``, ``sqrtf`` and ``1/x``, the functions the
     kernels called before them, on every float in each one's range, bit for
     bit (``csrc/libm_check.cu``)."""
     assert kernels.libm_mismatches() == {"sincos": 0, "sincosf": 0, "sqrt": 0, "rcp": 0,
-                                         "frcp": 0}
+                                         "frcp": 0, "sin": 0}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
@@ -301,20 +301,27 @@ def test_semiseparable_40_kernel_equals_plain_version(card, dtype, mode, batch):
 
 
 def _chain_state(solver, n, card, dtype, iters, compensated, swept, composition=(1.0,),
-                 batch=300, seed=6):
+                 batch=300, seed=6, light=None):
     """A chain-n example with ``solver``'s forms (per-member masses, lengths
-    and gravity when ``swept``) and its stepper's initial carry."""
+    and gravity when ``swept``) and its stepper's initial carry.  ``light``,
+    with ``swept``: ``(member, scale)``, that member's masses and momenta
+    times ``scale`` (the same motion of its angles)."""
     rng = np.random.default_rng(seed)
     ex = tp.chain(n_links=n, fused_solver=solver, device=card, dtype=dtype)
     system = ex.system
+    masses = 1.0 + 0.05 * rng.standard_normal((batch, n)) if swept else None
     if swept:
-        system = system.replace_params(tp.params_from_numpy({
-            "masses": 1.0 + 0.05 * rng.standard_normal((batch, n)),
-            "lengths": 1.0 + 0.1 * rng.random((batch, n)),
-            "gravity": 5.0 + 0.1 * rng.standard_normal(batch),
-        }, device=card, dtype=dtype))
+        lengths = 1.0 + 0.1 * rng.random((batch, n))
+        gravity = 5.0 + 0.1 * rng.standard_normal(batch)
     q = 0.5 + 0.05 * rng.standard_normal((batch, n))
     p = 0.3 * rng.standard_normal((batch, n))
+    if light is not None:
+        masses[light[0]] *= light[1]
+        p[light[0]] *= light[1]
+    if swept:
+        system = system.replace_params(tp.params_from_numpy({
+            "masses": masses, "lengths": lengths, "gravity": gravity,
+        }, device=card, dtype=dtype))
     forms = system.fused_forms(system)
     st = t_step.fused_stepper(forms, iters=iters, compensated=compensated,
                               composition=composition)
@@ -347,6 +354,38 @@ def test_chain_variant_kernel_matches_plain_version(card, solver, n, swept, batc
         assert float(((got - want) * scale).abs().max()) < 1e-11
         if solver == "linv":
             assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("batch", [300, 16383])
+@pytest.mark.parametrize("swept", [False, True], ids=["shared", "per_member"])
+@pytest.mark.parametrize("n", [20, 5])
+def test_linv_float32_kernel_equals_plain_version(card, n, swept, batch):
+    """The L⁻¹ rows in float32 (the headline's and phase 16's (2,0) Kahan,
+    and the composed (3,2)), ten steps a launch, two members with an angle
+    past the straight-line sine-cosine's range (one with every angle past
+    it, one with one) and, with per-member tables, a member whose masses
+    and momenta are 1e-39 of the others' (its pivots d² subnormal, below the
+    straight-line square root's range, where that root reads NaN): the lane
+    step (straight-line sin/cos, sqrt and 1/d, the library's where a lane's
+    or a member's input leaves their range) equals its plain version bit
+    for bit."""
+    light = (4, 1e-39) if swept else None
+    for iters, comp, composition in (((2, 0), True, (1.0,)),
+                                     ((3, 2), False, t_step.SUZUKI4_COMPOSITION)):
+        _, forms, carry = _chain_state("linv", n, card, torch.float32, iters, comp, swept,
+                                       composition, batch=batch, light=light)
+        state, table = carry if swept else (carry, None)
+        state = state.clone()
+        state[0, :, 1] = 2.0e5 + 0.1 * torch.arange(n, device=card)  # q of member 1
+        state[0, n // 2, 2] = -1.5e5  # one angle of member 2
+        kw = dict(iters=iters, compensated=comp, steps_per_call=10, coef=table,
+                  composition=composition)
+        before = kernels.chain_variants_launch.launches
+        got = t_step.fused_step_kernel(forms, state, 5e-4, **kw)
+        assert kernels.chain_variants_launch.launches == before + 1
+        want = t_step.fused_step_reference(forms, state, 5e-4, **kw)
+        assert bool(torch.isfinite(want).all())
+        assert torch.equal(got, want), (iters, float((got - want).abs().max()))
 
 
 @pytest.mark.parametrize("solver", ["mobius", "linv"])
@@ -867,12 +906,35 @@ def test_fma_probe_matches_plain_version(card, chains):
 
 
 def test_sin_probe_matches_plain_version(card):
-    """libdevice sinf against PyTorch's float32 sin on the card: an ulp or
-    two a rep, contracted by sin, within 1e-6 after 64 reps."""
+    """The probe's sine (``sin_fast``, ``sinf`` outside its range) against
+    PyTorch's float32 sin on the card: an ulp or two a rep, contracted by
+    sin, within 1e-6 after 64 reps."""
     x = torch.rand(16 * 1024, device=card)
     got = rl.sin_chain(x, 64, chains=8)
     want = rl.sin_chain_plain(x, 64)
     assert float((got - want).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("chains", [1, 4, 32])
+def test_sin_probe_equals_sinf_on_every_side_of_its_range(card, chains):
+    """One rep on inputs inside the straight-line sine's range (|x| <
+    105615), past it, infinite and NaN, mixed within a thread's chains: the
+    kernel (``sin_fast``, ``sinf`` for a chain that left the range) equals
+    PyTorch's float32 ``sin`` plus the probe's constant bit for bit."""
+    g = torch.Generator().manual_seed(3)
+    inside = (torch.rand(8192, generator=g) * 2 - 1) * 105614.0
+    past = torch.sign(torch.randn(2048, generator=g)) * (105615.0 + torch.rand(2048, generator=g)
+                                                         * 1e30)
+    edge = torch.tensor([105615.0, -105615.0, 105614.99, float("inf"), float("-inf"),
+                         float("nan"), 0.0, -0.0])
+    x = torch.cat([inside, past, edge])
+    x = x[torch.randperm(x.numel(), generator=g)]
+    x = x[:x.numel() // 32 * 32].to(card)
+    got = rl.sin_chain(x, 1, chains=chains, block=128)
+    want = rl.sin_chain_plain(x, 1)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    keep = ~torch.isnan(want)
+    assert torch.equal(got[keep], want[keep])
 
 
 def test_add_one_matches_plain_version(card):

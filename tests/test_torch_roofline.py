@@ -170,6 +170,21 @@ def test_probe_checks_and_bound():
     assert term == "bytes" and ms == pytest.approx(1.0)
 
 
+def test_sin_probe_bound_counts_a_sines_work():
+    """K3b's bound: a sine's 12 float32 operations at 128 a clock an SM and
+    its 2 conversions at 16, the slower (the conversions, 1/8 clock) at the
+    published peak's clock, as long as 32 flops there; each element read
+    and written once where that is longer."""
+    assert t_roofline.SIN_WORK == {"fp32": (12, 128), "conversion": (2, 16)}
+    assert t_roofline.SIN_FLOPS == 32.0
+    peak = t_roofline.PEAK_FLOPS[torch.float32]
+    ms, term = t_roofline.sin_probe_bound(64 * 16 * 1024, 1024)
+    assert term == "operations"
+    assert ms == pytest.approx(64 * 16 * 1024 * 1024 * 32 / peak * 1e3)
+    assert t_roofline.sin_probe_bound(1, 1) == t_roofline.bound(32, 8)
+    assert t_roofline.sin_probe_bound(1, 1)[1] == "bytes"
+
+
 def test_profile_trace_writes_a_trace(tmp_path):
     with t_profiling.profile_trace(None) as prof:
         assert prof is None
