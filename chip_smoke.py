@@ -63,9 +63,16 @@ raises as soon as one fails:
    float64 at GSL's eps and float32 at eps 1e-6 — exactly six K2a launches
    per attempt, not saturated, finite, and in float64 ``max|ΔH/H₀|`` under
    the bound taken from the JAX package's CPU run;
-9. that adaptive path on the card (the kernels) against the CPU (the plain
-   versions): 8 members, float64, shared and per-member controllers —
-   agreement to 1e-12 and the same step counts;
+9. (a) that adaptive path on the card (the kernels) against the CPU (the
+   plain versions): 8 members, float64, shared and per-member controllers —
+   agreement to 1e-12 and the same step counts; then the native C++ engine
+   (``hamilton_tpu_torch.native``, ``native/hamode.cpp`` built here, which
+   must load) as the oracle: (b) the parity triangle of the double pendulum
+   (the port's ``evolve_ham`` on the card, the engine driving the port's
+   ``ham_rhs`` on the card, the engine's closed form) pairwise within 1e-9;
+   (c) 8 members of phase 8's float64 final states against the engine's
+   closed-form chain at eps 1e-13, each within 10x the JAX package's own
+   gap on the CPU (``ORACLE_CHAIN20_BOUND``);
 10. the library leapfrog at full width: ``evolve_ensemble_final(method=
     "leapfrog", iters=(2, 0), compensated=True)`` on 16384 × chain-20,
     float32, 2000 steps, float64 drift every 1000 — one K2b and five K2c
@@ -342,6 +349,20 @@ ADAPTIVE_F32_EPS = 1e-6
 # PyTorch's sin/cos/exp and reductions, which differ by ulps between the two;
 # readings ≲ 7e-14 on |p| ≤ 38 over t ≤ 1.
 CPU_TOL_F64 = 1e-12
+# The native C++ engine (hamilton_tpu_torch.native) as the oracle of phase
+# 9: (b) the parity triangle of tests/test_native.py (the double pendulum at
+# q0 = (1, 0), v0 = (0, 0.5), t = 0, 0.1, ..., 1) pairwise within its 1e-9;
+# (c) ORACLE_MEMBERS members spread over phase 8's float64 batch (jittered
+# with ADAPTIVE_SEED) against its closed-form chain at eps ORACLE_EPS.  The
+# bound is 10x the gap of the JAX package's own evolve_ham on those members
+# on the CPU, 5.916067e-7 (tests/test_torch_native.py::
+# test_chain20_gap_sets_the_card_bound, which holds this constant to it).
+TRIANGLE_TOL = 1e-9
+TRIANGLE_TS = tuple(round(0.1 * k, 1) for k in range(11))
+ADAPTIVE_SEED = 0
+ORACLE_MEMBERS = 8
+ORACLE_EPS = 1e-13
+ORACLE_CHAIN20_BOUND = 5.916067e-6
 # Card against CPU in float32 over 20 leapfrog steps of the J route: ulps of
 # sin/cos through chain-20's K; the reading is 6.0e-8 (one ulp of |q| ~ 0.5).
 CPU_TOL_F32 = 6e-7
@@ -672,6 +693,15 @@ def jittered_phase(example, batch, dtype, device, seed):
     q = torch.as_tensor(ph0.q.cpu().numpy().astype(np_dtype) + jitter)
     p = ph0.p.cpu().expand(batch, n).contiguous()
     return Phase(q.to(device=device, dtype=dtype), p.to(device))
+
+
+def oracle_members(batch):
+    """The ``ORACLE_MEMBERS`` members of a batch that phase 9 (c) holds
+    against the native engine: spread evenly, the first and the last among
+    them."""
+    import numpy as np
+
+    return np.linspace(0, batch - 1, ORACLE_MEMBERS).round().astype(int)
 
 
 def family_phase(example, batch, scale, rng, device):
@@ -3002,6 +3032,90 @@ def phase_sharded(dev, summary):
         raise AssertionError(f"{label} sharded differs from the unsharded run")
 
 
+def phase_native_oracle(dev, ex64, ph64a, out64, summary):
+    """Phase 9 (b), (c): the native C++ engine (``hamilton_tpu_torch.native``,
+    built from ``native/hamode.cpp`` here) against the card.  (b) the parity
+    triangle: the port's float64 ``evolve_ham(method="rkf45")`` of the double
+    pendulum on the card, the engine driving the port's ``ham_rhs`` on the
+    card (``y`` to the card and its derivative back each stage) and the
+    engine's closed-form double pendulum, pairwise within ``TRIANGLE_TOL``;
+    (c) ``ORACLE_MEMBERS`` members of phase 8's float64 run (``ex64``'s chain
+    from ``ph64a`` to ``out64`` at t = 1, no second card run) against
+    ``native.chain_evolve`` from the same state with the chain's masses,
+    link length and gravity at eps ``ORACLE_EPS`` on the host, each within
+    ``ORACLE_CHAIN20_BOUND``."""
+    import numpy as np
+    import torch
+
+    from hamilton_tpu_torch import Config, double_pendulum, evolve_ham, native, to_phase
+    from hamilton_tpu_torch.mechanics import ham_rhs
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("phase 9: the native engine did not build or load (make -C "
+                             "native into hamilton_tpu_torch/_build/native/):\n"
+                             + native._build_error)
+    log(f"phase 9 (b): native engine {Path(native.load()._name).name} built and loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    dp = double_pendulum(device=dev, dtype=torch.float64)
+    ph0 = to_phase(dp.system, Config(torch.tensor([1.0, 0.0], dtype=torch.float64, device=dev),
+                                     torch.tensor([0.0, 0.5], dtype=torch.float64, device=dev)))
+    y0 = ph0.flatten().cpu().numpy()
+    ts = np.asarray(TRIANGLE_TS)
+    t0 = time.perf_counter()
+    card = evolve_ham(dp.system, ph0, list(TRIANGLE_TS), method="rkf45")
+    card = torch.cat([card.q, card.p], -1).cpu().numpy()
+    t_card = time.perf_counter() - t0
+    rhs = ham_rhs(dp.system)
+    t0 = time.perf_counter()
+    callback, stats = native.rkf45_evolve_times(
+        lambda y: rhs(torch.from_numpy(y.copy()).to(dev)).cpu().numpy(), y0, ts)
+    t_callback = time.perf_counter() - t0
+    analytic, _ = native.double_pendulum_evolve(1.0, 1.0, y0, ts)
+    runs = {"card evolve_ham": card, "native on the card's ham_rhs": callback,
+            "native closed form": analytic}
+    names = list(runs)
+    gaps = {f"{a} vs {b}": float(np.abs(runs[a] - runs[b]).max())
+            for i, a in enumerate(names) for b in names[i + 1:]}
+    log("phase 9 (b): parity triangle, double pendulum float64 t in [0, 1]: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in gaps.items()) + f" (limit {TRIANGLE_TOL:g}); "
+        f"{stats['n_steps']} native steps, card evolve_ham {t_card:.2f} s, "
+        f"native on the card's RHS {t_callback:.2f} s")
+    if not all(np.isfinite(r).all() for r in runs.values()):
+        raise AssertionError("phase 9 (b): a parity-triangle run is not finite")
+    if not all(v < TRIANGLE_TOL for v in gaps.values()):
+        raise AssertionError(f"phase 9 (b): parity triangle gaps {gaps} >= {TRIANGLE_TOL}")
+    summary["native_triangle_max_gap"] = max(gaps.values())
+
+    params = ex64.system.params
+    masses = params["masses"].cpu().numpy()
+    length = float(params["lengths"][0])
+    if not bool((params["lengths"] == params["lengths"][0]).all()):
+        raise AssertionError("phase 9 (c): the engine's chain takes one link length")
+    gravity = float(params["gravity"])
+    n = masses.shape[0]
+    members = oracle_members(ph64a.q.shape[0])
+    q0, p0 = ph64a.q[members].cpu().numpy(), ph64a.p[members].cpu().numpy()
+    q1, p1 = out64.q[1][members].cpu().numpy(), out64.p[1][members].cpu().numpy()
+    t0 = time.perf_counter()
+    member_gaps = []
+    for k in range(len(members)):
+        nat, _ = native.chain_evolve(masses, np.concatenate([q0[k], p0[k]]), [0.0, 1.0],
+                                     link_length=length, gravity=gravity,
+                                     eps_abs=ORACLE_EPS, eps_rel=ORACLE_EPS)
+        member_gaps.append(max(float(np.abs(q1[k] - nat[1, :n]).max()),
+                               float(np.abs(p1[k] - nat[1, n:]).max())))
+    log(f"phase 9 (c): phase 8's float64 run ({ph64a.q.shape[0]} x chain-{n}, one shared "
+        f"controller, "
+        f"t in [0, 1]) against native.chain_evolve at eps {ORACLE_EPS:g} on the host "
+        f"({time.perf_counter() - t0:.2f} s), members {members.tolist()}: max |card - "
+        f"native| " + ", ".join(f"{g:.3e}" for g in member_gaps)
+        + f" (bound {ORACLE_CHAIN20_BOUND:g}, 10x the JAX package's CPU gap)")
+    if not all(g < ORACLE_CHAIN20_BOUND for g in member_gaps):
+        raise AssertionError(f"phase 9 (c): gaps {member_gaps} >= {ORACLE_CHAIN20_BOUND}")
+    summary["native_chain20_max_gap"] = max(member_gaps)
+
+
 def _launch_name(entry):
     """The name an entry's launches are counted under."""
     from hamilton_tpu_torch import kernels
@@ -3457,7 +3571,7 @@ def main() -> int:
     for dtype, eps in ((torch.float64, GSL_EPS), (torch.float32, ADAPTIVE_F32_EPS)):
         dname = str(dtype).split(".")[-1]
         exa = chain(n_links=20, device=dev, dtype=dtype)
-        pha = jittered_phase(exa, BATCH, dtype, dev, 0)
+        pha = jittered_phase(exa, BATCH, dtype, dev, ADAPTIVE_SEED)
         adaptive.gsl_evolve_to.host_reads = 0
         t0 = time.perf_counter()
         (out, st), counts = counted(lambda: evolve_ham(
@@ -3485,7 +3599,7 @@ def main() -> int:
             if not drift_a < ADAPTIVE_DRIFT_BOUND:
                 raise AssertionError(f"adaptive float64 drift {drift_a:.3e} >= "
                                      f"{ADAPTIVE_DRIFT_BOUND}")
-            ex64, ph64a = exa, pha
+            ex64, ph64a, out64 = exa, pha, out
 
     # ---- phase 9: the adaptive path on the card against the CPU -------------
     stamp(9)
@@ -3506,6 +3620,7 @@ def main() -> int:
         if not err <= CPU_TOL_F64 or card_st != cpu_st:
             raise AssertionError(f"adaptive {mode}: card and CPU differ by {err:.3e} "
                                  f"(limit {CPU_TOL_F64}) or in their steps")
+    phase_native_oracle(dev, ex64, ph64a, out64, summary)
 
     # ---- phase 10: the library leapfrog at full width -----------------------
     stamp(10)

@@ -343,8 +343,18 @@ struct DenseLaneForms : LaneTrig<Sh, true> {
   T x[J];  // the last solve's x at this lane's rows
 
   __device__ __forceinline__ explicit DenseLaneForms(C c) : cf(c) {}
-  // inlined at each call site: out of line (lane_call, as L^-1's routines)
-  // the float32 kernel at G = 2 read back wrong states on the card
+  // inlined at each call site, and it must stay so (as must the routines it
+  // inlines): out of line (lane_call, as L^-1's routines at n = 20) at G = 2
+  // nvcc 12.9 (V12.9.86, sm_90a) builds a factor that differs from the
+  // inlined one on an H100, every member at n = 20 in float32, NaN at full
+  // occupancy, different between two identical launches, also with one
+  // member in its block, without spills, with a fence after each
+  // __syncwarp, with whole-warp syncs and at ptxas -O1; out of line at
+  // G = 4 and inlined at every G it is bit for bit the plain version.  No
+  // hazard in this source explains it: every entry another lane reads is
+  // written by its row's owner before a __syncwarp of the member's lanes.
+  // scripts/dense_outlined_probe.py rebuilds the fault (FACTOR_ALONE, a
+  // kernel of the aux and this factor alone) and dumps both SASS.
   __device__ __forceinline__ void factor() { DenseFactorLanes<Sh, C>::run(cf); }
   // x = K^-1 rhs (every lane done reading the x slots first)
   __device__ __forceinline__ void solve(const T (&rhs)[J]) {

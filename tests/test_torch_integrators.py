@@ -27,12 +27,12 @@ import pytest
 import torch
 
 import hamilton_tpu as ht
-from hamilton_tpu import native
 from hamilton_tpu.ensemble import evolve_ensemble as j_evolve_ensemble
 from hamilton_tpu.models import chain as j_chain
 from hamilton_tpu.models import double_pendulum as j_double_pendulum
 
 import hamilton_tpu_torch as tp
+from hamilton_tpu_torch import native
 from hamilton_tpu_torch.integrators.fixed import FIXED_METHODS
 from hamilton_tpu_torch.ops.fused_step import FUSED_COMPOSITIONS
 
@@ -533,12 +533,13 @@ def test_pallas_step_factory_is_preferred():
 # The native C++ engine's closed-form chain
 # ----------------------------------------------------------------------
 
-@pytest.mark.skipif(not native.available(), reason="native library unavailable")
 def test_gauss4_matches_native_chain():
     """chain-5 float64, gauss4 at dt = 1e-3 over t ∈ [0, 1] against the
-    native engine's hand-derived chain dynamics (RKF45 at 1e-13): within
-    10x the gap of the JAX package's own gauss4 at this configuration,
-    measured here on the same inputs."""
+    native engine's hand-derived chain dynamics (RKF45 at 1e-13, through the
+    port's own binding): within 10x the gap of the JAX package's own gauss4
+    at this configuration, measured here on the same inputs."""
+    if not native.available():
+        pytest.skip("native library unavailable")
     n = 5
     jex = j_chain(n_links=n, theta0=0.5)
     tex = tp.chain(n_links=n, theta0=0.5, device="cpu", dtype=F64)

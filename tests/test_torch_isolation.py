@@ -11,7 +11,9 @@ observable through an ensemble driver, imports the CLI, the renderer, the
 Poincaré, diagnostics and checkpoint utilities and the hmc, chaos-scan and
 ensemble-sweep examples, runs the chaos scan's ``main`` at a tiny size,
 imports ``hamilton_tpu_torch.parallel`` and runs a 2-shard CPU
-``evolve_ensemble_sharded``; ``jax`` must stay out of ``sys.modules``.
+``evolve_ensemble_sharded``, and runs the native engine's closed-form chain
+once through the port's own binding (``hamilton_tpu_torch.native``);
+``jax`` must stay out of ``sys.modules``.
 """
 
 import os
@@ -67,6 +69,10 @@ from hamilton_tpu_torch import parallel
 ph4 = tp.Phase(ex.init_config.q.expand(4, 4).contiguous(), torch.zeros(4, 4, dtype=torch.float64))
 tp.evolve_ensemble_sharded(ex.system, ph4, 1e-3, 4, mesh=parallel.ensemble_mesh(["cpu"] * 2),
                            method="leapfrog_fused", iters=(2, 0), drift_every=2)
+import numpy as np
+from hamilton_tpu_torch import native
+assert native.available()
+native.chain_evolve(np.ones(3), np.concatenate([np.full(3, 0.3), np.zeros(3)]), [0.0, 0.1])
 print("jax" in sys.modules, any(m.startswith("hamilton_tpu.") or m == "hamilton_tpu"
                                 for m in sys.modules))
 """
