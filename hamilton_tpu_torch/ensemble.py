@@ -33,6 +33,11 @@ stepper carry.
 (:mod:`hamilton_tpu_torch.parallel`): each shard runs the final-state loop
 on its own device, the shards' launches issued in turn at every loop
 iteration, and only the statistics cross processes.
+
+Under ``torch.profiler`` the drivers name their own work
+(:func:`hamilton_tpu_torch.utils.profiling.span`): ``…ensemble.setup``
+once a call (a sharded call: once a shard), ``…ensemble.step`` around
+each ``stepper.step`` and ``…ensemble.sample`` around each drift sample.
 """
 
 from __future__ import annotations
@@ -50,6 +55,12 @@ from hamilton_tpu_torch.mechanics import hamiltonian
 from hamilton_tpu_torch.parallel.mesh import EnsembleMesh, ShardedPhase
 from hamilton_tpu_torch.state import Phase
 from hamilton_tpu_torch.system import System
+from hamilton_tpu_torch.utils.profiling import (
+    ENSEMBLE_SAMPLE,
+    ENSEMBLE_SETUP,
+    ENSEMBLE_STEP,
+    span,
+)
 
 __all__ = ["evolve_ensemble", "evolve_ensemble_final", "evolve_ensemble_chunked",
            "evolve_ensemble_sharded"]
@@ -140,11 +151,13 @@ def _final_loop_body(stepper, dt, measure_h, h0, h_scale, drift_every,
 
     def body(i, state):
         carry, drift, obs = state
-        carry = stepper.step(carry, dt)
+        with span(ENSEMBLE_STEP):
+            carry = stepper.step(carry, dt)
         step = step_offset + (i + 1) * sub
         if track_drift and step % drift_every == 0:
-            h = measure_h(stepper.extract(carry))
-            drift = torch.maximum(drift, torch.abs(h - h0) / h_scale)
+            with span(ENSEMBLE_SAMPLE):
+                h = measure_h(stepper.extract(carry))
+                drift = torch.maximum(drift, torch.abs(h - h0) / h_scale)
         if observable is not None and step % obs_every == 0:
             ph = stepper.extract(carry)
             if transforms:
@@ -266,22 +279,23 @@ def _final_setup(system, phase0, dt, n_steps, *, method, iters, omega, track_dri
     iteration of it."""
     if n_steps % drift_every != 0:
         raise ValueError(f"{n_steps=} not divisible by {drift_every=}")
-    stepper = make_stepper(
-        system, method, iters=iters, omega=omega, compensated=compensated,
-        steps_per_call=steps_per_call,
-    )
-    sub = _check_substeps(stepper, n_steps, drift_every, track_drift)
-    _check_obs_every(observable, obs_every, sub)
-    dt = _dt_scalar(dt, phase0)
-    measure_h, h0, h_scale, drift = _drift_setup(
-        system, phase0, drift_dtype, track_drift
-    )
-    body = _final_loop_body(
-        stepper, dt, measure_h, h0, h_scale, drift_every, track_drift,
-        observable=observable, obs_every=obs_every,
-    )
-    obs = observable.init(phase0) if observable is not None else 0
-    return stepper, body, (stepper.init(phase0), drift, obs), n_steps // sub
+    with span(ENSEMBLE_SETUP):
+        stepper = make_stepper(
+            system, method, iters=iters, omega=omega, compensated=compensated,
+            steps_per_call=steps_per_call,
+        )
+        sub = _check_substeps(stepper, n_steps, drift_every, track_drift)
+        _check_obs_every(observable, obs_every, sub)
+        dt = _dt_scalar(dt, phase0)
+        measure_h, h0, h_scale, drift = _drift_setup(
+            system, phase0, drift_dtype, track_drift
+        )
+        body = _final_loop_body(
+            stepper, dt, measure_h, h0, h_scale, drift_every, track_drift,
+            observable=observable, obs_every=obs_every,
+        )
+        obs = observable.init(phase0) if observable is not None else 0
+        return stepper, body, (stepper.init(phase0), drift, obs), n_steps // sub
 
 
 def evolve_ensemble_chunked(
@@ -331,35 +345,36 @@ def evolve_ensemble_chunked(
         raise ValueError(f"{n_steps=} not divisible by {chunk_steps=}")
     if track_drift and chunk_steps % drift_every != 0:
         raise ValueError(f"{chunk_steps=} not divisible by {drift_every=}")
-    stepper = make_stepper(
-        system, method, iters=iters, omega=omega, compensated=compensated,
-        steps_per_call=steps_per_call,
-    )
-    sub = _check_substeps(stepper, chunk_steps, drift_every, track_drift)
-    _check_obs_every(observable, obs_every, sub)
-    if observable is not None and chunk_steps % obs_every != 0:
-        raise ValueError(
-            f"{chunk_steps=} not divisible by {obs_every=} (observable sampling "
-            f"must stay globally aligned across chunks)"
+    with span(ENSEMBLE_SETUP):
+        stepper = make_stepper(
+            system, method, iters=iters, omega=omega, compensated=compensated,
+            steps_per_call=steps_per_call,
         )
-    dt = _dt_scalar(dt, phase0)
-    measure_h, h0, h_scale, drift = _drift_setup(
-        system, phase0, drift_dtype, track_drift
-    )
-    # chunk boundaries are multiples of chunk_steps, which drift_every and
-    # obs_every divide, so one body with offset 0 samples at the global
-    # cadence
-    body = _final_loop_body(
-        stepper, dt, measure_h, h0, h_scale, drift_every, track_drift,
-        observable=observable, obs_every=obs_every,
-    )
-    carry = stepper.init(phase0) if initial_carry is None else initial_carry
-    if track_drift and initial_drift is not None:
-        drift = initial_drift
-    if initial_obs is not None:
-        obs = initial_obs
-    else:
-        obs = observable.init(phase0) if observable is not None else 0
+        sub = _check_substeps(stepper, chunk_steps, drift_every, track_drift)
+        _check_obs_every(observable, obs_every, sub)
+        if observable is not None and chunk_steps % obs_every != 0:
+            raise ValueError(
+                f"{chunk_steps=} not divisible by {obs_every=} (observable sampling "
+                f"must stay globally aligned across chunks)"
+            )
+        dt = _dt_scalar(dt, phase0)
+        measure_h, h0, h_scale, drift = _drift_setup(
+            system, phase0, drift_dtype, track_drift
+        )
+        # chunk boundaries are multiples of chunk_steps, which drift_every and
+        # obs_every divide, so one body with offset 0 samples at the global
+        # cadence
+        body = _final_loop_body(
+            stepper, dt, measure_h, h0, h_scale, drift_every, track_drift,
+            observable=observable, obs_every=obs_every,
+        )
+        carry = stepper.init(phase0) if initial_carry is None else initial_carry
+        if track_drift and initial_drift is not None:
+            drift = initial_drift
+        if initial_obs is not None:
+            obs = initial_obs
+        else:
+            obs = observable.init(phase0) if observable is not None else 0
     wants_obs = carry_callback is not None and _callback_wants_obs(carry_callback)
     for ci in range(n_steps // chunk_steps):
         for i in range(chunk_steps // sub):

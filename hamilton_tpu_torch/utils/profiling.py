@@ -9,6 +9,19 @@ times calls queued behind a held stream: their device time back to back,
 and the host's time to issue one.  :func:`profile_trace`
 wraps ``torch.profiler`` for a Chrome trace of the CPU and CUDA activity.
 A measurement that finds no card raises: it never falls back to the CPU.
+
+:func:`span` names a range of the program's own work in that trace: the
+ensemble drivers open ``hamilton_tpu_torch.ensemble.setup`` once a call
+(everything before the first step: the stepper, ``dt``, the drift
+sampler's ``H₀``, the initial carry), ``.step`` around each
+``stepper.step`` (one K1 launch on the fused stepper) and ``.sample``
+around each drift sample.  They are ``torch.profiler`` ranges (one
+``RecordFunction`` each, as ``record_function`` opens), on the profiler's
+clock beside the device's activity, and live only while a profiler
+records: otherwise a span costs one branch on the flag the profiler sets as
+it starts and stops.  A live span takes PyTorch's fast entry: through
+``record_function`` it costs six times the host time, enough to leave the
+card idle between the double pendulum's launches under a profiler.
 """
 
 from __future__ import annotations
@@ -21,8 +34,28 @@ from pathlib import Path
 from typing import Any, Callable, Optional, Tuple
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["BenchResult", "benchmark_fn", "time_queued", "profile_trace"]
+__all__ = ["BenchResult", "benchmark_fn", "time_queued", "profile_trace", "span",
+           "ENSEMBLE_SETUP", "ENSEMBLE_STEP", "ENSEMBLE_SAMPLE"]
+
+#: The ensemble drivers' spans (:mod:`hamilton_tpu_torch.ensemble`).
+ENSEMBLE_SETUP = "hamilton_tpu_torch.ensemble.setup"
+ENSEMBLE_STEP = "hamilton_tpu_torch.ensemble.step"
+ENSEMBLE_SAMPLE = "hamilton_tpu_torch.ensemble.sample"
+
+#: The range a live span opens: a ``RecordFunction`` entered without
+#: ``record_function``'s round trip through the dispatcher.
+_record = torch._C._profiler._RecordFunctionFast
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler`` range named ``name`` while a profiler records,
+    else a shared no-op context."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _record(name)
+    return _OFF
 
 
 @dataclass(frozen=True)
