@@ -548,11 +548,14 @@ def card_line() -> str:
 
 
 # fused_step_kernel<T, n, semiseparable, compensated, per-member, composed>
-# (one thread a member) or lane_kernel<T, n, lanes, compensated, per-member,
-# composed, kDenseForm> (the dense chain on lanes, csrc/dense_lanes.cuh)
+# (one thread a member), lane_kernel<T, n, lanes, compensated, per-member,
+# composed, kDenseForm> (the dense chain on lanes, csrc/dense_lanes.cuh) or
+# semisep_wide_kernel<T, n, lanes, unroll, compensated, per-member, composed>
+# (the semiseparable chain at n = 20 on its link split, csrc/semisep_wide.cuh)
 _KERNEL_RE = re.compile(
     r"(?:fused_step_kernelI(?P<t>[fd])Li(?P<n>\d+)ELb(?P<semi>[01])E"
-    r"|lane_kernelI(?P<lt>[fd])Li(?P<ln>\d+)ELi(?P<lanes>\d+)E(?=(?:Lb[01]E){3}Li1E))"
+    r"|lane_kernelI(?P<lt>[fd])Li(?P<ln>\d+)ELi(?P<lanes>\d+)E(?=(?:Lb[01]E){3}Li1E)"
+    r"|semisep_wide_kernelI(?P<wt>[fd])Li(?P<wn>\d+)ELi\d+ELi\d+E)"
     r"Lb(?P<comp>[01])ELb(?P<pm>[01])ELb(?P<composed>[01])E"
     r"(?:Li(?P<ip>\d+)ELi(?P<iq>\d+)E)?")
 # solve_tile_kernel<T, lanes, nmax> (K2a), factor_lanes_kernel<T, lanes, nmax>
@@ -583,6 +586,8 @@ def _modes(m):
 def _k1_label(m):
     if m["lt"]:  # the dense chain on lanes
         return f"{'float' if m['lt'] == 'f' else 'double'} n={m['ln']} dense{_modes(m)}"
+    if m["wt"]:  # the semiseparable chain on its link split
+        return f"{'float' if m['wt'] == 'f' else 'double'} n={m['wn']} semiseparable{_modes(m)}"
     return (f"{'float' if m['t'] == 'f' else 'double'} n={m['n']} "
             f"{'semiseparable' if m['semi'] == '1' else 'dense'}{_modes(m)}")
 
@@ -612,13 +617,14 @@ def _variant_label(m):
 
 
 _USER_RE = re.compile(r"user_family_kernelI([fd])Li(\d)ELb([01])ELb([01])E")
-# semisep_wide_kernel<T, compensated, per-member, composed> (csrc/semisep_wide.cu)
-_WIDE_RE = re.compile(r"semisep_wide_kernelI(?P<t>[fd])Lb(?P<comp>[01])ELb(?P<pm>[01])E"
-                      r"Lb(?P<composed>[01])E")
+# semisep_wide_kernel<T, n, lanes, unroll, compensated, per-member, composed>
+# (csrc/semisep_wide.cuh: at n = 40 built by csrc/semisep_wide.cu)
+_WIDE_RE = re.compile(r"semisep_wide_kernelI(?P<t>[fd])Li(?P<n>\d+)ELi\d+ELi\d+E"
+                      r"Lb(?P<comp>[01])ELb(?P<pm>[01])ELb(?P<composed>[01])E")
 
 
 def _wide_label(m):
-    return f"{'float' if m['t'] == 'f' else 'double'} n=40 semiseparable wide{_modes(m)}"
+    return f"{'float' if m['t'] == 'f' else 'double'} n={m['n']} semiseparable wide{_modes(m)}"
 
 
 def _user_label(m):

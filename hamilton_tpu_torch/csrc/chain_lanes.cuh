@@ -3,10 +3,11 @@
 // (chain_variants.cu; 4 lanes at n = 20, 2 at n = 5), the form that
 // dense_lanes.cuh's dense chain also runs on it, and the one-thread chain
 // kernels' staged per-member table (StagedColumn).  The semiseparable and
-// Moebius forms at n = 20 and 5 run on the one-thread step_member: on these
-// lanes every lane repeats their O(n) scans, and they measured slower at
-// every G (PERF.md section 6); at n = 40 the semiseparable form runs on
-// semisep_wide.cu's lanes, which split each scan by links instead.
+// Moebius forms do not run on these lanes: every lane would repeat their
+// O(n) scans, and they measured slower at every G (PERF.md section 6).  The
+// semiseparable form runs on semisep_wide.cuh's link split at n = 40 and
+// 20 (G lanes a member in G warps, each scan handed from lane to lane), on
+// the one-thread step_member elsewhere, as does the Moebius form.
 //
 // A member is a group of G consecutive lanes of a warp (LaneShape below);
 // lane_step runs step_member's step (fused_step.cuh) on them with a form's

@@ -23,8 +23,9 @@
 // semiseparable step is a chain of O(n) sequential scans, its factor with a
 // square root and a reciprocal a link.  What the design does about it: one
 // thread a member, everything over N unrolled at compile time so the
-// per-member lists live in registers (at n = 20 the live set exceeds 255
-// registers and some of it spills to L1-backed local memory), batch-minor
+// per-member lists live in registers (the semiseparable form's at n = 20
+// exceeds 255 registers and spills ~2 KB: it runs on the link split below),
+// batch-minor
 // x[i*B + b] loads and stores that coalesce, and (chain_forms.cuh):
 //   - each link's sin and cos from one straight-line reduction, and the
 //     factor's square roots and reciprocals straight-line, the library's
@@ -40,13 +41,17 @@
 //   - the dense form's p-half and q-refinement counts its callers use, (2,1)
 //     and (3,1), as compile-time constants (fused_step.cuh's with_iters), so
 //     their loops unroll; any other count read at run time.
-// On G lanes a member, as the L^-1 form runs (chain_lanes.cuh: the factor
-// in shared memory), this form measured slower than one thread a member at
-// every G from 1 to 8, because every lane repeats the O(n) scans (PERF.md
-// section 6).  The dense form has no such scan: its O(n^3) factor and O(n^2)
-// products split by rows, and on lanes it measured 0.63x the generated
-// kernel at n = 20 and 0.18x the one-thread template (its loops rolled, the
-// factor in local memory) at n = 40 (PERF.md section 6).
+// The semiseparable form at n = 20 runs, where WideRoute sends it, on
+// semisep_wide.cuh's link split: a member's links on G lanes in G warps,
+// each scan handed from lane to lane, a lane's vectors in registers (ten
+// same-call pairs, PERF.md section 6).  On G lanes of one warp, as the L^-1
+// form runs (chain_lanes.cuh: the factor in shared memory), this form had
+// measured slower than one thread a member at every G from 1 to 8, because
+// there every lane repeats the O(n) scans.  The dense form has no such
+// scan: its O(n^3) factor and O(n^2) products split by rows, and on lanes it
+// measured 0.63x the generated kernel at n = 20 and 0.18x the one-thread
+// template (its loops rolled, the factor in local memory) at n = 40
+// (PERF.md section 6).
 //
 // Build (no fast-math: it would reassociate the Kahan compensation away and
 // swap sinf/cosf for approximations whose error shows in the drift):
@@ -59,15 +64,18 @@
 // FMA the velocities, good to cond(K) ulps, drift apart from the plain
 // version's as n grows: at n = 40 the float32 semiseparable vdot_est read
 // 0.33 of its largest magnitude off over one step).
-// Built as ten parts at once (kernels.PARTS): part 2*v + dtype_code, with
-// -DHAMILTON_PART set to it, holds variant v (0 semiseparable n=20, 1
-// semiseparable n=5, 2 dense n=2, 3 dense n=40 on lanes, 4 dense n=20 on
-// lanes) in one dtype; without it, one library holds all.  The
-// semiseparable chain at n = 40 runs on csrc/semisep_wide.cu (its member's
-// working set on the chip), which measured 0.17x this template there
-// (PERF.md section 6).
+// Parts 0 and 1 (the semiseparable form at n = 20, on the link split) keep
+// the contraction and are held to chip_smoke.TOL; semisep_wide.cu builds the
+// same link split without it.  Built as ten parts at once (kernels.PARTS):
+// part 2*v + dtype_code, with -DHAMILTON_PART set to it, holds variant v (0
+// semiseparable n=20, 1 semiseparable n=5, 2 dense n=2, 3 dense n=40 on
+// lanes, 4 dense n=20 on lanes) in one dtype; without it, one library holds
+// all.  The semiseparable chain at n = 40 runs on csrc/semisep_wide.cu (its
+// member's working set on the chip), which measured 0.17x this template
+// there (PERF.md section 6).
 
 #include "dense_lanes.cuh"
+#include "semisep_wide.cuh"
 
 namespace {
 
@@ -108,10 +116,34 @@ __global__ void __launch_bounds__(kThreads)
 template <int N, bool SEMISEP>
 constexpr bool kDenseOnLanes = !SEMISEP && N >= 20;
 
+// The semiseparable chain at n = 20 on semisep_wide.cuh's link split, in
+// float (F) and double (D), every table mode and composition: the lanes a
+// member (0: the one-thread step_member); the links a scan unrolls (0: all
+// of a lane's, its vectors in registers).  The fastest of
+// scripts/k1_route_ab.py's ten same-call pairs (PERF.md section 6), which
+// builds copies of the source with others: on an H100 at 16384 members, 50
+// steps, G = 2 read 0.83x the one-thread template's time (float, Kahan
+// (2,0)), 0.79x (its per-member tables) and 0.84x (suzuki4); in double,
+// where the one-thread build spills 23 KB, 0.093x, 0.33x and 0.094x.
+constexpr int kWide20LanesF = 2, kWide20LanesD = 2;
+constexpr int kWide20Unroll = 0;
+
+// The link split's lanes a member (G) and unroll (U) for the variant at (N,
+// SEMISEP); G = 0 where it runs on the one-thread template.
+template <typename T, int N, bool SEMISEP>
+struct WideRoute {
+  static constexpr bool kFloat = std::is_same<T, float>::value;
+  static constexpr int G = SEMISEP && N == 20 ? (kFloat ? kWide20LanesF : kWide20LanesD) : 0;
+  static constexpr int U = kWide20Unroll;
+};
+
 template <typename T, int N, bool SEMISEP, bool COMP, bool PM, bool COMPOSED>
 int launch(const Args& a) {
+  using W = WideRoute<T, N, SEMISEP>;
   if constexpr (kDenseOnLanes<N, SEMISEP>) {
     return lane_launch<T, N, DenseLanes<T, N>::value, COMP, PM, COMPOSED, kDenseForm>(a);
+  } else if constexpr (W::G > 0) {
+    return wide_launch<T, N, W::G, W::U, COMP, PM, COMPOSED>(a);
   } else {
     unsigned bytes;  // the semiseparable form's per-member table, staged
     const cudaError_t attr =
@@ -178,26 +210,32 @@ int layout_variant(int compensated, int per_member, int* out) {
     return lane_layout<T, N, DenseLanes<T, N>::value, held, kDenseForm>(compensated, per_member,
                                                                         out);
   } else {
-    out[0] = 1;
-    out[1] = kThreads;
-    out[2] = per_member && SEMISEP ? sizeof(T) * CoefLen<N, true>::value * kThreads : 0;
-    out[3] = 0;
-    if constexpr (held) {
-      auto one = [out](auto comp, auto pm) {
-        constexpr bool kComp = decltype(comp)::value, kPm = decltype(pm)::value;
-        constexpr auto kernel = fused_step_kernel<T, N, SEMISEP, kComp, kPm, false>;
-        unsigned bytes;
-        const cudaError_t attr =
-            staged_prepare<T, CoefLen<N, true>::value, kPm && SEMISEP, kernel>(&bytes);
-        return attr != cudaSuccess ? static_cast<int>(attr)
-                                   : kernel_layout(kernel, 1, kThreads, bytes, out);
-      };
-      using Y = std::true_type;
-      using No = std::false_type;
-      if (compensated) return per_member ? one(Y{}, Y{}) : one(Y{}, No{});
-      return per_member ? one(No{}, Y{}) : one(No{}, No{});
-    }
-    return 0;
+    auto one = [out](auto comp, auto pm) {
+      constexpr bool kComp = decltype(comp)::value, kPm = decltype(pm)::value;
+      using W = WideRoute<T, N, SEMISEP>;
+      if constexpr (W::G > 0) {
+        return wide_layout<T, N, W::G, W::U, kComp, kPm, held>(out);
+      } else {
+        out[0] = 1;
+        out[1] = kThreads;
+        out[2] = kPm && SEMISEP ? sizeof(T) * CoefLen<N, true>::value * kThreads : 0;
+        out[3] = 0;
+        if constexpr (held) {
+          constexpr auto kernel = fused_step_kernel<T, N, SEMISEP, kComp, kPm, false>;
+          unsigned bytes;
+          const cudaError_t attr =
+              staged_prepare<T, CoefLen<N, true>::value, kPm && SEMISEP, kernel>(&bytes);
+          return attr != cudaSuccess ? static_cast<int>(attr)
+                                     : kernel_layout(kernel, 1, kThreads, bytes, out);
+        } else {
+          return 0;
+        }
+      }
+    };
+    using Y = std::true_type;
+    using No = std::false_type;
+    if (compensated) return per_member ? one(Y{}, Y{}) : one(Y{}, No{});
+    return per_member ? one(No{}, Y{}) : one(No{}, No{});
   }
 }
 

@@ -96,7 +96,9 @@ SOURCE_FLAGS = {"family_step": ("-fmad=false",), "chain_variants": ("-fmad=false
 #: ``csrc/fused_step.cu``'s variants, ``(n, semiseparable)`` → the variant
 #: of its dispatch (a launch's code is n; the forms pick semiseparable).  The
 #: dense chain at n = 40 and 20 (variants 3 and 4) runs on G lanes a member
-#: (``csrc/dense_lanes.cuh``), the others one thread a member.
+#: (``csrc/dense_lanes.cuh``), the semiseparable chain at n = 20 (variant 0)
+#: on its link split where the source routes it (``csrc/semisep_wide.cuh``:
+#: G lanes a member in G warps), the others one thread a member.
 FUSED_STEP_VARIANTS = {(20, True): 0, (5, True): 1, (2, False): 2, (40, False): 3,
                        (20, False): 4}
 
@@ -482,7 +484,9 @@ def lane_layout(source: str, dtype_code: int, code: int, compensated: bool = Tru
     False, dense at 2, 20 and 40; ``"chain_variants"``: its case;
     ``"semisep_wide"``: n = 40, semiseparable) as its
     library was built: ``(lanes a member, threads a block, dynamic shared
-    bytes a block, blocks an SM)``, lanes 1 for a one-thread kernel, the
+    bytes a block, blocks an SM)``, lanes 1 for a one-thread kernel (the
+    semiseparable form at n = 20 reports its link split's lanes where the
+    source routes the dtype and modes there), the
     last the blocks of its instantiation in these modes (not composed) that
     the card holds at once by its registers and shared memory.  Builds the
     library's part at first use; raises for a code the source does not

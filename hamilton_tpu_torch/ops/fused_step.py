@@ -1063,6 +1063,9 @@ def fused_step_reference(
 #: three dispatch tables.  Every other family runs on the generated kernel
 #: (``csrc/user_family_step.cu``, :mod:`~hamilton_tpu_torch.ops.fused_codegen`).
 KERNEL_INSTANTIATIONS = {
+    # the headline chain: a member's links on G lanes in G warps, the scans
+    # handed from lane to lane (csrc/semisep_wide.cuh), where fused_step.cu
+    # routes the dtype and modes there (PERF.md §6)
     ("serial_chain_on", 20, 60): ("fused_step", 20),
     ("serial_chain_on", 5, 15): ("fused_step", 5),
     ("serial_chain", 2, 6): ("fused_step", 2),

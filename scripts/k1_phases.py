@@ -3,7 +3,9 @@
 
     python3 scripts/k1_phases.py [--tree DIR] [--sass] [FORM ...]
 
-FORM is a chain form, ``semiseparable`` (default; ``csrc/fused_step.cu``) or
+FORM is a chain form, ``semiseparable`` (default; ``csrc/fused_step.cu``'s
+one-thread template: the copy's link split at n = 20 switched off,
+``kWide20LanesF = 0``, so not with ``semiseparable20`` in one call) or
 ``mobius`` (``csrc/chain_variants.cu``); a family of ``csrc/family_step.cu``,
 ``spherical``, ``two_body``, ``room``, ``spring``, ``ellipse``, ``bezier5`` or
 ``bezier2``; or a family on the generated kernel (``csrc/user_family_step.cu``
@@ -19,9 +21,11 @@ are wrapped alike, and whose solve's back half (the dependent chain of
 ``dense_back_lanes``) is timed on its own; ``linv20``: the chain's L⁻¹
 form on its lanes (``csrc/chain_variants.cu`` case 2, ``lane_step``
 likewise), whose factor's generator recursion (``lane_generators``, run out
-of line inside the factor) is timed on its own; and ``semiseparable40``: the
-semiseparable chain at n = 40 on ``csrc/semisep_wide.cu`` (its working set
-in shared memory and registers, G lanes a member), whose ``wide_step``'s
+of line inside the factor) is timed on its own; and ``semiseparable40`` and
+``semiseparable20``: the semiseparable chain on its link split
+(``csrc/semisep_wide.cuh``, G lanes a member: at n = 40 through
+``csrc/semisep_wide.cu``, its vectors in shared memory; at n = 20 through
+``csrc/fused_step.cu``, its vectors in registers), whose ``wide_step``'s
 calls of its routines are wrapped alike (the aux's shift to q1,
 ``wide_q1_update`` and ``wide_settle``, read as aux_at), and whose named
 barriers' waits, where a lane waits for another's scan, are timed on their
@@ -54,8 +58,10 @@ a short step), builds the form's float32 kernel and runs one launch:
   table), read as aux (and its shift), generators, columns of L⁻¹, solves
   and dH/dq;
 - ``semiseparable40``: phase 21 (a)'s semiseparable row (16384 members,
-  Kahan (2,0), dt = 5e-4, 50 steps, shared table), read as aux, aux shift,
-  factor, solves, dH/dq and the hand-off.
+  Kahan (2,0), dt = 5e-4, 50 steps, shared table), and ``semiseparable20``
+  the headline's (the same at n = 20), read as aux, aux shift, factor,
+  solves, dH/dq and the hand-off (the barrier waits: how far the lanes
+  overlap).
 
 The package itself is not touched.  ``--sass`` also builds DIR's own
 (unprobed) ``family_step.cu`` and writes ``cuobjdump -sass`` of each family
@@ -110,8 +116,10 @@ LINV_FORMS = {"linv20": (2, 20, (2, 0), 5e-4)}
 # shared, not composed, the L^-1 form>
 LINV_SASS = ("lane_kernelIfLi20ELi", "ELb1ELb0ELb0ELi0E")
 SOURCES = ("fused_step", "chain_variants", "family_step", "user_family_step", "semisep_wide")
-# the semiseparable chain at n = 40 (csrc/semisep_wide.cu): (iters, dt)
-WIDE_FORMS = {"semiseparable40": ((2, 0), 5e-4)}
+# the semiseparable chain on its link split (csrc/semisep_wide.cuh): (its
+# source, n, iters, dt)
+WIDE_FORMS = {"semiseparable40": ("semisep_wide", 40, (2, 0), 5e-4),
+              "semiseparable20": ("fused_step", 20, (2, 0), 5e-4)}
 # the dense chain on one thread a member: (n, source, its code, members,
 # iters, dt, steps a launch)
 DENSE_FORMS = {"dense2": (2, "fused_step", 2, 16384, (2, 1), 1e-3, 50),
@@ -168,7 +176,10 @@ extern "C" int hamilton_phase_cycles(unsigned long long* out, int zero) {
 SASS_OPS = ("LDS", "LDG", "LDL", "CALL", "BRA", "MUFU")
 
 
-def _copy(tree: Path) -> Path:
+def _copy(tree: Path, one_thread: bool = False) -> Path:
+    """The tree's package copied with the probes; ``one_thread``: its
+    semiseparable chain at n = 20 on the one-thread template (where the
+    tree routes it to the link split)."""
     where = WORK / tree.resolve().name
     pkg = where / "hamilton_tpu_torch"
     if pkg.exists():  # its builds, named by a hash of what they were built from, stay
@@ -190,7 +201,11 @@ def _copy(tree: Path) -> Path:
         raise RuntimeError(f"{header}: {count} phase calls and {n} step clocks wrapped")
     header.write_text(text)
     _wrap_lanes(pkg / "csrc")
-    _wrap_wide(pkg / "csrc" / "semisep_wide.cu")
+    wide_header = pkg / "csrc" / "semisep_wide.cuh"
+    _wrap_wide(wide_header if wide_header.exists() else pkg / "csrc" / "semisep_wide.cu")
+    if one_thread:
+        k1 = pkg / "csrc" / "fused_step.cu"
+        k1.write_text(re.sub(r"\bkWide20LanesF = \d+", "kWide20LanesF = 0", k1.read_text()))
     for source in SOURCES:
         src = pkg / "csrc" / f"{source}.cu"
         src.write_text(src.read_text() + ENTRIES)
@@ -245,23 +260,27 @@ def _wrap_lanes(csrc: Path) -> None:
 
 
 def _wrap_wide(src: Path) -> None:
-    """``semisep_wide.cu``'s probes: ``wide_step``'s calls of its routines
+    """The link split's probes (``semisep_wide.cuh``, or a tree's
+    ``semisep_wide.cu`` before it): ``wide_step``'s calls of its routines
     wrapped as ``step_member``'s (the trig into aux, the shift to q1 into
     aux_at), the whole step likewise, and each named barrier's wait summed
     in the member's ``waited``, read into phase 6 as the step ends."""
     text = src.read_text()
     head, rest = text.split("__device__ __forceinline__ void wide_step(", 1)
-    body, tail = rest.split("template <typename T>\nstruct WideLanes", 1)
+    anchor = ("// ---- the kernel, its launch and its layout" if src.suffix == ".cuh"
+              else "template <typename T>\nstruct WideLanes")
+    body, tail = rest.split(anchor, 1)
     count = 0
     for k, pattern in ((0, r"wide_trig\("), (1, r"wide_q1_update\(|wide_settle\("),
                        (2, r"wide_factor\("), (3, r"wide_solve\("), (4, r"wide_dhdq<\w+>\(")):
         body, n = re.subn(rf"((?:{pattern})[^;]*;)",
                           rf"{{ PhaseClock clock_(phase_cycles_.c[{k}]); \1 }}", body)
         count += n
-    edits = [("  const int lo = m.lo();\n\n  // the vectors no scan reads",
-              "  const int lo = m.lo();\n  PhaseCycles phase_cycles_;\n\n"
-              "  // the vectors no scan reads"),
-             ("  if (!active) return;\n",
+    body, n = re.subn(r"(  const int lo = m\.lo\(\);\n(?:  const WideTable[^\n]*\n)?)",
+                      r"\1  PhaseCycles phase_cycles_;\n", body, count=1)
+    if n != 1:
+        raise RuntimeError(f"{src}: wide_step's first line not found")
+    edits = [("  if (!active) return;\n",
               "  phase_cycles_.c[6] = m.waited;\n  if (!active) return;\n")]
     for old, new in edits:
         if body.count(old) != 1:
@@ -269,9 +288,10 @@ def _wrap_wide(src: Path) -> None:
         body = body.replace(old, new)
     if count != 20:
         raise RuntimeError(f"{src}: {count} of wide_step's 20 routine calls wrapped")
-    for old, new in (("  int g;   // its lane\n",
-                      "  int g;   // its lane\n  mutable long long waited = 0;\n"),
-                     ("#ifdef __CUDA_ARCH__\n      asm volatile(\"bar.sync",
+    head, n = re.subn(r"(  int g; +// its lane\n)", r"\1  mutable long long waited = 0;\n", head)
+    if n != 1:
+        raise RuntimeError(f"{src}: the member's lane not found once")
+    for old, new in (("#ifdef __CUDA_ARCH__\n      asm volatile(\"bar.sync",
                       "#ifdef __CUDA_ARCH__\n      const long long t0_ = phase_clock();\n"
                       "      asm volatile(\"bar.sync"),
                      ("                   : \"memory\");\n",
@@ -279,8 +299,7 @@ def _wrap_wide(src: Path) -> None:
         if head.count(old) != 1:
             raise RuntimeError(f"{src}: {old!r} not found once")
         head = head.replace(old, new)
-    src.write_text(head + "__device__ __forceinline__ void wide_step(" + body
-                   + "template <typename T>\nstruct WideLanes" + tail)
+    src.write_text(head + "__device__ __forceinline__ void wide_step(" + body + anchor + tail)
 
 
 def _launch(form, dev):
@@ -314,9 +333,9 @@ def _launch(form, dev):
                   coef=coef_table(forms, dev, f32))
         return lib, lambda: fused_step_kernel(forms, state, dt, **kw), spc, batch
     if form in WIDE_FORMS:
-        iters, dt = WIDE_FORMS[form]
-        lib = kernels.build("semisep_wide", parts=(0,)).paths[0]
-        ex = tp.chain(n_links=40, fused_solver="semiseparable", device=dev, dtype=f32)
+        source, n, iters, dt = WIDE_FORMS[form]
+        lib = kernels.build(source, parts=(kernels.PARTS[source][1](0, n, True),)).paths[0]
+        ex = tp.chain(n_links=n, fused_solver="semiseparable", device=dev, dtype=f32)
         forms = ex.system.fused_forms(ex.system)
         state = fused_stepper(forms, iters=iters, compensated=True).init(
             cs.jittered_phase(ex, BATCH, f32, dev, 0))
@@ -324,8 +343,8 @@ def _launch(form, dev):
 
         def wide():  # the kernel itself, whatever KERNEL_INSTANTIATIONS routes
             out = torch.empty_like(state)
-            kernels.semisep_wide_launch(
-                dtype_code=0, code=40, semiseparable=True, compensated=True,
+            kernels.LAUNCHERS[source](
+                dtype_code=0, code=n, semiseparable=True, compensated=True,
                 per_member=False, coef=coef.data_ptr(), state_in=state.data_ptr(),
                 state_out=out.data_ptr(), batch=BATCH, dt=dt, iters_p=iters[0],
                 iters_q=iters[1], steps_per_call=SPC, weights=(1.0,),
@@ -545,7 +564,10 @@ def main(argv) -> int:
     sass_counts = _sass(tree, forms) if sass else None
     for form, c in (sass_counts or {}).items():
         print(f"sass {tree} {form}: " + ", ".join(f"{k} {v}" for k, v in c.items()), flush=True)
-    where = _copy(tree)
+    if "semiseparable" in forms and "semiseparable20" in forms:
+        print("semiseparable and semiseparable20 need separate calls", file=sys.stderr)
+        return 2
+    where = _copy(tree, one_thread="semiseparable" in forms)
     sys.path[:0] = [str(where), str(ROOT)]
     import torch
 
@@ -577,7 +599,8 @@ def main(argv) -> int:
                  if form in LANE_FORMS else
                  kernels.lane_layout("chain_variants", 0, LINV_FORMS[form][0])[0]
                  if form in LINV_FORMS else
-                 kernels.lane_layout("semisep_wide", 0, 40)[0] if form in WIDE_FORMS else 1)
+                 kernels.lane_layout(WIDE_FORMS[form][0], 0, WIDE_FORMS[form][1])[0]
+                 if form in WIDE_FORMS else 1)
         warp_steps = (batch * lanes + 31) // 32 * spc
         cycles = {name: out[k] / warp_steps for k, name in enumerate(PHASES)}
         cycles["step"] = out[5] / warp_steps

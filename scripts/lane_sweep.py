@@ -9,8 +9,10 @@ semiseparable:0:0``): ``linv`` (``csrc/chain_variants.cu``) with G20 and G5
 the lanes a member at n = 20 and at n = 5 (powers of two), optionally
 followed by ``o`` to call its factor, solve and dH/dq routines out of line
 at both sizes (the source inlines them at n <= 8); or ``semiseparable:0:0``
-(``csrc/fused_step.cu``) or ``mobius:0:0`` (``csrc/chain_variants.cu``),
-the one-thread kernels as shipped, the first optionally followed by ``f`` to
+(``csrc/fused_step.cu``: at n = 20 its link split, ``csrc/
+semisep_wide.cuh``, at n = 5 one thread a member) or ``mobius:0:0``
+(``csrc/chain_variants.cu``, one thread a member), the kernels as shipped,
+the first optionally followed by ``f`` to
 build without FMA contraction (``-fmad=false``, which ``chain_variants.cu``
 always has).  Each variant is a copy of the package under
 ``hamilton_tpu_torch/_build/lane_sweep/`` with those constants changed in

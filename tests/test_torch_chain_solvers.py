@@ -593,10 +593,11 @@ def _host_kernel_source(name, part, where, csrc=None):
                               lambda m: f"HOST_LAUNCH({m.group(2)}, {m.group(3)}, "
                                         f"{m.group(1)}({m.group(4)}));", src, flags=re.S)
         target.write_text(src)
+        assert "<<<" not in src, f"{path.name}: a launch left unrewritten"
         n_shared, n_launch = n_shared + shared, n_launch + launch
-    # chain_lanes.cuh's symbol and lane_launch, and the source's one-thread
-    # launch
-    assert n_shared == 1 and n_launch == 2
+    # chain_lanes.cuh's symbol; its lane_launch, semisep_wide.cuh's
+    # wide_launch, and the sources' own launches
+    assert n_shared == 1 and n_launch >= 2
     lib = where / f"lib{name}_host.so"
     proc = subprocess.run(["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
                            "-w", "-pthread", f"-DHAMILTON_PART={part}", "-I", str(where), "-o",
@@ -604,6 +605,14 @@ def _host_kernel_source(name, part, where, csrc=None):
                           capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr[-4000:]
     return lib
+
+
+def wide20_lanes(dtype_code):
+    """The lanes a member on which ``csrc/fused_step.cu`` runs the
+    semiseparable chain at n = 20 in the dtype (its link split,
+    ``csrc/semisep_wide.cuh``), 0 where it runs the one-thread template."""
+    text = (Path(kernels.__file__).resolve().parent.parent / "csrc" / "fused_step.cu").read_text()
+    return int(re.search(rf"\bkWide20Lanes{'FD'[dtype_code]} = (\d+)", text).group(1))
 
 
 #: The lane-split cases of K1's chain sources (L⁻¹): (code, n).
@@ -692,6 +701,10 @@ def test_lane_layout_of_every_lane_split_case(source, tmp_path):
                 assert query(dtype_code, code, _flags(source, code, True, swept, semisep),
                              out) == 0
                 item = (4, 8)[dtype_code]
+                lanes = wide20_lanes(dtype_code) if (source, code) == ("fused_step", 20) else 0
+                if lanes:  # the link split (tests/test_torch_semisep_wide.py holds its shape)
+                    assert out[0] == lanes and out[1] % 32 == 0 and out[3] == 0
+                    continue
                 assert tuple(out) == (1, 128, staged * 128 * item if swept else 0, 0)
 
 
@@ -790,7 +803,8 @@ def test_linv_kernel_source_on_the_host(n, tmp_path):
                                       ("mobius", 20), ("mobius", 5)])
 def test_one_thread_chain_kernel_source_on_the_host(solver, n, tmp_path):
     """The semiseparable (``csrc/fused_step.cu``) and Möbius
-    (``csrc/chain_variants.cu``) forms, one thread a member, built with g++
+    (``csrc/chain_variants.cu``) forms in float64, one thread a member (at n
+    = 20 the link split where ``fused_step.cu`` routes float64 there), built with g++
     in the host emulation and run through the source's C entry on CPU
     tensors (:func:`_host_step_matches_plain`): the per-member table staged
     in shared memory, the correctly rounded reciprocal."""
@@ -800,14 +814,16 @@ def test_one_thread_chain_kernel_source_on_the_host(solver, n, tmp_path):
                     else ("chain_variants", 0 if n == 20 else 1))
     part = kernels.PARTS[source][1](1, code, solver == "semiseparable")
     lib = ctypes.CDLL(str(_host_kernel_source(source, part, tmp_path)))
-    _host_step_matches_plain(lib, source, code, solver, n, on_lanes=False)
+    _host_step_matches_plain(lib, source, code, solver, n,
+                             on_lanes=(source, n) == ("fused_step", 20) and wide20_lanes(1) > 0)
 
 
 @pytest.mark.parametrize("solver,n", [("semiseparable", 20), ("semiseparable", 5),
                                       ("mobius", 20), ("mobius", 5)])
 def test_float32_chain_kernel_source_on_the_host(solver, n, tmp_path):
-    """The float32 parts of the semiseparable and Möbius kernels, built with
-    g++ in the host emulation (the straight-line sin/cos, square roots and
+    """The float32 parts of the semiseparable (at n = 20 on its link split,
+    ``csrc/semisep_wide.cuh``, where ``fused_step.cu`` routes it there) and
+    Möbius kernels, built with g++ in the host emulation (the straight-line sin/cos, square roots and
     reciprocals of ``csrc/chain_forms.cuh``, with the card's approximate
     reciprocal square root and reciprocal as host divisions) and run
     through the source's C entry on CPU tensors against the float32 plain
@@ -818,7 +834,8 @@ def test_float32_chain_kernel_source_on_the_host(solver, n, tmp_path):
                     else ("chain_variants", 0 if n == 20 else 1))
     part = kernels.PARTS[source][1](0, code, solver == "semiseparable")
     lib = ctypes.CDLL(str(_host_kernel_source(source, part, tmp_path)))
-    _host_step_matches_plain(lib, source, code, solver, n, on_lanes=False,
+    _host_step_matches_plain(lib, source, code, solver, n,
+                             on_lanes=(source, n) == ("fused_step", 20) and wide20_lanes(0) > 0,
                              dtype=torch.float32)
 
 

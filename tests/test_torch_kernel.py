@@ -141,7 +141,9 @@ def test_composition_kernel_matches_plain_version(card, composition, swept, batc
         table = None
     kw = dict(iters=(3, 2), compensated=False, steps_per_call=5, composition=composition,
               coef=table)
+    before = kernels.fused_step_launch.launches
     got = t_step.fused_step_kernel(forms, state, 1e-3, **kw)
+    assert kernels.fused_step_launch.launches == before + 1
     want = t_step.fused_step_reference(forms, state, 1e-3, **kw)
     scale = torch.ones(state.shape[0], 1, 1, dtype=torch.float64, device=card)
     scale[-1] = 1e-3
@@ -157,27 +159,42 @@ def test_lane_layout_fits_the_card(card, source, code):
     every mode: at least one block an SM (the launch would be refused
     otherwise) within a block's 232448 bytes of shared memory.  L⁻¹ (cases 2
     and 3) on lanes, whole groups in a block, at n = 20 in float32 16 warps
-    an SM; the semiseparable and Möbius forms at n = 20 and 5 one thread a
-    member, 128 threads a block, with the per-member table staged in shared
-    memory; the semiseparable chain at n = 40 on lanes (each lane of a
-    member in another warp), its members' slots in shared memory, in
-    float32 16384 members in one wave on 132 SMs."""
+    an SM; the semiseparable chain on its link split (each lane of a member
+    in another warp) at n = 40, its members' slots in shared memory, and at
+    n = 20 where ``fused_step.cu`` routes the dtype there
+    (``_wide20_lanes``), only the carries and the table in shared memory,
+    in float32 16384 members in one wave on 132 SMs; the other
+    semiseparable and Möbius cases at n = 20 and 5 one thread a member, 128
+    threads a block, with the per-member table staged in shared memory."""
     for dtype_code in (0, 1):
         for comp in (False, True):
             for swept in (False, True):
                 lanes, block, smem, blocks = kernels.lane_layout(
                     source, dtype_code, code, compensated=comp, per_member=swept)
                 assert smem <= 232448 and blocks >= 1
+                wide20 = (source, code) == ("fused_step", 20) and _wide20_lanes(dtype_code)
                 if source == "chain_variants" and code in (2, 3):
                     assert lanes > 1 and 32 % lanes == 0 and block % lanes == 0 and smem > 0
                     if dtype_code == 0 and code == 2:
                         assert blocks * block // 32 == 16, (lanes, block, smem, blocks)
-                elif source == "semisep_wide":
-                    assert lanes > 1 and (block // lanes) % 32 == 0 and smem > 0
+                elif source == "semisep_wide" or wide20:
+                    assert (block // lanes) % 32 == 0 and smem > 0
+                    assert lanes == (_wide20_lanes(dtype_code) if wide20 else lanes) > 1
                     if dtype_code == 0:
                         assert 132 * blocks * block // lanes >= 16384, (lanes, block, blocks)
                 else:
                     assert (lanes, block) == (1, 128) and (smem > 0) == swept
+
+
+def _wide20_lanes(dtype_code):
+    """The lanes a member on which ``csrc/fused_step.cu`` runs the
+    semiseparable chain at n = 20 in the dtype (its link split,
+    ``csrc/semisep_wide.cuh``); 0 for the one-thread template."""
+    import re
+    from pathlib import Path
+
+    text = (Path(kernels.__file__).resolve().parent.parent / "csrc" / "fused_step.cu").read_text()
+    return int(re.search(rf"\bkWide20Lanes{'FD'[dtype_code]} = (\d+)", text).group(1))
 
 
 def test_straight_line_libm_equals_the_library(card):
